@@ -1,0 +1,215 @@
+"""The frame→B-scan reconstruction pipeline on tensors.
+
+The port of ``fdoct_tpu/pipeline.py``'s fused path (the reference hot loop,
+BscanFFT.cpp:946-1925):
+
+    raw frame → [median] → bin → float → [moving average]      (preprocess)
+    → (y - data_yp)/data_yb                                    (apodize_ratio)
+    → |yr @ M|, M the fused operator of calibration.py         (ascan_mags)
+    → Σ over frames → ÷N → dB → display chain                  (form_bscan)
+
+:func:`reconstruct_group` is the group step: apodize, magnitudes and the sum
+over frames in one hand-written kernel (:mod:`fdoct_tpu_torch.ops.kernels`).
+:func:`reconstruct` and :func:`ascan_mags` keep the per-frame magnitudes with
+plain ``torch.matmul``, as the JAX package leaves them to XLA.
+
+Precision (``cfg.matmul_precision``): 'bf16' rounds the ratio and M to
+bfloat16 and accumulates in float32; 'highest' multiplies in float32 (TF32
+must be off: ``torch.backends.cuda.matmul.allow_tf32 = False``); 'default' is
+'bf16' on CUDA, as the JAX package's 'default' is bf16 on its accelerator, and
+float32 on the CPU, as JAX's is there.  The bf16 branch applies to float32
+data only (float64 data keeps float64, as in the JAX package).
+
+Frames are (..., oph, opw): rows are lateral A-scans, columns wavelength
+samples; B-scans come out (depth, lateral).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from fdoct_tpu_torch.calibration import Calibration
+from fdoct_tpu_torch.ops import (
+    bin_area, median_blur, minmax_pair, normalize_minmax, normalize_rows,
+    smooth_moving_average, threshold_floor, to_db, to_uint8,
+)
+from fdoct_tpu_torch.ops.kernels import fused_recon_accumulate, fused_recon_raw_accumulate
+from fdoct_tpu_torch.ops.scale import clamp_pixel
+
+
+class BscanOutputs(NamedTuple):
+    """One displayed B-scan, all (depth=ndisp, lateral=oph)."""
+    bscan: torch.Tensor      # linear magnitudes ÷N + eps
+    bscandb: torch.Tensor    # dB, DC rows masked (BscanFFT.cpp:1235-1240)
+    bscandisp: torch.Tensor  # uint8 display after threshold + normalize
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to fdoct_tpu_torch yet ({item})")
+
+
+def _check_method(method: str) -> None:
+    if method in ("gather", "hilbert"):
+        raise _not_ported(f"method={method!r}", "ROADMAP Queue 1 item 6")
+    if method not in ("fused", "fused_exact"):
+        raise ValueError(f"unknown method {method!r}")
+
+
+def _check_precision(precision: str) -> None:
+    if precision in ("int8", "int8_direct"):
+        raise _not_ported(f"matmul_precision={precision!r}", "ROADMAP Queue 1 item 7")
+    if precision not in ("default", "highest", "bf16"):
+        raise ValueError(f"unknown matmul_precision {precision!r}")
+
+
+def use_bf16(precision: str, dtype: torch.dtype, device: torch.device) -> bool:
+    """Whether the operator products run on bfloat16 operands."""
+    if dtype != torch.float32:
+        return False
+    return precision == "bf16" or (precision == "default" and device.type == "cuda")
+
+
+# ---------------------------------------------------------------------------
+
+
+def preprocess(raw: torch.Tensor, cfg, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Raw integer frames → binned float spectra (BscanFFT.cpp:952-991:
+    medianBlur, INTER_AREA resize, convertTo CV_64F, smoothmovavg)."""
+    dtype = dtype or getattr(torch, cfg.dtype)
+    x = raw
+    if cfg.mediann > 0:
+        x = median_blur(x, cfg.mediann)
+    x = bin_area(x, max(cfg.binvalue, cfg.binvaluex), max(cfg.binvalue, cfg.binvaluey))
+    y = x.to(dtype)
+    if cfg.movavgn > 0:
+        y = smooth_moving_average(y, cfg.movavgn)
+    return y
+
+
+def apodize_ratio(y: torch.Tensor, background: torch.Tensor,
+                  pi_frame: torch.Tensor, cfg) -> torch.Tensor:
+    """(y - data_yp) / data_yb with the optional input normalizations
+    (BscanFFT.cpp:1123-1132).  Each frame is min-max normalized by its own
+    range, never jointly across a batch."""
+    if cfg.rowwisenormalize:
+        y = normalize_rows(y, 0.0, 1.0)
+    if not cfg.donotnormalize:
+        y = normalize_minmax(y, 0.0, 1.0, axis=(-2, -1) if y.ndim >= 2 else (-1,))
+    return (y - pi_frame) / background
+
+
+def _operator(calib: Calibration, bf16: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    return (calib.op_re_bf16, calib.op_im_bf16) if bf16 else (calib.op_re, calib.op_im)
+
+
+def _op_matmul_pair(yr: torch.Tensor, calib: Calibration,
+                    precision: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (re, im) operator products with one precision policy for every
+    consumer, so |ascan_complex(yr)| equals ascan_mags_fused(yr)."""
+    _check_precision(precision)
+    bf16 = use_bf16(precision, yr.dtype, yr.device)
+    op_re, op_im = _operator(calib, bf16)
+    if bf16:
+        yr, op_re, op_im = yr.to(torch.bfloat16).float(), op_re.float(), op_im.float()
+    return torch.matmul(yr, op_re), torch.matmul(yr, op_im)
+
+
+def ascan_mags_fused(yr: torch.Tensor, calib: Calibration,
+                     precision: str = "default") -> torch.Tensor:
+    """A-scan magnitudes |yr @ M| (M composes DC removal, window, zero-pad,
+    resample, dispersion and the truncated inverse DFT)."""
+    re, im = _op_matmul_pair(yr, calib, precision)
+    return torch.sqrt(re * re + im * im)
+
+
+def ascan_complex(yr: torch.Tensor, calib: Calibration,
+                  precision: str = "default") -> torch.Tensor:
+    """Complex A-scans yr @ M, before the magnitude."""
+    re, im = _op_matmul_pair(yr, calib, precision)
+    return torch.complex(re, im)
+
+
+def ascan_mags(yr: torch.Tensor, calib: Calibration, method: str = "fused",
+               precision: str = "default") -> torch.Tensor:
+    _check_method(method)
+    return ascan_mags_fused(yr, calib, "highest" if method == "fused_exact" else precision)
+
+
+def reconstruct(raw: torch.Tensor, background: torch.Tensor, pi_frame: torch.Tensor,
+                calib: Calibration, cfg, method: str = "fused") -> torch.Tensor:
+    """Raw frames (..., H, W) → per-frame A-scan magnitudes (..., oph, ndisp)."""
+    yr = apodize_ratio(preprocess(raw, cfg), background, pi_frame, cfg)
+    return ascan_mags(yr, calib, method, cfg.matmul_precision)
+
+
+def raw_kernel_applies(raw: torch.Tensor, cfg) -> bool:
+    """Whether the ratio can be formed from the raw counts inside the kernel:
+    8-bit single-channel frames and an identity preprocess and normalization
+    (no median, binning or moving average; donotnormalize and no row-wise
+    normalization).  The same conditions as pallas_kernels.py:137-139."""
+    return (raw.dtype == torch.uint8 and raw.ndim == 3
+            and cfg.mediann <= 1 and cfg.movavgn <= 0
+            and max(cfg.binvalue, cfg.binvaluex, cfg.binvaluey) == 1
+            and cfg.donotnormalize and not cfg.rowwisenormalize)
+
+
+def reconstruct_group(raw: torch.Tensor, background: torch.Tensor,
+                      pi_frame: torch.Tensor, calib: Calibration, cfg,
+                      method: str = "fused") -> torch.Tensor:
+    """Σ over the group of |apodize_ratio(preprocess(raw[b])) @ M|, (oph, ndisp).
+
+    The counterpart of ``reconstruct_group_pallas`` (pipeline.py:253-275 of
+    the JAX package) and the session's group step.  8-bit frames with an
+    identity preprocess go straight to the raw-input kernel; any other
+    configuration preprocesses and normalizes in torch ops, then runs the
+    ratio-input kernel.
+    """
+    _check_method(method)
+    precision = "highest" if method == "fused_exact" else cfg.matmul_precision
+    _check_precision(precision)
+    dtype = getattr(torch, cfg.dtype)
+    op_re, op_im = _operator(calib, use_bf16(precision, dtype, raw.device))
+    background, pi_frame = background.to(dtype), pi_frame.to(dtype)
+    if raw_kernel_applies(raw, cfg):
+        return fused_recon_raw_accumulate(raw.contiguous(), pi_frame.contiguous(),
+                                          (1.0 / background).contiguous(), op_re, op_im)
+    yr = apodize_ratio(preprocess(raw, cfg, dtype), background, pi_frame, cfg)
+    return fused_recon_accumulate(yr.contiguous(), op_re, op_im)
+
+
+def form_bscan(mag_sum: torch.Tensor, cfg, averages: int = 1,
+               bscanthreshold: float | torch.Tensor | None = None,
+               eps: float = 1e-5) -> BscanOutputs:
+    """Accumulated magnitudes (oph, ndisp) → displayed B-scan
+    (BscanFFT.cpp:1211-1255): ÷N, +eps, dB, DC rows masked, threshold floor,
+    optional absolute clamp, min-max normalize, uint8.  Runs untransposed
+    and transposes at the end.  ``eps`` is 1e-5 in the live app
+    (BscanFFT.cpp:1222), 1e-6 in the simulator (BscanFFTsim.cpp:949)."""
+    thresh = cfg.bscanthreshold if bscanthreshold is None else bscanthreshold
+    bscan_u = mag_sum / averages + eps
+    db_u = to_db(bscan_u, eps=0.0, compat=cfg.compat)
+    depth = torch.arange(db_u.shape[-1], device=db_u.device)
+    db_u = torch.where(depth < 2, db_u[..., 4:5], db_u)      # depth cols 0,1 ← 4
+    disp_u = threshold_floor(db_u, thresh)
+    if cfg.clampupper:
+        disp_u = clamp_pixel(disp_u, cfg.clampupperdb)
+    lo, hi = minmax_pair(disp_u)
+    rng = hi - lo
+    safe = torch.where(rng == 0, 1.0, rng)
+    disp = torch.where(rng == 0, 0.0, (disp_u.transpose(-1, -2) - lo) / safe)
+    return BscanOutputs(bscan=bscan_u.transpose(-1, -2),
+                        bscandb=db_u.transpose(-1, -2),
+                        bscandisp=to_uint8(disp))
+
+
+def reconstruct_bscan(raw: torch.Tensor, background: torch.Tensor,
+                      pi_frame: torch.Tensor, calib: Calibration, cfg,
+                      method: str = "fused", averages: int | None = None) -> BscanOutputs:
+    """A batch of raw frames (or one frame) → one averaged, displayed B-scan,
+    through the group kernel."""
+    frames = raw if raw.ndim == 3 else raw[None]
+    n = averages if averages is not None else frames.shape[0]
+    return form_bscan(reconstruct_group(frames, background, pi_frame, calib, cfg, method),
+                      cfg, n)

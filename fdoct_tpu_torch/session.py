@@ -1,0 +1,285 @@
+"""Interactive session: the reference's keystroke state machine, on tensors.
+
+The port of ``fdoct_tpu/session.py`` for the live main path: background 'b'
+and π 'p' captures (BscanFFT.cpp:1000-1099), the threshold and averaging
+keys, per-frame :meth:`Session.process` (one reference loop iteration) and
+the batched :meth:`Session.process_group`, whose steady state runs one
+:func:`fdoct_tpu_torch.pipeline.reconstruct_group` kernel launch and one
+display chain per averaging group.
+
+Device state (the reference's Mats) is tensors on ``device``; control state
+is plain fields.  Variants 'base' and 'sim'.  Saves, ring buffers, J-lockin,
+manual averaging, output rebinning, plugins, the other variants and meshes
+are not ported yet and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from fdoct_tpu_torch.calibration import Calibration
+from fdoct_tpu_torch.ops import channel_select, normalize_minmax, normalize_rows
+from fdoct_tpu_torch.pipeline import form_bscan, preprocess, reconstruct_group
+from fdoct_tpu_torch.utils.profiling import FpsMeter
+
+
+def _not_ported(what: str, item: str = "ROADMAP Queue 1 item 8") -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to fdoct_tpu_torch yet ({item})")
+
+
+@dataclasses.dataclass
+class BscanResult:
+    """One completed averaging group.  ``bscandisp`` is a host uint8 array;
+    ``bscan`` and ``bscandb`` stay on the session's device."""
+    bscan: torch.Tensor       # linear, (ndisp, oph)
+    bscandb: torch.Tensor     # dB with DC rows masked
+    bscandisp: np.ndarray     # uint8 display
+    index: int                # save counter at completion
+
+
+class Session:
+    """One live or replay reconstruction session on one device.
+
+    cfg: pipeline configuration.  device: where the tensors live, e.g.
+    ``"cuda"`` or ``"cpu"``.  variant: 'base' or 'sim'.  source: with the
+    'sim' variant, the source whose ``background()``/``pi_frame()`` the 'b'
+    and 'p' captures read (BscanFFTsim.cpp:806-825).
+    """
+
+    def __init__(self, cfg, device: torch.device | str, variant: str = "base",
+                 source: Any = None, method: str = "fused",
+                 calib: Calibration | None = None, mesh: Any = None):
+        if variant not in ("base", "sim"):
+            raise _not_ported(f"variant {variant!r}")
+        if mesh is not None:
+            raise _not_ported("a device mesh", "ROADMAP Queue 1 item 12")
+        for flag in ("saveframes", "saveinterferograms", "manualaveraging"):
+            if getattr(cfg, flag):
+                raise _not_ported(flag)
+        if cfg.bscanbinx > 1 or cfg.bscanbiny > 1:
+            raise _not_ported("bscanbinx/bscanbiny > 1")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.variant = variant
+        self.source = source
+        self.method = method
+        self.calib = calib or Calibration.create(cfg, self.device)
+        dt = getattr(torch, cfg.dtype)
+        oph, opw, ndisp = cfg.oph, cfg.opw, self.calib.ndisp
+
+        # device state (the reference's Mats)
+        self.data_yb = torch.ones((oph, opw), dtype=dt, device=self.device)   # S(k)
+        self.data_yp = torch.zeros((oph, opw), dtype=dt, device=self.device)  # π / J0
+        self.accum = torch.zeros((oph, ndisp), dtype=dt, device=self.device)
+        self.baccum = torch.zeros((oph, opw), dtype=dt, device=self.device)
+
+        # control state (the reference's flags and counters)
+        self.averages = cfg.averages
+        self.averagestoggle = cfg.averages                  # BscanFFT.cpp:481
+        # the simulator display has no threshold floor (BscanFFTsim.cpp:1131)
+        self.bscanthreshold = -np.inf if variant == "sim" else cfg.bscanthreshold
+        self.indextemp = 0
+        self.indexi = 0
+        self.baccumcount = 0
+        self.zeroisactive = True                            # ring toggle
+        self._pending: set[str] = set()
+        self._said_once: set[str] = set()
+        self.status: list[str] = []
+        self.fpsmeter = FpsMeter(window_s=5.0)              # BscanFFT.cpp:1100-1119
+        self.fps = 0.0
+        self.max_intensity = 0
+
+    # ------------------------------------------------------------------
+    # keys (BscanFFT.cpp:1584-1917)
+    # ------------------------------------------------------------------
+
+    def key(self, ch: str) -> None:
+        """Apply one keypress: 'b'/'p' capture, ']'/'[' threshold ±1 dB,
+        'a' toggles averaging.  Any other key raises NotImplementedError."""
+        if ch in ("b", "B"):
+            self._pending.add("b")
+        elif ch in ("p", "P"):
+            self._pending.add("p")
+        elif ch == "]":
+            self.bscanthreshold += 1.0
+            self._say(f"bscanthreshold = {self.bscanthreshold:f}")
+        elif ch == "[":
+            self.bscanthreshold -= 1.0
+            self._say(f"bscanthreshold = {self.bscanthreshold:f}")
+        elif ch in ("a", "A"):
+            self.averagestoggle = self.averages if self.averagestoggle == 1 else 1
+            self._say(f"Now averaging {self.averagestoggle} bscans.")
+        else:
+            raise _not_ported(f"key {ch!r}")
+
+    def _say(self, text: str) -> None:
+        self.status.append(text)
+        if len(self.status) > 100:
+            del self.status[:50]
+
+    def _say_once(self, key: str, text: str) -> None:
+        if key not in self._said_once:
+            self._said_once.add(key)
+            self._say(text)
+
+    # ------------------------------------------------------------------
+    # per-frame processing (one reference hot-loop iteration)
+    # ------------------------------------------------------------------
+
+    def _tick_fps(self, raw, n: int = 1) -> None:
+        """fps and frame max-intensity Status rows, once per 5 s window."""
+        reading = self.fpsmeter.tick(n)
+        if reading is not None:
+            self.fps = reading
+            self.max_intensity = int(raw.max())
+            self._say(f"fps = {reading:.0f}  Max Intensity = {self.max_intensity}")
+
+    def _to_device(self, frames) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(frames) if not torch.is_tensor(frames)
+                               else frames).to(self.device)
+
+    def process(self, raw) -> BscanResult | None:
+        """One frame (H, W), or (H, W, 3) colour; returns the B-scan when
+        the frame completes an averaging group."""
+        cfg = self.cfg
+        self._tick_fps(raw)
+        raw = self._to_device(raw)
+        if raw.ndim == 3:
+            raw = channel_select(raw, cfg.channelnum)     # BscanFFTwebcam.cpp:1015-1039
+        if self._pending:
+            self._handle_captures(preprocess(raw, cfg))
+        mags = reconstruct_group(raw[None], self.data_yb, self.data_yp,
+                                 self.calib, cfg, self.method)
+
+        if self.variant == "sim" and cfg.simcopyto:
+            # strict simulator (BscanFFTsim.cpp:935-947): copyTo replaces the
+            # accumulator and the group-completing frame is dropped
+            if self.indextemp < self.averagestoggle:
+                self.accum = mags
+                self.indextemp += 1
+                return None
+            return self._finish_group()
+        self.accum = self.accum + mags                    # BscanFFT.cpp:1193-1209
+        self.indextemp += 1
+        if self.indextemp < self.averagestoggle:
+            return None
+        return self._finish_group()
+
+    def _finish_group(self) -> BscanResult:
+        """Group-complete block (BscanFFT.cpp:1211-1255, 1482-1488)."""
+        self.indextemp = 0
+        strict_sim = self.variant == "sim" and self.cfg.simcopyto
+        out = form_bscan(self.accum, self.cfg, 1 if strict_sim else self.averagestoggle,
+                         bscanthreshold=self.bscanthreshold,
+                         eps=1e-6 if strict_sim else 1e-5)
+        result = BscanResult(bscan=out.bscan, bscandb=out.bscandb,
+                             bscandisp=out.bscandisp.cpu().numpy(), index=self.indexi)
+        self.accum = torch.zeros_like(self.accum)
+        self.zeroisactive = not self.zeroisactive
+        return result
+
+    # ------------------------------------------------------------------
+    # batched fast path: one kernel launch per averaging group
+    # ------------------------------------------------------------------
+
+    def _fast_path_blocker(self, n: int, avg: int) -> str | None:
+        """Why this batch cannot ride the batched path, or None."""
+        if self.indextemp != 0:
+            return "mid-group entry"
+        if self._pending:
+            return "pending key capture"
+        if self.variant == "sim" and self.cfg.simcopyto:
+            return "strict-sim copyTo accumulator"
+        if avg < 1 or n % avg != 0:
+            return f"batch of {n} not divisible by averages {avg}"
+        return None
+
+    def process_group(self, frames) -> list[BscanResult]:
+        """``len(frames)`` reference loop iterations.  In the steady state
+        each averaging group is one group-kernel launch plus the display
+        chain, and only the uint8 displays leave the device; otherwise (a
+        pending capture, mid-group entry, a batch not divisible by the
+        averaging count, strict-sim) it falls back to :meth:`process` frame
+        by frame, and says why once."""
+        n = len(frames)
+        avg = self.averagestoggle
+        why = self._fast_path_blocker(n, avg)
+        if why is not None:
+            self._say_once(f"slow:{why}",
+                           f"fast path disengaged ({why}) — per-frame dispatches")
+            return [r for f in frames if (r := self.process(f)) is not None]
+
+        self._tick_fps(frames[-1], n=n)
+        farr = self._to_device(frames)
+        if farr.ndim == 4:
+            farr = channel_select(farr, self.cfg.channelnum)
+        groups = n // avg
+        outs = [form_bscan(reconstruct_group(farr[g * avg:(g + 1) * avg], self.data_yb,
+                                             self.data_yp, self.calib, self.cfg, self.method),
+                           self.cfg, avg, bscanthreshold=self.bscanthreshold, eps=1e-5)
+                for g in range(groups)]
+        disp = torch.stack([o.bscandisp for o in outs]).cpu().numpy()
+        return self._emit_group_results(outs, disp)
+
+    def _emit_group_results(self, outs, disp: np.ndarray) -> list[BscanResult]:
+        """Per-group host bookkeeping: state advances exactly as that many
+        per-frame group completions would."""
+        results = []
+        for g, out in enumerate(outs):
+            results.append(BscanResult(bscan=out.bscan, bscandb=out.bscandb,
+                                       bscandisp=disp[g], index=self.indexi))
+            self.zeroisactive = not self.zeroisactive   # BscanFFT.cpp:1487
+        return results
+
+    # ------------------------------------------------------------------
+    # captures
+    # ------------------------------------------------------------------
+
+    def _handle_captures(self, y: torch.Tensor) -> None:
+        cfg = self.cfg
+        if "b" in self._pending:
+            if self.variant == "sim" and self.source is not None:
+                # sim reads the dedicated background image (BscanFFTsim.cpp:806)
+                bg = preprocess(self._to_device(self.source.background()), cfg)
+                self.data_yb = bg.to(self.data_yb.dtype)
+                self._pending.discard("b")
+                self._say("S(k) saved.")
+            else:
+                self._capture_background(y)
+        if "p" in self._pending:
+            if self.variant == "sim" and self.source is not None:
+                pi = preprocess(self._to_device(self.source.pi_frame()), cfg)
+                self.data_yp = pi.to(self.data_yp.dtype)
+            else:
+                yp = y
+                if cfg.rowwisenormalize:
+                    yp = normalize_rows(yp, 0.0, 1.0)
+                if not cfg.donotnormalize:
+                    yp = normalize_minmax(yp, 0.0, 1.0)
+                self.data_yp = yp
+            self._pending.discard("p")
+
+    def _capture_background(self, y: torch.Tensor) -> None:
+        """'b': average ``averagestoggle`` frames into S(k)
+        (BscanFFT.cpp:1000-1075)."""
+        cfg = self.cfg
+        if self.baccumcount < self.averagestoggle:
+            self.baccum = self.baccum + y
+            self.baccumcount += 1
+        if self.baccumcount >= self.averagestoggle:
+            yb = self.baccum
+            if cfg.rowwisenormalize:
+                yb = normalize_rows(yb, 0.0001, 1.0)
+            if not cfg.donotnormalize:
+                yb = normalize_minmax(yb, 0.0001, 1.0)
+            else:
+                yb = yb / self.averagestoggle
+            self.data_yb = yb
+            self._pending.discard("b")
+            self.baccumcount = 0
+            self.baccum = torch.zeros_like(self.baccum)
+            self._say("S(k) saved.")

@@ -1,0 +1,197 @@
+"""The port's pipeline against ``fdoct_tpu.pipeline`` on the same numpy inputs.
+
+Precision is pinned on both sides: 'highest' (float64 and float32 data) and
+'bf16' (float32 data).  'default' is never compared, because it resolves to
+different functions on the CPU and on an accelerator.
+
+Tolerances: float64 'highest' agrees to rounding (rtol 1e-9); float32 runs
+differ by summation order (magnitudes rtol 1e-4 of the peak) and bf16 also by
+where the ratio is rounded: the port forms it as (y − y_p)·(1/y_b), the JAX
+package as (y − y_p)/y_b, which can flip single bf16 roundings.  dB values
+are compared on pixels within 40 dB of the peak, uint8 displays within one
+level.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fdoct_tpu import pipeline as jp
+from fdoct_tpu.calibration import Calibration as JaxCalibration
+from fdoct_tpu.config import PipelineConfig as JaxConfig
+from fdoct_tpu_torch import pipeline as tp
+from fdoct_tpu_torch.calibration import Calibration
+from fdoct_tpu_torch.config import PipelineConfig
+from fdoct_tpu_torch.sources.synthetic import SyntheticSource
+
+BASE = dict(width=256, height=32, averages=4, numfftpoints=512, numdisplaypoints=128,
+            lambdamin=816e-9, lambdamax=884e-9, compat=True)
+CONFIGS = {
+    # identity preprocess: the raw-input kernel's route
+    "identity": {},
+    # per-frame normalization (what `fdoct sim` runs): the ratio-input route
+    "normalize": dict(donotnormalize=False, rowwisenormalize=True),
+    # median, binning, zero-pad, moving average, dispersion
+    "binned": dict(width=512, height=64, binvalue=2, mediann=3, movavgn=2,
+                   increasefftpointsmultiplier=2, dispersion_a2=2.0),
+}
+PRECISIONS = {"highest64": ("highest", "float64"), "highest32": ("highest", "float32"),
+              "bf16": ("bf16", "float32")}
+TOL = {"highest64": 1e-9, "highest32": 1e-4, "bf16": 2e-3}
+DB_TOL = {"highest64": 1e-8, "highest32": 2e-3, "bf16": 2e-2}
+
+
+def make_case(cfg_name, prec_name, seed=0):
+    precision, dtype = PRECISIONS[prec_name]
+    jcfg = JaxConfig(**{**BASE, **CONFIGS[cfg_name]}, matmul_precision=precision,
+                     dtype=dtype)
+    tcfg = PipelineConfig(**dataclasses.asdict(jcfg))
+    src = SyntheticSource(height=jcfg.height, width=jcfg.width, noise=0.02, seed=seed,
+                          depths_um=(60.0, 110.0), reflectivities=(0.5, 0.3))
+    it = src.frames()
+    raw = np.stack([next(it) for _ in range(jcfg.averages)])
+    bg = np.array(jp.preprocess(jnp.asarray(np.maximum(src.background(), 1)), jcfg))
+    pi = np.array(jp.preprocess(jnp.asarray(src.pi_frame()), jcfg))
+    return jcfg, tcfg, raw, bg, pi
+
+
+def calibs(jcfg, tcfg):
+    return JaxCalibration.create(jcfg), Calibration.create(tcfg, "cpu")
+
+
+def assert_bscans_close(got, want, prec_name):
+    """got: port BscanOutputs; want: JAX BscanOutputs."""
+    w_lin, g_lin = np.asarray(want.bscan), got.bscan.numpy()
+    np.testing.assert_allclose(g_lin, w_lin, rtol=TOL[prec_name],
+                               atol=TOL[prec_name] * np.abs(w_lin).max())
+    w_db, g_db = np.asarray(want.bscandb), got.bscandb.numpy()
+    near = w_db >= w_db.max() - 40.0
+    assert near.sum() > 100
+    np.testing.assert_allclose(g_db[near], w_db[near], rtol=0, atol=DB_TOL[prec_name])
+    w_u8, g_u8 = np.asarray(want.bscandisp), got.bscandisp.numpy()
+    assert g_u8.dtype == np.uint8 and g_u8.shape == w_u8.shape
+    assert np.abs(g_u8.astype(int) - w_u8.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("prec_name", list(PRECISIONS))
+@pytest.mark.parametrize("cfg_name", list(CONFIGS))
+def test_reconstruct_bscan_matches_jax(cfg_name, prec_name):
+    jcfg, tcfg, raw, bg, pi = make_case(cfg_name, prec_name)
+    jcal, tcal = calibs(jcfg, tcfg)
+    want = jp.reconstruct_bscan(jnp.asarray(raw), jnp.asarray(bg), jnp.asarray(pi),
+                                jcal, jcfg, method="fused")
+    got = tp.reconstruct_bscan(torch.as_tensor(raw), torch.as_tensor(bg),
+                               torch.as_tensor(pi), tcal, tcfg)
+    assert got.bscandb.shape == (tcal.ndisp, tcfg.oph)
+    assert_bscans_close(got, want, prec_name)
+
+
+@pytest.mark.parametrize("prec_name", ["highest64", "bf16"])
+@pytest.mark.parametrize("cfg_name", list(CONFIGS))
+def test_reconstruct_per_frame_matches_jax(cfg_name, prec_name):
+    jcfg, tcfg, raw, bg, pi = make_case(cfg_name, prec_name, seed=1)
+    jcal, tcal = calibs(jcfg, tcfg)
+    want = np.asarray(jp.reconstruct(jnp.asarray(raw), jnp.asarray(bg), jnp.asarray(pi),
+                                     jcal, jcfg, method="fused"))
+    got = tp.reconstruct(torch.as_tensor(raw), torch.as_tensor(bg), torch.as_tensor(pi),
+                         tcal, tcfg).numpy()
+    tol = 1e-9 if prec_name == "highest64" else 1e-5
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol * np.abs(want).max())
+
+
+def test_ascan_complex_matches_jax():
+    jcfg, tcfg, raw, bg, pi = make_case("binned", "highest64")
+    jcal, tcal = calibs(jcfg, tcfg)
+    yr = np.array(jp.apodize_ratio(jp.preprocess(jnp.asarray(raw), jcfg),
+                                     jnp.asarray(bg), jnp.asarray(pi), jcfg))
+    want = np.asarray(jp.ascan_complex(jnp.asarray(yr), jcal, "highest"))
+    got = tp.ascan_complex(torch.as_tensor(yr), tcal, "highest").numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9 * np.abs(want).max())
+    mags = tp.ascan_mags(torch.as_tensor(yr), tcal, "fused_exact").numpy()
+    np.testing.assert_allclose(mags, np.abs(got), rtol=1e-12)
+
+
+@pytest.mark.parametrize("cfg_name", list(CONFIGS))
+def test_preprocess_and_ratio_match_jax(cfg_name):
+    jcfg, tcfg, raw, bg, pi = make_case(cfg_name, "highest64", seed=2)
+    # frames with different ranges: normalization must be per frame
+    scaled = raw.astype(np.float64) * (1.0 + 0.5 * np.arange(len(raw)))[:, None, None]
+    for frames in (raw, scaled):
+        y_want = jp.preprocess(jnp.asarray(frames), jcfg)
+        y_got = tp.preprocess(torch.as_tensor(frames), tcfg)
+        np.testing.assert_allclose(y_got.numpy(), np.asarray(y_want), rtol=1e-12)
+        want = np.asarray(jp.apodize_ratio(y_want, jnp.asarray(bg), jnp.asarray(pi), jcfg))
+        got = tp.apodize_ratio(y_got, torch.as_tensor(bg), torch.as_tensor(pi), tcfg).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("clampupper", [False, True])
+@pytest.mark.parametrize("thresh,eps,averages", [(None, 1e-5, 4), (-np.inf, 1e-6, 1),
+                                                 (-12.5, 1e-5, 3)])
+def test_form_bscan_matches_jax(clampupper, thresh, eps, averages):
+    rng = np.random.default_rng(11)
+    mag = rng.gamma(1.0, 2.0, (24, 40)) * np.exp(-np.arange(40) / 8.0)
+    jcfg = JaxConfig(**BASE, dtype="float64", clampupper=clampupper, bscanthreshold=-20.0)
+    tcfg = PipelineConfig(**dataclasses.asdict(jcfg))
+    want = jp.form_bscan(jnp.asarray(mag), jcfg, averages, bscanthreshold=thresh, eps=eps)
+    got = tp.form_bscan(torch.as_tensor(mag), tcfg, averages, bscanthreshold=thresh, eps=eps)
+    for name in ("bscan", "bscandb"):
+        np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
+                                   rtol=1e-13, atol=1e-13)
+    np.testing.assert_array_equal(got.bscandisp.numpy(), np.asarray(want.bscandisp))
+
+
+def test_raw_and_ratio_routes_agree():
+    """Kernel 1 (ratio from raw counts) and kernel 2 (ratio from preprocess)
+    compute the same group sum."""
+    jcfg, tcfg, raw, bg, pi = make_case("identity", "highest64")
+    tcal = Calibration.create(tcfg, "cpu")
+    traw = torch.as_tensor(raw)
+    assert tp.raw_kernel_applies(traw, tcfg)
+    assert not tp.raw_kernel_applies(traw.double(), tcfg)
+    via_raw = tp.reconstruct_group(traw, torch.as_tensor(bg), torch.as_tensor(pi), tcal, tcfg)
+    via_yr = tp.reconstruct_group(traw.double(), torch.as_tensor(bg), torch.as_tensor(pi),
+                                  tcal, tcfg)
+    np.testing.assert_allclose(via_raw.numpy(), via_yr.numpy(), rtol=1e-12)
+
+
+@pytest.mark.parametrize("change", [
+    dict(mediann=3), dict(binvalue=2), dict(binvaluex=2), dict(movavgn=1),
+    dict(donotnormalize=False), dict(rowwisenormalize=True)])
+def test_raw_kernel_needs_identity_preprocess(change):
+    tcfg = PipelineConfig(**BASE)
+    assert tp.raw_kernel_applies(torch.zeros(2, 32, 256, dtype=torch.uint8), tcfg)
+    assert not tp.raw_kernel_applies(torch.zeros(2, 32, 256, dtype=torch.uint8),
+                                     tcfg.replace(**change))
+    assert not tp.raw_kernel_applies(torch.zeros(32, 256, dtype=torch.uint8), tcfg)
+
+
+def test_precision_policy():
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    assert tp.use_bf16("bf16", torch.float32, cpu)
+    assert not tp.use_bf16("default", torch.float32, cpu)       # f32 on the CPU, as JAX
+    assert tp.use_bf16("default", torch.float32, cuda)          # bf16 on the card
+    assert not tp.use_bf16("highest", torch.float32, cuda)
+    assert not tp.use_bf16("bf16", torch.float64, cpu)          # float64 keeps float64
+
+
+@pytest.mark.parametrize("method,precision,exc,match", [
+    ("gather", "highest", NotImplementedError, "item 6"),
+    ("hilbert", "highest", NotImplementedError, "item 6"),
+    ("fused", "int8", NotImplementedError, "item 7"),
+    ("fused", "int8_direct", NotImplementedError, "item 7"),
+    ("fft", "highest", ValueError, "unknown method"),
+])
+def test_unported_paths_raise(method, precision, exc, match):
+    tcfg = PipelineConfig(**BASE, matmul_precision="highest")
+    tcal = Calibration.create(tcfg, "cpu")
+    raw = torch.zeros(2, 32, 256, dtype=torch.uint8)
+    one = torch.ones(32, 256)
+    with pytest.raises(exc, match=match):
+        tp.reconstruct_group(raw, one, one, tcal, tcfg.replace(matmul_precision=precision),
+                             method)
+    with pytest.raises(exc, match=match):
+        tp.reconstruct(raw, one, one, tcal, tcfg.replace(matmul_precision=precision), method)
