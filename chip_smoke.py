@@ -9,7 +9,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 
 1. device  — needs CUDA (there is no CPU branch); prints the card's name and
    power limit and turns TF32 off for matmuls and cuDNN.
-2. build   — compiles csrc/fused_recon.cu with nvcc for sm_90a.
+2. build   — compiles csrc/fused_recon.cu and csrc/int8_bscan.cu with nvcc
+   for sm_90a (one nvcc per source, in parallel) and prints ptxas's
+   registers, shared memory and spills per kernel.
 3. kernels — each kernel against its plain PyTorch version on the card, for
    a float32 and a bfloat16 operator, at the flagship shape (8 frames of
    512 x 2048 u8, the flagship M from Calibration.create, 512 depths) and at
@@ -26,6 +28,22 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 5. times   — CUDA-event medians of 20 launches of each kernel and its plain
    version at the flagship shape, and the wall time per group of
    Session.process_group.
+6. int8 kernels — int8_bscan_display_fused against its plain version
+   (torch._int_mm + torch epilogue) on the card, with and without the linear
+   output, at the flagship shape (8 s8 frames of 512 x 2048 and the plan
+   folded from the synthetic background and pi) and at a ragged shape.
+   Tolerance: dB and the min/max partials rtol 1e-5, atol 1e-4; linear rtol
+   1e-5.
+7. int8 slice — the int8-direct display mode at the flagship config: a 'base'
+   Session with matmul_precision 'int8_direct' captures 'b' and 'p' from the
+   synthetic source, prints the plan's rank-1 residual, then process_group
+   on 4 batches of 16 frames (8 groups, one int8 kernel launch each).  Launch
+   counts are reset just before and read just after.  One group is held to
+   form_bscan(reconstruct_int8_direct(...).sum(0)) (dB rtol 1e-5, atol 1e-4;
+   uint8 within 1) and, on pixels within 30 dB of the peak, to a 'bf16'
+   session on the same captures within 0.35 dB.
+8. int8 times — the kernel against its plain version, and the int8
+   session's wall time per group.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -53,8 +71,11 @@ TOL = {"f32": 1e-4, "bf16": 2e-2}
 REPLACES = {
     "fused_recon_raw_accumulate": "fdoct_tpu/ops/pallas_kernels.py:147",
     "fused_recon_accumulate": "fdoct_tpu/ops/pallas_kernels.py:297",
+    "int8_bscan_display_fused": "fdoct_tpu/ops/pallas_kernels.py:244",
 }
 SOURCE = "fdoct_tpu_torch/csrc/fused_recon.cu"
+INT8_SOURCE = "fdoct_tpu_torch/csrc/int8_bscan.cu"
+INT8_TOL = (1e-5, 1e-4)            # rtol, atol of dB and of the min/max partials
 
 
 def check(ok: bool, what: str) -> None:
@@ -73,13 +94,26 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def compare(got: torch.Tensor, want: torch.Tensor, tol: float) -> dict:
-    """Max abs error and the worst error as a share of rtol·|want| + atol·max."""
+def compare(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> dict:
+    """Max abs error and the worst error as a share of rtol·|want| + atol."""
     got, want = got.double(), want.double()
     err = (got - want).abs()
-    limit = tol * want.abs() + tol * want.abs().max()
-    return {"max_abs_err": float(err.max()), "worst_share_of_tol": float((err / limit).max()),
+    return {"max_abs_err": float(err.max()),
+            "worst_share_of_tol": float((err / (rtol * want.abs() + atol)).max()),
             "finite": bool(torch.isfinite(got).all())}
+
+
+def session_group_ms(session, batches, per_call: int) -> list[float]:
+    """Host-clock ms per group of ``process_group`` (``per_call`` groups per
+    batch): one warm-up pass over ``batches``, then 4 timed passes."""
+    ms = []
+    for _ in range(5):
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            session.process_group(b)                 # ends in the D2H of the displays
+            ms.append((time.perf_counter() - t0) / per_call * 1e3)
+    return ms[len(batches):]
 
 
 def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> tuple[float, float, float]:
@@ -131,7 +165,7 @@ def main() -> int:
     _build.load()
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in _build.library_path().with_suffix(".log").read_text()
-             .splitlines() if "registers" in ln or "spill" in ln]
+             .splitlines() if "registers" in ln or "spill" in ln or "entry function" in ln]
     phase("build", f"{build_s:.1f} s -> {_build.library_path().name}")
     for ln in ptxas:
         phase("build", ln)
@@ -181,7 +215,8 @@ def main() -> int:
             for op in ("f32", "bf16"):
                 got = run(inp, op)
                 torch.cuda.synchronize()
-                res = compare(got, run(inp, op, kernel=False), TOL[op])
+                want = run(inp, op, kernel=False)             # rtol = atol/max = TOL[op]
+                res = compare(got, want, TOL[op], TOL[op] * float(want.abs().max()))
                 errors[(name, shape_name, op)] = res
                 phase("kernels", f"{name} {shape_name} {tuple(got.shape)} op={op}: "
                       f"max_abs_err {res['max_abs_err']:.3e}, worst "
@@ -273,35 +308,157 @@ def main() -> int:
           f"(min {h2d[1]:.4f}, max {h2d[2]:.4f}); form_bscan + D2H of one uint8 display "
           f"median {display[0]:.4f} ms (min {display[1]:.4f}, max {display[2]:.4f}); "
           f"20 runs, CUDA events | {card_line}")
-    group_s = []
-    for b in batches:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        base.process_group(b)                       # ends in the D2H of the displays
-        group_s.append((time.perf_counter() - t0) / 2)
-    for _ in range(4):
-        for b in batches:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            base.process_group(b)
-            group_s.append((time.perf_counter() - t0) / 2)
-    steady = group_s[4:]
+    steady = session_group_ms(base, batches, per_call=2)
     phase("times", f"Session.process_group per group (8 frames 512x2048 u8 from host "
-          f"memory to uint8 display on host): median {statistics.median(steady) * 1e3:.3f} ms "
-          f"(min {min(steady) * 1e3:.3f}, max {max(steady) * 1e3:.3f}; {len(steady)} groups "
+          f"memory to uint8 display on host): median {statistics.median(steady):.3f} ms "
+          f"(min {min(steady):.3f}, max {max(steady):.3f}; {len(steady)} groups "
           f"after 4 warm-up groups; host clock) | {card_line}")
+
+    int8_entry = int8_phases(cfg, calib, src, frames, card_line, dev)
 
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": launches[name], "operator": "bf16",
          "max_abs_err": errors[(name, "flagship", "bf16")]["max_abs_err"],
          "ms": times[(name, "bf16")][0][0], "plain_ms": times[(name, "bf16")][1][0]}
-        for name in runners]}
+        for name in runners] + [int8_entry]}
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def int8_phases(cfg, calib, src, frames, card_line: str, dev: torch.device) -> dict:
+    """Phases 6-8: the int8-direct kernel, slice and times; returns the
+    kernel's entry of the {"kernels": [...]} line."""
+    from fdoct_tpu_torch.int8direct import (
+        Int8DirectPlan, reconstruct_int8_direct, shift_u8_to_s8,
+    )
+    from fdoct_tpu_torch.ops import kernels
+    from fdoct_tpu_torch.ops.kernels import (
+        LAUNCHES, int8_bscan_display_fused, int8_bscan_display_fused_reference,
+    )
+    from fdoct_tpu_torch.pipeline import form_bscan
+    from fdoct_tpu_torch.session import Session
+
+    name = "int8_bscan_display_fused"
+    rtol, atol = INT8_TOL
+    i8_cfg = cfg.replace(matmul_precision="int8_direct")
+
+    # 6. the kernel against its plain version --------------------------------
+    bg = np.mean([src.background().astype(np.float64) for _ in range(cfg.averages)], axis=0)
+    t0 = time.perf_counter()
+    plan = Int8DirectPlan.create(calib, i8_cfg, bg, src.pi_frame(), device=dev)
+    phase("int8 kernels", f"flagship Int8DirectPlan.create (host float64 fold + quantize, "
+          f"tables to the card) {time.perf_counter() - t0:.3f} s; host clock")
+    s8 = shift_u8_to_s8(torch.as_tensor(np.stack([next(frames)
+                                                  for _ in range(cfg.averages)])).to(dev))
+    flag_args = [s8, plan.oq_re, plan.oq_im, plan.s_re, plan.s_im, plan.row_gain_inv,
+                 plan.const_re, plan.const_im]
+    B, rows, n_in, ndisp = RAGGED
+    rng = np.random.default_rng(SEED + 1)
+    rag_args = [torch.as_tensor(a).to(dev) for a in (
+        rng.integers(-128, 128, (B, rows, n_in)).astype(np.int8),
+        rng.integers(-127, 128, (n_in, ndisp)).astype(np.int8),
+        rng.integers(-127, 128, (n_in, ndisp)).astype(np.int8),
+        rng.uniform(1e-4, 2e-4, ndisp).astype(np.float32),
+        rng.uniform(1e-4, 2e-4, ndisp).astype(np.float32),
+        rng.uniform(0.5, 2.0, (rows, 1)).astype(np.float32),
+        rng.normal(0, 0.5, (rows, ndisp)).astype(np.float32),
+        rng.normal(0, 0.5, (rows, ndisp)).astype(np.float32))]
+    thresh = cfg.bscanthreshold
+    flag_err = None
+    for shape_name, args in (("flagship", flag_args), ("ragged", rag_args)):
+        n = args[0].shape[0]
+        for with_linear in (False, True):
+            got = int8_bscan_display_fused(*args, thresh, n, with_linear=with_linear)
+            torch.cuda.synchronize()
+            want = int8_bscan_display_fused_reference(*args, thresh, n, with_linear=with_linear)
+            res = {part: compare(getattr(got, part), getattr(want, part), rtol, atol)
+                   for part in ("db", "mn", "mx")}
+            if with_linear:
+                res["linear"] = compare(got.linear, want.linear, rtol, 0.0)
+            else:
+                check(got.linear is None, "linear output written with a null pointer")
+            if shape_name == "flagship" and not with_linear:
+                flag_err = res["db"]["max_abs_err"]
+            phase("int8 kernels", f"{name} {shape_name} {tuple(got.db.shape)} linear="
+                  f"{with_linear}: " + "; ".join(
+                      f"{part} max_abs_err {r['max_abs_err']:.3e} worst "
+                      f"{r['worst_share_of_tol']:.3e} of tol" for part, r in res.items())
+                  + f" (rtol {rtol}, atol {atol}; linear atol 0)")
+            check(all(r["finite"] and r["worst_share_of_tol"] <= 1.0 for r in res.values()),
+                  f"{name} {shape_name} linear={with_linear} disagrees with its plain version")
+
+    # 7. the int8-direct slice -------------------------------------------------
+    kernels.reset_launches()
+    t_slice = time.perf_counter()
+    i8 = Session(i8_cfg, device=dev, variant="base", calib=calib)
+    i8.key("b")
+    for _ in range(cfg.averages):                   # S(k) from 8 background frames
+        i8.process(src.background())
+    i8.key("p")
+    for f in [src.pi_frame()] + [next(frames) for _ in range(cfg.averages - 1)]:
+        i8.process(f)
+    check(i8.indextemp == 0 and not i8._pending, "captures left the int8 session mid-group")
+    batches = [np.stack([next(frames) for _ in range(16)]) for _ in range(4)]
+    results = [r for b in batches for r in i8.process_group(b)]
+    torch.cuda.synchronize()
+    launches = LAUNCHES[name]
+    slice_s = time.perf_counter() - t_slice
+    plan = i8._i8plan
+    check(plan is not None, "the int8 session refused its plan")
+    resid = float(plan.bg_rank1_resid)
+    check(len(results) == 8, f"int8 session gave {len(results)} B-scans, not 8")
+    for r in results:
+        check(r.bscandisp.dtype == np.uint8 and r.bscandisp.shape == (512, 512),
+              f"bscandisp {r.bscandisp.dtype} {r.bscandisp.shape}")
+        check(bool(torch.isfinite(r.bscandb).all()), "non-finite bscandb")
+    check(launches >= 8, f"{name} launched {launches} times for 8 groups")
+    phase("int8 slice", f"base int8_direct: plan rank-1 residual {resid:.3e} (gate "
+          f"{Session.INT8_RESID_ACT}); 8 B-scans {results[0].bscandisp.shape} uint8 through "
+          f"{name} (+{launches} launches); launches this run {dict(LAUNCHES)}; {slice_s:.2f} s")
+
+    last = shift_u8_to_s8(torch.as_tensor(batches[-1][-cfg.averages:]).to(dev))
+    plain = form_bscan(reconstruct_int8_direct(last, plan).sum(0), i8_cfg, cfg.averages,
+                       bscanthreshold=i8.bscanthreshold)
+    got = results[-1]
+    db_res = compare(got.bscandb, plain.bscandb, rtol, atol)
+    lin_res = compare(got.bscan, plain.bscan, rtol, 0.0)
+    u8_err = int(np.abs(got.bscandisp.astype(int)
+                        - plain.bscandisp.cpu().numpy().astype(int)).max())
+    phase("int8 slice", f"group vs form_bscan(reconstruct_int8_direct(...).sum(0)): dB "
+          f"max_abs_err {db_res['max_abs_err']:.3e} (worst {db_res['worst_share_of_tol']:.3e} "
+          f"of rtol {rtol} + atol {atol}); linear worst {lin_res['worst_share_of_tol']:.3e} "
+          f"of rtol {rtol}; max uint8 diff {u8_err} (limit 1)")
+    check(db_res["worst_share_of_tol"] <= 1.0 and lin_res["worst_share_of_tol"] <= 1.0
+          and u8_err <= 1, "int8 slice disagrees with its plain chain")
+
+    bf16 = Session(cfg.replace(matmul_precision="bf16"), device=dev, variant="base",
+                   calib=calib)
+    bf16.data_yb, bf16.data_yp = i8.data_yb, i8.data_yp
+    ref = bf16.process_group(batches[-1])[-1].bscandb
+    near = ref >= ref.max() - 30.0
+    db_gap = float((got.bscandb - ref).abs()[near].max())
+    phase("int8 slice", f"group vs the bf16 session on the same captures: max |dB diff| "
+          f"{db_gap:.4f} on {int(near.sum())} px within 30 dB of the peak (limit 0.35)")
+    check(db_gap <= 0.35, "int8 display is not within 0.35 dB of the bf16 session")
+
+    # 8. times -------------------------------------------------------------------
+    k = cuda_ms(lambda: int8_bscan_display_fused(*flag_args, thresh, cfg.averages))
+    p = cuda_ms(lambda: int8_bscan_display_fused_reference(*flag_args, thresh, cfg.averages))
+    phase("int8 times", f"{name} flagship: kernel median {k[0]:.4f} ms (min {k[1]:.4f}, "
+          f"max {k[2]:.4f}); plain (torch._int_mm + torch epilogue) median {p[0]:.4f} ms "
+          f"(min {p[1]:.4f}, max {p[2]:.4f}); 20 runs, CUDA events | {card_line}")
+    steady = session_group_ms(i8, batches, per_call=2)
+    phase("int8 times", f"int8_direct Session.process_group per group (8 frames 512x2048 u8 "
+          f"from host memory to uint8 display on host): median {statistics.median(steady):.3f}"
+          f" ms (min {min(steady):.3f}, max {max(steady):.3f}; {len(steady)} groups after 4 "
+          f"warm-up groups; host clock) | {card_line}")
+    return {"name": name, "route": "cuda", "source": INT8_SOURCE, "replaces": REPLACES[name],
+            "launches": launches, "operator": "s8", "max_abs_err": flag_err,
+            "ms": k[0], "plain_ms": p[0]}
 
 
 if __name__ == "__main__":

@@ -104,13 +104,25 @@ def _fused_operator(cfg, g: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
     return dict(window=win, phase=phase, op_re=M.real, op_im=M.imag)
 
 
+def _quant_cols(A: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Symmetric per-output-column int8 quantization (int8 scales float32)."""
+    s = np.abs(A).max(axis=0) / 127.0
+    s = np.where(s == 0.0, 1.0, s)
+    q = np.clip(np.rint(A / s), -127, 127).astype(np.int8)
+    return q, s.astype(np.float32)
+
+
 @dataclasses.dataclass(frozen=True)
 class Calibration:
     """Per-config reconstruction tables as tensors on one device.
 
     ``op_re``/``op_im`` are M in the working dtype; ``op_re_bf16`` and
     ``op_im_bf16`` are the same operator rounded once to bfloat16 for the
-    bf16 matmul branch (pipeline.py:170-176 of the JAX package).
+    bf16 matmul branch (pipeline.py:170-176 of the JAX package).  With
+    ``matmul_precision='int8'`` only, ``op_re_q``/``op_im_q`` hold the
+    float64 M quantized to int8 per output column and
+    ``op_scale_re``/``op_scale_im`` their float32 scales
+    (calibration.py:183-200 of the JAX package); otherwise they are None.
     """
 
     n_raw: int
@@ -133,6 +145,10 @@ class Calibration:
     op_im: torch.Tensor
     op_re_bf16: torch.Tensor
     op_im_bf16: torch.Tensor
+    op_re_q: torch.Tensor | None = None      # (n_raw, ndisp) int8
+    op_im_q: torch.Tensor | None = None
+    op_scale_re: torch.Tensor | None = None  # (ndisp,) float32
+    op_scale_im: torch.Tensor | None = None
 
     @classmethod
     def create(cls, cfg, device: torch.device | str,
@@ -140,14 +156,15 @@ class Calibration:
         """Build every table on the host in float64, then cast to ``dtype``
         (default: ``cfg.dtype``) on ``device``."""
         cfg.validate()
-        if cfg.matmul_precision == "int8":
-            raise NotImplementedError(
-                "matmul_precision='int8' needs the quantized operator tables, "
-                "not ported yet (ROADMAP Queue 1 item 7)")
         g = reference_grids(cfg)
         arrays = {name: g[name] for name in
                   ("lambdas", "k", "klinear", "nearest_idx", "frac")}
         arrays.update(_fused_operator(cfg, g))
+        if cfg.matmul_precision == "int8":
+            # from the float64 M; the tables cost device memory, so only
+            # for the precision that reads them
+            arrays["op_re_q"], arrays["op_scale_re"] = _quant_cols(arrays["op_re"])
+            arrays["op_im_q"], arrays["op_scale_im"] = _quant_cols(arrays["op_im"])
         return cls.from_arrays(arrays, cfg, device, dtype)
 
     @classmethod
@@ -156,8 +173,9 @@ class Calibration:
                     dtype: torch.dtype | None = None) -> "Calibration":
         """Tensors from host arrays named as the JAX ``Calibration``'s leaves
         (``op_re``, ``op_im``, ``window``, ``nearest_idx``, ``frac``,
-        ``phase``, ``lambdas``, ``k``, ``klinear``), so the JAX package and
-        the port can run on the same M."""
+        ``phase``, ``lambdas``, ``k``, ``klinear``, and optionally the int8
+        tables ``op_re_q``, ``op_im_q``, ``op_scale_re``, ``op_scale_im``),
+        so the JAX package and the port can run on the same M."""
         dtype = dtype or getattr(torch, cfg.dtype)
         device = torch.device(device)
         mult = max(cfg.increasefftpointsmultiplier, 1)
@@ -178,4 +196,7 @@ class Calibration:
             frac=as_dev("frac"), window=as_dev("window"), phase=as_dev("phase"),
             op_re=op_re, op_im=op_im,
             op_re_bf16=op_re.to(torch.bfloat16), op_im_bf16=op_im.to(torch.bfloat16),
+            **{name: torch.as_tensor(np.array(arrays[name]), device=device)
+               for name in ("op_re_q", "op_im_q", "op_scale_re", "op_scale_im")
+               if arrays.get(name) is not None},
         )

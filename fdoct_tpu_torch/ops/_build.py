@@ -1,11 +1,12 @@
 """Build the hand-written CUDA kernels with nvcc and load them with ctypes.
 
-The kernels have a plain C interface (``csrc/fused_recon.cu``), so they
-compile in seconds without PyTorch's headers.  The library goes to
-``build/fdoct_tpu_torch/`` beside the package, under a file name that carries
-a hash of the source and flags, so an edited source rebuilds.  Nothing is
-built at import: :func:`load` builds at first use and raises if ``nvcc`` is
-missing or the build fails.
+Every source under ``csrc/`` (``fused_recon.cu``, ``int8_bscan.cu``) has a
+plain C interface, so each compiles in seconds without PyTorch's headers.
+One ``nvcc -c`` per source runs in parallel; the objects are linked into one
+library in ``build/fdoct_tpu_torch/`` beside the package, under a file name
+that carries a hash of every source and the flags, so an edited source
+rebuilds.  Nothing is built at import: :func:`load` builds at first use and
+raises if ``nvcc`` is missing or a build fails.
 """
 
 from __future__ import annotations
@@ -19,20 +20,22 @@ import threading
 from pathlib import Path
 
 PACKAGE_ROOT = Path(__file__).resolve().parent.parent
-SOURCE = PACKAGE_ROOT / "csrc" / "fused_recon.cu"
+SOURCES = tuple(sorted((PACKAGE_ROOT / "csrc").glob("*.cu")))
 BUILD_DIR = PACKAGE_ROOT.parent / "build" / "fdoct_tpu_torch"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+_FLOAT = ctypes.c_float
 #: C signature of each entry point (all return cudaError_t as int)
 SIGNATURES = {
     "fdoct_recon_raw_u8_f32": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     "fdoct_recon_raw_u8_bf16": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     "fdoct_recon_yr_f32_f32": [_PTR] * 4 + [_INT] * 4 + [_PTR],
     "fdoct_recon_yr_f32_bf16": [_PTR] * 4 + [_INT] * 4 + [_PTR],
+    "fdoct_int8_bscan": [_PTR] * 8 + [_FLOAT] * 4 + [_PTR] * 4 + [_INT] * 4 + [_PTR],
 }
 
 _lock = threading.Lock()
@@ -55,30 +58,50 @@ def find_nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libfdoct_fused_recon-{digest.hexdigest()[:16]}.so"
+    """Where the library for the current sources and flags lives."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"libfdoct_kernels-{digest.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the source unless its library exists; returns the library.
+    """Compile the sources unless their library exists; returns the library.
 
     nvcc's output (with ``-Xptxas -v``: registers, shared memory and spills
-    per kernel) is kept beside it as ``<library>.log``.  The library is
-    written under a temporary name and renamed, so a concurrent loader never
-    sees a partial file.
+    per kernel) is kept beside it as ``<library>.log``.  Objects and the
+    library are written under temporary names and the library is renamed,
+    so a concurrent loader never sees a partial file.
     """
     lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    nvcc = find_nvcc()
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = [f"{' '.join(cmd)}\n{out}" for cmd, out in zip(cmds, outs)]
+    failed = [(cmd[-1], p.returncode, out) for cmd, p, out in zip(cmds, procs, outs)
+              if p.returncode != 0]
+    tmp = lib.with_name(f"{tag}.tmp")
+    if not failed:
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log.append(f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            failed.append(("link", proc.returncode, proc.stdout + proc.stderr))
+    lib.with_suffix(".log").write_text("\n".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        what, rc, out = failed[0]
+        raise RuntimeError(f"nvcc failed on {what} ({rc}):\n{out[-4000:]}")
     os.replace(tmp, lib)
     return lib
 

@@ -1,27 +1,39 @@
 """The fused group-reconstruction kernels and their plain versions.
 
-Hopper counterparts of two Pallas kernels of ``fdoct_tpu/ops/pallas_kernels.py``:
+Hopper counterparts of three Pallas kernels of ``fdoct_tpu/ops/pallas_kernels.py``:
 
 - :func:`fused_recon_raw_accumulate`: Σ_b |((raw[b] − y_p)·(1/y_b)) @ M| from
   raw uint8 frames, the ratio formed on the tile;
-- :func:`fused_recon_accumulate`: Σ_b |yr[b] @ M| from a float32 ratio stack.
+- :func:`fused_recon_accumulate`: Σ_b |yr[b] @ M| from a float32 ratio stack;
+- :func:`int8_bscan_display_fused`: the int8-direct group step, s8 frames
+  against a quantized operator with the display epilogue fused.
 
-Both are one CUDA C++ template (``csrc/fused_recon.cu``), built by
-:mod:`fdoct_tpu_torch.ops._build`.  M = op_re + i·op_im is float32 or
-bfloat16; with bfloat16 the ratio is rounded to bfloat16 before the product
-and the sums stay float32.  A wrapper given CPU tensors computes the plain
-version beside it (``*_reference``); given CUDA tensors it launches the
-kernel, or raises.  :data:`LAUNCHES` counts kernel launches, and only those.
+The first two are one CUDA C++ template (``csrc/fused_recon.cu``), the third
+is ``csrc/int8_bscan.cu``; :mod:`fdoct_tpu_torch.ops._build` builds both.
+M = op_re + i·op_im is float32 or bfloat16; with bfloat16 the ratio is
+rounded to bfloat16 before the product and the sums stay float32.  A wrapper
+given CPU tensors computes the plain version beside it (``*_reference``);
+given CUDA tensors it launches the kernel, or raises.  :data:`LAUNCHES`
+counts kernel launches, and only those.
 """
 
 from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
 from fdoct_tpu_torch.ops import _build
 
 #: kernel launches per wrapper since the last reset (CPU calls do not count)
-LAUNCHES = {"fused_recon_raw_accumulate": 0, "fused_recon_accumulate": 0}
+LAUNCHES = {"fused_recon_raw_accumulate": 0, "fused_recon_accumulate": 0,
+            "int8_bscan_display_fused": 0}
+
+#: output tile (rows, depths) of one block of the int8 kernel: one min/max
+#: partial per tile
+INT8_TILE = (32, 32)
 
 
 def reset_launches() -> None:
@@ -149,3 +161,126 @@ def fused_recon_accumulate(yr: torch.Tensor, op_re: torch.Tensor,
     out = torch.empty((rows, ndisp), dtype=torch.float32, device=yr.device)
     return _launch("fused_recon_accumulate", "fdoct_recon_yr_f32",
                    [yr, op_re, op_im], (B, rows, n_in, ndisp), op_re, out)
+
+
+# --------------------------------------------------------------------------
+# int8-direct: s8 frames against a quantized operator, display epilogue fused
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact s8 × s8 → s32 product of a (..., k) stack and a (k, n) matrix.
+
+    ``torch._int_mm`` on a 2-D view where it takes the shapes (always on the
+    CPU; on CUDA only with more than 16 rows and k, n multiples of 8);
+    elsewhere the float64 product, which is exact here (|sum| ≤ k·128·127 <
+    2^53), cast to int32."""
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"int8_matmul takes int8 operands, got {a.dtype} and {b.dtype}")
+    lead, k = a.shape[:-1], a.shape[-1]
+    a2 = a.reshape(-1, k)
+    n = b.shape[1]
+    if a.device.type == "cpu" or (a2.shape[0] > 16 and k % 8 == 0 and n % 8 == 0):
+        out = torch._int_mm(a2, b)
+    else:
+        out = (a2.double() @ b.double()).to(torch.int32)
+    return out.reshape(*lead, n)
+
+
+class Int8BscanOutputs(NamedTuple):
+    """What :func:`int8_bscan_display_fused` returns, all float32."""
+    db: torch.Tensor              # (rows, ndisp) dB, DC columns masked, untransposed
+    mn: torch.Tensor              # (row tiles, depth tiles) min of max(db, thresh)
+    mx: torch.Tensor              # (row tiles, depth tiles) max of max(db, thresh)
+    linear: torch.Tensor | None   # (rows, ndisp) sum/N + eps, when asked for
+
+
+def _tile_minmax(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-INT8_TILE min and max of a (rows, ndisp) image; the padding of
+    ragged edge tiles enters neither."""
+    tm, tn = INT8_TILE
+    rows, ndisp = x.shape
+    pad = (0, -ndisp % tn, 0, -rows % tm)
+    shape = ((rows + pad[3]) // tm, tm, (ndisp + pad[1]) // tn, tn)
+    lo = torch.nn.functional.pad(x, pad, value=math.inf).reshape(shape).amin(dim=(1, 3))
+    hi = torch.nn.functional.pad(x, pad, value=-math.inf).reshape(shape).amax(dim=(1, 3))
+    return lo, hi
+
+
+def int8_bscan_display_fused_reference(frames_s8, oq_re, oq_im, s_re, s_im, row_gain,
+                                       const_re, const_im, thresh: float, averages: float,
+                                       eps: float = 1e-5, denom: float = 2.303,
+                                       with_linear: bool = False) -> Int8BscanOutputs:
+    """Plain version of :func:`int8_bscan_display_fused`."""
+    f32 = torch.float32
+    re = (int8_matmul(frames_s8, oq_re).to(f32) * s_re) * row_gain + const_re
+    im = (int8_matmul(frames_s8, oq_im).to(f32) * s_im) * row_gain + const_im
+    lin = torch.sqrt(re * re + im * im).sum(dim=0) / averages + eps
+    db = 20.0 * torch.log(lin) / denom
+    depth = torch.arange(db.shape[-1], device=db.device)
+    db = torch.where(depth < 2, db[:, 4:5], db)               # DC cols ← col 4
+    mn, mx = _tile_minmax(torch.clamp_min(db, thresh))
+    return Int8BscanOutputs(db, mn, mx, lin if with_linear else None)
+
+
+def int8_bscan_display_fused(frames_s8: torch.Tensor, oq_re: torch.Tensor,
+                             oq_im: torch.Tensor, s_re: torch.Tensor, s_im: torch.Tensor,
+                             row_gain: torch.Tensor, const_re: torch.Tensor,
+                             const_im: torch.Tensor, thresh: float, averages: float,
+                             eps: float = 1e-5, denom: float = 2.303,
+                             with_linear: bool = False) -> Int8BscanOutputs:
+    """One averaged int8-direct B-scan, display epilogue fused.
+
+    frames_s8: (B, rows, n_in) int8 bias-shifted counts; oq_re, oq_im:
+    (n_in, ndisp) int8, ndisp ≥ 5; s_re, s_im: (ndisp,) float32; row_gain:
+    (rows, 1) float32; const_re, const_im: (rows, ndisp) float32; thresh,
+    averages, eps, denom: numbers.  Per frame the s8 products are
+    dequantised as (acc·s)·row_gain + const, their magnitudes summed over
+    the group, then ÷averages, +eps, 20·ln(·)/denom, depth columns 0-1 ←
+    column 4, and the per-tile min/max of max(db, thresh).  ``with_linear``
+    also returns the linear sum/averages + eps.  Replaces the TPU kernel
+    ``int8_bscan_display_fused`` (pallas_kernels.py:212-272).
+    """
+    B, rows, n_in = _check_stack(frames_s8, "frames_s8")
+    if frames_s8.dtype != torch.int8:
+        raise TypeError(f"frames_s8 must be int8, got {frames_s8.dtype}")
+    dev = frames_s8.device
+    if oq_re.shape != oq_im.shape or oq_re.ndim != 2 or oq_re.shape[0] != n_in:
+        raise ValueError(f"operator shapes {tuple(oq_re.shape)}/{tuple(oq_im.shape)} "
+                         f"do not match n_in={n_in}")
+    ndisp = oq_re.shape[1]
+    if ndisp < 5:
+        raise ValueError(f"the DC mask copies depth column 4; ndisp={ndisp} < 5")
+    expect = {"oq_re": (oq_re, torch.int8, (n_in, ndisp)),
+              "oq_im": (oq_im, torch.int8, (n_in, ndisp)),
+              "s_re": (s_re, torch.float32, (ndisp,)), "s_im": (s_im, torch.float32, (ndisp,)),
+              "row_gain": (row_gain, torch.float32, (rows, 1)),
+              "const_re": (const_re, torch.float32, (rows, ndisp)),
+              "const_im": (const_im, torch.float32, (rows, ndisp))}
+    for name, (t, dtype, shape) in expect.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {shape} tensor on {dev}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    thresh, averages, eps, denom = (float(v) for v in (thresh, averages, eps, denom))
+    if dev.type == "cpu":
+        return int8_bscan_display_fused_reference(frames_s8, oq_re, oq_im, s_re, s_im,
+                                                  row_gain, const_re, const_im, thresh,
+                                                  averages, eps, denom, with_linear)
+    tm, tn = INT8_TILE
+    db = torch.empty((rows, ndisp), dtype=torch.float32, device=dev)
+    lin = torch.empty_like(db) if with_linear else None
+    mn = torch.empty((-(-rows // tm), -(-ndisp // tn)), dtype=torch.float32, device=dev)
+    mx = torch.empty_like(mn)
+    fn = _build.load().fdoct_int8_bscan
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*(t.data_ptr() for t in (frames_s8, oq_re, oq_im, s_re, s_im, row_gain,
+                                         const_re, const_im)),
+                *(ctypes.c_float(v) for v in (thresh, averages, eps, denom)),
+                db.data_ptr(), None if lin is None else lin.data_ptr(),
+                mn.data_ptr(), mx.data_ptr(), B, rows, n_in, ndisp, stream)
+    if rc != 0:
+        raise RuntimeError(f"fdoct_int8_bscan launch failed: cudaError {rc}")
+    LAUNCHES["int8_bscan_display_fused"] += 1
+    return Int8BscanOutputs(db, mn, mx, lin)

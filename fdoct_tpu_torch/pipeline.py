@@ -18,7 +18,12 @@ bfloat16 and accumulates in float32; 'highest' multiplies in float32 (TF32
 must be off: ``torch.backends.cuda.matmul.allow_tf32 = False``); 'default' is
 'bf16' on CUDA, as the JAX package's 'default' is bf16 on its accelerator, and
 float32 on the CPU, as JAX's is there.  The bf16 branch applies to float32
-data only (float64 data keeps float64, as in the JAX package).
+data only (float64 data keeps float64, as in the JAX package).  'int8'
+quantizes each ratio row dynamically against the calibration's int8 tables
+(plain torch ops; the JAX package has no kernel for it).  'int8_direct' is
+honoured only by the session, which carries an
+:class:`fdoct_tpu_torch.int8direct.Int8DirectPlan`; through these generic
+entry points it is the bf16 branch on every device, as in the JAX package.
 
 Frames are (..., oph, opw): rows are lateral A-scans, columns wavelength
 samples; B-scans come out (depth, lateral).
@@ -35,7 +40,9 @@ from fdoct_tpu_torch.ops import (
     bin_area, median_blur, minmax_pair, normalize_minmax, normalize_rows,
     smooth_moving_average, threshold_floor, to_db, to_uint8,
 )
-from fdoct_tpu_torch.ops.kernels import fused_recon_accumulate, fused_recon_raw_accumulate
+from fdoct_tpu_torch.ops.kernels import (
+    fused_recon_accumulate, fused_recon_raw_accumulate, int8_matmul,
+)
 from fdoct_tpu_torch.ops.scale import clamp_pixel
 
 
@@ -58,17 +65,22 @@ def _check_method(method: str) -> None:
 
 
 def _check_precision(precision: str) -> None:
-    if precision in ("int8", "int8_direct"):
-        raise _not_ported(f"matmul_precision={precision!r}", "ROADMAP Queue 1 item 7")
-    if precision not in ("default", "highest", "bf16"):
+    if precision not in ("default", "highest", "bf16", "int8", "int8_direct"):
         raise ValueError(f"unknown matmul_precision {precision!r}")
 
 
 def use_bf16(precision: str, dtype: torch.dtype, device: torch.device) -> bool:
-    """Whether the operator products run on bfloat16 operands."""
+    """Whether the operator products run on bfloat16 operands: 'bf16', and
+    'int8'/'int8_direct' where no int8 tables apply, on float32 data; and
+    'default' on CUDA."""
     if dtype != torch.float32:
         return False
-    return precision == "bf16" or (precision == "default" and device.type == "cuda")
+    return (precision in ("bf16", "int8", "int8_direct")
+            or (precision == "default" and device.type == "cuda"))
+
+
+def _int8_tables_apply(precision: str, calib: Calibration) -> bool:
+    return precision in ("int8", "int8_direct") and calib.op_re_q is not None
 
 
 # ---------------------------------------------------------------------------
@@ -109,11 +121,29 @@ def _op_matmul_pair(yr: torch.Tensor, calib: Calibration,
     """The (re, im) operator products with one precision policy for every
     consumer, so |ascan_complex(yr)| equals ascan_mags_fused(yr)."""
     _check_precision(precision)
+    if _int8_tables_apply(precision, calib):
+        return _op_matmul_pair_int8(yr, calib)
     bf16 = use_bf16(precision, yr.dtype, yr.device)
     op_re, op_im = _operator(calib, bf16)
     if bf16:
         yr, op_re, op_im = yr.to(torch.bfloat16).float(), op_re.float(), op_im.float()
     return torch.matmul(yr, op_re), torch.matmul(yr, op_im)
+
+
+def _op_matmul_pair_int8(yr: torch.Tensor,
+                         calib: Calibration) -> tuple[torch.Tensor, torch.Tensor]:
+    """s8 × s8 → s32 products against the calibration's int8 tables.  Each
+    ratio row is centred first (M's first factor removes the row mean, so
+    yr @ M == (yr − mean) @ M) and quantized with its own symmetric scale."""
+    f32 = torch.float32
+    y0 = yr.to(f32)
+    y0 = y0 - y0.mean(dim=-1, keepdim=True)
+    s_in = y0.abs().amax(dim=-1, keepdim=True) / 127.0
+    s_in = torch.clamp_min(s_in, torch.finfo(f32).tiny)
+    q = torch.round(y0 / s_in).to(torch.int8)
+    re = int8_matmul(q, calib.op_re_q).to(f32) * (s_in * calib.op_scale_re)
+    im = int8_matmul(q, calib.op_im_q).to(f32) * (s_in * calib.op_scale_im)
+    return re.to(yr.dtype), im.to(yr.dtype)
 
 
 def ascan_mags_fused(yr: torch.Tensor, calib: Calibration,
@@ -164,14 +194,18 @@ def reconstruct_group(raw: torch.Tensor, background: torch.Tensor,
     the JAX package) and the session's group step.  8-bit frames with an
     identity preprocess go straight to the raw-input kernel; any other
     configuration preprocesses and normalizes in torch ops, then runs the
-    ratio-input kernel.
+    ratio-input kernel.  Under 'int8' with the calibration's int8 tables the
+    plain chain runs (the JAX package has no kernel for it).
     """
     _check_method(method)
     precision = "highest" if method == "fused_exact" else cfg.matmul_precision
     _check_precision(precision)
     dtype = getattr(torch, cfg.dtype)
-    op_re, op_im = _operator(calib, use_bf16(precision, dtype, raw.device))
     background, pi_frame = background.to(dtype), pi_frame.to(dtype)
+    if _int8_tables_apply(precision, calib):
+        yr = apodize_ratio(preprocess(raw, cfg, dtype), background, pi_frame, cfg)
+        return ascan_mags_fused(yr, calib, precision).sum(dim=0)
+    op_re, op_im = _operator(calib, use_bf16(precision, dtype, raw.device))
     if raw_kernel_applies(raw, cfg):
         return fused_recon_raw_accumulate(raw.contiguous(), pi_frame.contiguous(),
                                           (1.0 / background).contiguous(), op_re, op_im)

@@ -5,7 +5,10 @@ and π 'p' captures (BscanFFT.cpp:1000-1099), the threshold and averaging
 keys, per-frame :meth:`Session.process` (one reference loop iteration) and
 the batched :meth:`Session.process_group`, whose steady state runs one
 :func:`fdoct_tpu_torch.pipeline.reconstruct_group` kernel launch and one
-display chain per averaging group.
+display chain per averaging group.  With ``matmul_precision='int8_direct'``
+and a config the folding supports, the session folds its captures into an
+:class:`~fdoct_tpu_torch.int8direct.Int8DirectPlan` and each group is one
+launch of the int8 B-scan kernel plus a small tail.
 
 Device state (the reference's Mats) is tensors on ``device``; control state
 is plain fields.  Variants 'base' and 'sim'.  Saves, ring buffers, J-lockin,
@@ -22,6 +25,10 @@ import numpy as np
 import torch
 
 from fdoct_tpu_torch.calibration import Calibration
+from fdoct_tpu_torch.int8direct import (
+    Int8DirectPlan, int8_bscan_outputs, int8_direct_supported, reconstruct_int8_direct,
+    shift_u8_to_s8,
+)
 from fdoct_tpu_torch.ops import channel_select, normalize_minmax, normalize_rows
 from fdoct_tpu_torch.pipeline import form_bscan, preprocess, reconstruct_group
 from fdoct_tpu_torch.utils.profiling import FpsMeter
@@ -92,6 +99,8 @@ class Session:
         self.fpsmeter = FpsMeter(window_s=5.0)              # BscanFFT.cpp:1100-1119
         self.fps = 0.0
         self.max_intensity = 0
+        self._i8plan: Int8DirectPlan | None = None
+        self._i8key: tuple | None = None
 
     # ------------------------------------------------------------------
     # keys (BscanFFT.cpp:1584-1917)
@@ -142,6 +151,54 @@ class Session:
         return torch.as_tensor(np.asarray(frames) if not torch.is_tensor(frames)
                                else frames).to(self.device)
 
+    # ------------------------------------------------------------------
+    # int8-direct display mode (fdoct_tpu_torch.int8direct)
+    # ------------------------------------------------------------------
+
+    #: rank-1 fold residual above which the int8 display is no longer
+    #: display-grade; above it the session refuses the plan and runs the
+    #: exact chain (session.py:511-518 of the JAX package)
+    INT8_RESID_ACT = 0.02
+
+    def _use_int8_direct(self, raw: torch.Tensor) -> bool:
+        """Whether this frame rides the int8-direct path: the frame →
+        magnitudes map must be affine in exact 8-bit counts, and the
+        background's rank-1 residual low enough."""
+        if self.cfg.matmul_precision != "int8_direct" or self.method != "fused":
+            return False
+        if self.variant == "peak":
+            # metrology: the vibrometry plugin inverts sub-dB peak-hold
+            # differences, which the int8 display error would feed
+            self._say_once("int8_direct", "int8_direct is a display mode; the peak/"
+                           "vibrometry variant is metrology — staying on the f32 chain")
+            return False
+        if raw.dtype != torch.uint8 or raw.ndim != 2:
+            return False
+        if not int8_direct_supported(self.cfg)[0]:
+            return False
+        return self._int8_plan() is not None
+
+    def _int8_plan(self) -> Int8DirectPlan | None:
+        """The plan for the current calibration frames, rebuilt only when a
+        capture rebinds ``data_yb`` or ``data_yp``.  The key holds strong
+        references and compares with ``is``: an ``id()`` key could match a
+        new tensor at a freed one's address.  A plan whose rank-1 residual
+        is above :attr:`INT8_RESID_ACT` is refused (None), and the session
+        says so."""
+        key = (self.data_yb, self.data_yp)
+        if self._i8key is None or any(a is not b for a, b in zip(key, self._i8key)):
+            plan = Int8DirectPlan.create(self.calib, self.cfg, self.data_yb, self.data_yp,
+                                         device=self.device)
+            resid = float(plan.bg_rank1_resid)
+            if resid > self.INT8_RESID_ACT:
+                plan = None
+                self._say(f"int8_direct: background rank-1 residual {resid:.3f} is above "
+                          f"{self.INT8_RESID_ACT} — not display-grade; falling back to the "
+                          f"exact f32 chain (average more background frames)")
+            self._i8plan = plan
+            self._i8key = key
+        return self._i8plan
+
     def process(self, raw) -> BscanResult | None:
         """One frame (H, W), or (H, W, 3) colour; returns the B-scan when
         the frame completes an averaging group."""
@@ -150,10 +207,16 @@ class Session:
         raw = self._to_device(raw)
         if raw.ndim == 3:
             raw = channel_select(raw, cfg.channelnum)     # BscanFFTwebcam.cpp:1015-1039
+        use_i8 = self._use_int8_direct(raw)
         if self._pending:
+            # the int8 path needs no preprocessed frame, only a capture does
             self._handle_captures(preprocess(raw, cfg))
-        mags = reconstruct_group(raw[None], self.data_yb, self.data_yp,
-                                 self.calib, cfg, self.method)
+        plan = self._int8_plan() if use_i8 else None     # a capture may refuse it
+        if plan is not None:
+            mags = reconstruct_int8_direct(shift_u8_to_s8(raw.contiguous()), plan)
+        else:
+            mags = reconstruct_group(raw[None], self.data_yb, self.data_yp,
+                                     self.calib, cfg, self.method)
 
         if self.variant == "sim" and cfg.simcopyto:
             # strict simulator (BscanFFTsim.cpp:935-947): copyTo replaces the
@@ -216,14 +279,34 @@ class Session:
         self._tick_fps(frames[-1], n=n)
         farr = self._to_device(frames)
         if farr.ndim == 4:
+            # a single-plane select keeps exact uint8 counts, so colour
+            # frames ride int8-direct too; a channel sum is float
             farr = channel_select(farr, self.cfg.channelnum)
         groups = n // avg
-        outs = [form_bscan(reconstruct_group(farr[g * avg:(g + 1) * avg], self.data_yb,
-                                             self.data_yp, self.calib, self.cfg, self.method),
-                           self.cfg, avg, bscanthreshold=self.bscanthreshold, eps=1e-5)
-                for g in range(groups)]
+        if self._use_int8_direct(farr[0]):
+            outs = self._int8_groups(shift_u8_to_s8(farr.contiguous()), groups, avg)
+        else:
+            outs = [form_bscan(reconstruct_group(farr[g * avg:(g + 1) * avg], self.data_yb,
+                                                 self.data_yp, self.calib, self.cfg,
+                                                 self.method),
+                               self.cfg, avg, bscanthreshold=self.bscanthreshold, eps=1e-5)
+                    for g in range(groups)]
         disp = torch.stack([o.bscandisp for o in outs]).cpu().numpy()
         return self._emit_group_results(outs, disp)
+
+    def _int8_groups(self, s8: torch.Tensor, groups: int, avg: int) -> list:
+        """The int8-direct group step: one ``int8_bscan_display_fused``
+        launch per group plus its tail.  ``clampupper``, which the fused
+        kernel does not take, runs the plain chain,
+        ``form_bscan(reconstruct_int8_direct(...).sum(0))``."""
+        plan = self._int8_plan()
+        if not self.cfg.clampupper:
+            return [int8_bscan_outputs(s8[g * avg:(g + 1) * avg], plan, self.bscanthreshold,
+                                       avg, compat=self.cfg.compat, eps=1e-5)
+                    for g in range(groups)]
+        return [form_bscan(reconstruct_int8_direct(s8[g * avg:(g + 1) * avg], plan).sum(dim=0),
+                           self.cfg, avg, bscanthreshold=self.bscanthreshold, eps=1e-5)
+                for g in range(groups)]
 
     def _emit_group_results(self, outs, disp: np.ndarray) -> list[BscanResult]:
         """Per-group host bookkeeping: state advances exactly as that many

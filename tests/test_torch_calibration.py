@@ -78,8 +78,21 @@ def test_create_float32_is_the_rounded_float64(small_cfg):
 
 
 def test_int8_tables_not_ported(small_cfg):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        Calibration.create(torch_cfg(small_cfg.replace(matmul_precision="int8")), "cpu")
+    """The int8 operator tables are carried to the device only for
+    matmul_precision='int8' (they cost device memory), as in the JAX
+    package; there they match its tables."""
+    for precision in ("default", "bf16", "int8_direct"):
+        cal = Calibration.create(torch_cfg(small_cfg.replace(matmul_precision=precision)), "cpu")
+        assert cal.op_re_q is None and cal.op_scale_im is None, precision
+    jcfg = small_cfg.replace(matmul_precision="int8")
+    want = JaxCalibration.create(jcfg)
+    got = Calibration.create(torch_cfg(jcfg), "cpu")
+    for name in ("op_re_q", "op_im_q"):
+        assert getattr(got, name).dtype == torch.int8
+        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)))
+    for name in ("op_scale_re", "op_scale_im"):
+        np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
+                                   rtol=1e-6)
 
 
 @pytest.mark.parametrize("kind", sorted(jax_windows._WINDOWS))

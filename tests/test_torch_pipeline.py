@@ -176,14 +176,59 @@ def test_precision_policy():
     assert tp.use_bf16("default", torch.float32, cuda)          # bf16 on the card
     assert not tp.use_bf16("highest", torch.float32, cuda)
     assert not tp.use_bf16("bf16", torch.float64, cpu)          # float64 keeps float64
+    for precision in ("int8", "int8_direct"):                   # without int8 tables:
+        for device in (cpu, cuda):                              # bf16 on every device
+            assert tp.use_bf16(precision, torch.float32, device)
+
+
+@pytest.mark.parametrize("precision", ["int8_direct", "int8"])
+def test_generic_int8_precisions_without_tables_are_bf16(precision):
+    """Through the generic entry points 'int8_direct' (and 'int8' on a
+    calibration without int8 tables) is the bf16 branch on the CPU too, as
+    the JAX package resolves it (pipeline.py:160-176 there)."""
+    jcfg, tcfg, raw, bg, pi = make_case("identity", "bf16")
+    jcal, tcal = calibs(jcfg, tcfg)
+    args = (torch.as_tensor(raw), torch.as_tensor(bg), torch.as_tensor(pi), tcal)
+    bf16 = tp.reconstruct_group(*args, tcfg)
+    got = tp.reconstruct_group(*args, tcfg.replace(matmul_precision=precision))
+    np.testing.assert_array_equal(got.numpy(), bf16.numpy())
+    np.testing.assert_array_equal(
+        tp.reconstruct(*args, tcfg.replace(matmul_precision=precision)).numpy(),
+        tp.reconstruct(*args, tcfg).numpy())
+    want = jp.reconstruct_bscan(jnp.asarray(raw), jnp.asarray(bg), jnp.asarray(pi), jcal,
+                                jcfg.replace(matmul_precision=precision), method="fused")
+    assert_bscans_close(tp.reconstruct_bscan(*args, tcfg.replace(matmul_precision=precision)),
+                        want, "bf16")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_int8_precision_matches_jax(dtype):
+    """'int8' with the calibration's int8 tables: per-frame magnitudes and
+    the group step (plain chain) against the JAX package."""
+    jcfg, tcfg, raw, bg, pi = make_case("normalize", "highest64")
+    jcfg = jcfg.replace(matmul_precision="int8", dtype=dtype)
+    tcfg = PipelineConfig(**dataclasses.asdict(jcfg))
+    jcal = JaxCalibration.create(jcfg, dtype=dtype)
+    leaves = ("op_re", "op_im", "window", "nearest_idx", "frac", "phase", "lambdas", "k",
+              "klinear", "op_re_q", "op_im_q", "op_scale_re", "op_scale_im")
+    tcal = Calibration.from_arrays({n: np.asarray(getattr(jcal, n)) for n in leaves}, tcfg, "cpu")
+    assert tcal.op_re_q.dtype == torch.int8
+    want = np.asarray(jp.reconstruct(jnp.asarray(raw), jnp.asarray(bg), jnp.asarray(pi),
+                                     jcal, jcfg, method="fused"))
+    args = (torch.as_tensor(raw), torch.as_tensor(bg), torch.as_tensor(pi), tcal, tcfg)
+    got = tp.reconstruct(*args).numpy()
+    assert got.dtype == want.dtype
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    group = tp.reconstruct_group(*args).numpy()
+    np.testing.assert_allclose(group, want.sum(0), rtol=1e-5,
+                               atol=1e-5 * np.abs(want).sum(0).max())
 
 
 @pytest.mark.parametrize("method,precision,exc,match", [
     ("gather", "highest", NotImplementedError, "item 6"),
     ("hilbert", "highest", NotImplementedError, "item 6"),
-    ("fused", "int8", NotImplementedError, "item 7"),
-    ("fused", "int8_direct", NotImplementedError, "item 7"),
     ("fft", "highest", ValueError, "unknown method"),
+    ("fused", "int4", ValueError, "unknown matmul_precision"),
 ])
 def test_unported_paths_raise(method, precision, exc, match):
     tcfg = PipelineConfig(**BASE, matmul_precision="highest")

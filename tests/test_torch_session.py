@@ -1,12 +1,16 @@
 """The whole slice: a JAX ``Session`` and a port ``Session(device="cpu")``
 side by side on the same frames — 'b'/'p' captures, the batched
 ``process_group``, per-frame ``process``, threshold and averaging keys — for
-the 'base' and 'sim' variants; and the port's import hygiene (no JAX).
+the 'base' and 'sim' variants and the int8-direct mode; and the port's import
+hygiene (no JAX).
 
 Tolerances as tests/test_torch_pipeline.py: float64 'highest' to rounding;
 bf16 magnitudes rtol 2e-3 of the peak and dB within 2e-2 on pixels within
 40 dB of the peak (ratio by reciprocal in the port, by division in JAX);
-uint8 displays within one level.
+uint8 displays within one level.  int8-direct (both packages on one M, so on
+one plan): linear rtol 1e-5, dB rtol 1e-5 and atol 1e-4, uint8 within one
+level; against a bf16 session, pixels within 30 dB of the peak within 0.35 dB
+(tests/test_int8direct.py:308-323).
 """
 
 import dataclasses
@@ -18,9 +22,15 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 from fdoct_tpu.config import PipelineConfig as JaxConfig
 from fdoct_tpu.session import Session as JaxSession
+from fdoct_tpu_torch import pipeline as tpl
+from fdoct_tpu_torch import session as tsession
+from fdoct_tpu_torch.calibration import Calibration
 from fdoct_tpu_torch.config import PipelineConfig
+from fdoct_tpu_torch.int8direct import reconstruct_int8_direct, shift_u8_to_s8
 from fdoct_tpu_torch.session import Session
 from fdoct_tpu_torch.sources.synthetic import SyntheticSource
 
@@ -152,7 +162,7 @@ def test_fast_path_reason_is_said_once(source):
     ({}, dict(saveinterferograms=True), "saveinterferograms"),
     ({}, dict(manualaveraging=True), "manualaveraging"),
     ({}, dict(bscanbinx=2), "bscanbinx"),
-    ({}, dict(matmul_precision="int8_direct"), "Queue 1 item 7"),
+    (dict(variant="dark"), dict(matmul_precision="int8_direct"), "variant 'dark'"),
 ], ids=["dark", "peak", "mesh", "saveframes", "saveinterferograms", "manualaveraging",
         "bscanbin", "int8_direct"])
 def test_unported_session_features_raise(source, kwargs, extra, match):
@@ -193,6 +203,7 @@ def test_port_never_imports_jax():
         "from fdoct_tpu_torch import PipelineConfig, Session\n"
         "from fdoct_tpu_torch.sources.synthetic import SyntheticSource\n"
         "from fdoct_tpu_torch.utils.profiling import StageTimer\n"
+        "import fdoct_tpu_torch.int8direct\n"
         "cfg = PipelineConfig(width=256, height=32, averages=2, numfftpoints=512,\n"
         "                     numdisplaypoints=128, donotnormalize=False)\n"
         "src = SyntheticSource(height=32, width=256, noise=0.01)\n"
@@ -202,6 +213,10 @@ def test_port_never_imports_jax():
         "res = [r for _ in range(2) for r in s.process_group(\n"
         "    np.stack([next(it) for _ in range(4)]))]\n"
         "assert len(res) == 4, len(res)\n"
+        "s8 = Session(cfg.replace(matmul_precision='int8_direct', donotnormalize=True),\n"
+        "             device='cpu')\n"
+        "assert len(s8.process_group(np.stack([next(it) for _ in range(2)]))) == 1\n"
+        "assert s8._i8plan is not None\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'fdoct_tpu'))\n"
         "assert not bad, bad\n"
@@ -211,3 +226,200 @@ def test_port_never_imports_jax():
                          timeout=240)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "clean" in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# int8-direct display mode
+
+I8 = dict(width=256, height=32, averages=4, numfftpoints=512, numdisplaypoints=160,
+          lambdamin=816e-9, lambdamax=884e-9, dtype="float32", compat=True)
+CAL_LEAVES = ("op_re", "op_im", "window", "nearest_idx", "frac", "phase", "lambdas", "k",
+              "klinear")
+
+
+@pytest.fixture(scope="module")
+def i8_data():
+    """tests/test_int8direct.py's fixture: 8 frames, a non-rank-1 background
+    (per-row gain, 0.3 % noise) and π."""
+    src = SyntheticSource(height=32, width=256, depths_um=(40.0, 80.0),
+                          reflectivities=(0.5, 0.3), noise=0.01, seed=9)
+    it = iter(src.frames())
+    frames = np.stack([next(it) for _ in range(8)]).astype(np.uint8)
+    rng = np.random.default_rng(3)
+    bg = np.maximum(src.background().astype(np.float64), 1.0)
+    bg = bg * (1.0 + 0.04 * np.sin(np.linspace(0, 3, 32)))[:, None]
+    bg = bg * (1.0 + 0.003 * rng.standard_normal(bg.shape))
+    pi = rng.uniform(0.0, 8.0, bg.shape)
+    return frames, bg, pi, src
+
+
+def i8_pair(bg, pi, precision="int8_direct", **extra):
+    """A JAX and a port 'base' session on one M, with S(k) and π bound."""
+    jcfg = JaxConfig(**I8, matmul_precision=precision, **extra)
+    tcfg = PipelineConfig(**dataclasses.asdict(jcfg))
+    js = JaxSession(jcfg, variant="base")
+    tcal = Calibration.from_arrays({n: np.asarray(getattr(js.calib, n)) for n in CAL_LEAVES},
+                                   tcfg, "cpu")
+    ts = Session(tcfg, device="cpu", calib=tcal)
+    js.data_yb, js.data_yp = jnp.asarray(bg, jnp.float32), jnp.asarray(pi, jnp.float32)
+    ts.data_yb = torch.as_tensor(bg, dtype=torch.float32)
+    ts.data_yp = torch.as_tensor(pi, dtype=torch.float32)
+    return js, ts
+
+
+def assert_i8_close(got, want):
+    np.testing.assert_allclose(got.bscan.numpy(), np.asarray(want.bscan), rtol=1e-5)
+    np.testing.assert_allclose(got.bscandb.numpy(), np.asarray(want.bscandb),
+                               rtol=1e-5, atol=1e-4)
+    w_u8 = np.asarray(want.bscandisp)
+    assert got.bscandisp.dtype == np.uint8 and got.bscandisp.shape == w_u8.shape
+    assert np.abs(got.bscandisp.astype(int) - w_u8.astype(int)).max() <= 1
+    assert got.index == want.index
+
+
+def test_int8_direct_process_group_matches_jax(i8_data):
+    frames, bg, pi, _ = i8_data
+    js, ts = i8_pair(bg, pi)
+    want, got = js.process_group(frames), ts.process_group(frames)
+    assert len(got) == len(want) == 2 and ts._i8plan is not None
+    for g, w in zip(got, want):
+        assert_i8_close(g, w)
+    assert ts.zeroisactive == js.zeroisactive
+
+
+@pytest.mark.parametrize("precision,band,limit", [("highest", 30.0, 0.35), ("bf16", 10.0, 0.1)])
+def test_int8_direct_is_display_equivalent(i8_data, precision, band, limit):
+    """The int8 display against the f32 chain with its precision pinned:
+    within 30 dB of the peak to 0.35 dB of 'highest' (the function
+    tests/test_int8direct.py compares on the CPU), and within 10 dB to 0.1 dB
+    of 'bf16' (bf16 rounding adds its own error towards -30 dB)."""
+    frames, bg, pi, _ = i8_data
+    _, t8 = i8_pair(bg, pi)
+    _, tf = i8_pair(bg, pi, precision=precision)
+    for a, b in zip(tf.process_group(frames), t8.process_group(frames)):
+        dbf, db8 = a.bscandb.numpy(), b.bscandb.numpy()
+        signal = dbf > dbf.max() - band
+        assert signal.sum() > 50
+        assert np.abs(dbf - db8)[signal].max() < limit
+
+
+def test_int8_direct_per_frame_matches_group_and_jax(i8_data):
+    frames, bg, pi, _ = i8_data
+    js, ts = i8_pair(bg, pi)
+    _, tg = i8_pair(bg, pi)
+    want = [r for f in frames[:4] if (r := js.process(f)) is not None]
+    got = [r for f in frames[:4] if (r := ts.process(f)) is not None]
+    group = tg.process_group(frames[:4])
+    assert len(got) == len(want) == len(group) == 1
+    assert_i8_close(got[0], want[0])
+    np.testing.assert_allclose(got[0].bscandb.numpy(), group[0].bscandb.numpy(),
+                               rtol=1e-5, atol=1e-4)
+    assert np.abs(got[0].bscandisp.astype(int) - group[0].bscandisp.astype(int)).max() <= 1
+
+
+def test_int8_direct_plan_rebuilt_on_capture(i8_data):
+    """A 'b' capture rebinds data_yb, and the next frame gets a new plan."""
+    frames, bg, pi, src = i8_data
+    _, ts = i8_pair(bg, pi)
+    ts.process(frames[0])
+    p1 = ts._i8plan
+    assert p1 is not None
+    ts.key("b")
+    for _ in range(ts.averagestoggle):
+        ts.process(np.maximum(src.background(), 1).astype(np.uint8))
+    assert not ts._pending
+    ts.process(frames[1])
+    assert ts._i8plan is not None and ts._i8plan is not p1
+    assert not torch.equal(ts._i8plan.const_re, p1.const_re)
+    p2 = ts._i8plan
+    ts.process(frames[2])
+    assert ts._i8plan is p2                   # no capture, no rebuild
+
+
+def test_int8_direct_colour_planes(i8_data):
+    """A single-plane select keeps exact uint8 counts and rides int8-direct
+    (batched and per frame, equal to the grey frames); a channel sum is float
+    and takes the f32 chain; both match JAX."""
+    frames, bg, pi, _ = i8_data
+    color = np.random.default_rng(5).integers(0, 255, (4, 32, 256, 3)).astype(np.uint8)
+    color[..., 1] = frames[:4]                # channelnum=1 reads plane 2-1
+    js, ts = i8_pair(bg, pi, channelnum=1)
+    got = ts.process_group(color)
+    assert ts._i8plan is not None
+    assert_i8_close(got[0], js.process_group(color)[0])
+    _, grey = i8_pair(bg, pi, channelnum=1)
+    np.testing.assert_array_equal(got[0].bscandisp, grey.process_group(frames[:4])[0].bscandisp)
+    _, per_frame = i8_pair(bg, pi, channelnum=1)
+    outs = [r for f in color if (r := per_frame.process(f)) is not None]
+    assert per_frame._i8plan is not None
+    assert np.abs(outs[0].bscandisp.astype(int) - got[0].bscandisp.astype(int)).max() <= 1
+    js_sum, ts_sum = i8_pair(bg, pi, channelnum=3)
+    got_sum = ts_sum.process_group(color)
+    assert ts_sum._i8plan is None and len(got_sum) == 1
+    assert_result_close(got_sum[0], js_sum.process_group(color)[0], "bf16")
+
+
+def test_int8_direct_per_frame_skips_preprocess(i8_data, monkeypatch):
+    """No preprocess on the per-frame int8 path; a pending capture still
+    gets its preprocessed frame."""
+    frames, bg, pi, _ = i8_data
+    calls = []
+    for module in (tsession, tpl):
+        orig = module.preprocess
+        monkeypatch.setattr(module, "preprocess",
+                            lambda *a, _orig=orig, **k: (calls.append(1), _orig(*a, **k))[1])
+    _, ts = i8_pair(bg, pi)
+    outs = [r for f in frames[:4] if (r := ts.process(f)) is not None]
+    assert len(outs) == 1 and not calls
+    ts.key("b")
+    ts.process(frames[0])
+    assert calls
+
+
+def structured_bg():
+    lam = np.linspace(0, 1, 256)
+    spec1 = np.exp(-(((lam - 0.45) / 0.15) ** 2)) * 180.0 + 12.0
+    spec2 = np.exp(-(((lam - 0.65) / 0.08) ** 2)) * 120.0
+    return np.maximum(spec1[None, :] + 0.25 * np.linspace(0.0, 1.0, 32)[:, None]
+                      * spec2[None, :], 1.0)
+
+
+@pytest.mark.parametrize("kind", ["structured", "noise", "mediann"])
+def test_int8_direct_fallbacks_are_the_bf16_chain(i8_data, kind):
+    """A background whose rank-1 residual is too high, and a median filter,
+    take the f32 chain: the bf16 branch on the CPU too, as JAX resolves
+    'int8_direct' there."""
+    frames, bg, pi, _ = i8_data
+    extra = {}
+    if kind == "structured":
+        bg = structured_bg()
+    elif kind == "noise":
+        rng = np.random.default_rng(17)
+        bg = np.maximum(bg * (1.0 + 0.05 * rng.standard_normal(bg.shape)), 1.0)
+    else:
+        extra = dict(mediann=3)
+    js, ts = i8_pair(bg, pi, **extra)
+    _, t16 = i8_pair(bg, pi, precision="bf16", **extra)
+    assert not ts._use_int8_direct(torch.as_tensor(frames[0]))
+    got, want = ts.process_group(frames), js.process_group(frames)
+    assert ts._i8plan is None and len(got) == len(want) == 2
+    if kind != "mediann":
+        assert any("falling back to the exact f32" in m for m in ts.status)
+    for g, w, b in zip(got, want, t16.process_group(frames)):
+        assert_result_close(g, w, "bf16")
+        np.testing.assert_array_equal(g.bscandb.numpy(), b.bscandb.numpy())
+
+
+def test_int8_direct_clampupper_takes_the_plain_chain(i8_data):
+    """clampupper is not in the fused kernel: the group runs
+    form_bscan(reconstruct_int8_direct(...).sum(0)), and matches JAX."""
+    frames, bg, pi, _ = i8_data
+    js, ts = i8_pair(bg, pi, clampupper=True)
+    got = ts.process_group(frames[:4])
+    assert_i8_close(got[0], js.process_group(frames[:4])[0])
+    plan = ts._i8plan
+    want = tpl.form_bscan(reconstruct_int8_direct(shift_u8_to_s8(torch.as_tensor(frames[:4])),
+                                                  plan).sum(0),
+                          ts.cfg, 4, bscanthreshold=ts.bscanthreshold)
+    np.testing.assert_array_equal(got[0].bscandb.numpy(), want.bscandb.numpy())
+    np.testing.assert_array_equal(got[0].bscandisp, want.bscandisp.numpy())
