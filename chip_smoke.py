@@ -44,6 +44,18 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    session on the same captures within 0.35 dB.
 8. int8 times — the kernel against its plain version, and the int8
    session's wall time per group.
+9. resident kernels — fused_recon_resident against its plain version (the
+   raw-input plain version with the operator rounded to bf16) and against
+   kernel 1's bf16 instance, at the flagship shape and at the ragged shape,
+   with a float32 and a bfloat16 operator passed in (the wrapper casts to
+   bf16).  Tolerance rtol 1e-5, atol 1e-5*max: all three round the same f32
+   ratio, so only the order of the f32 sums differs.  Prints the block tile
+   and the kernel's and the plain version's times.
+10. resident bench — fdoct_tpu_torch.bench_resident at the flagship: every
+   reconstruction route of one group (f32, default, int8, int8_direct, plain
+   bf16, kernels 1, 2 and the resident kernel), each within 5e-2 of the f32
+   route, timed hot and streamed over 32 distinct groups.  Launch counts are
+   reset just before and read just after; the resident kernel must launch.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -53,7 +65,6 @@ from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -72,10 +83,12 @@ REPLACES = {
     "fused_recon_raw_accumulate": "fdoct_tpu/ops/pallas_kernels.py:147",
     "fused_recon_accumulate": "fdoct_tpu/ops/pallas_kernels.py:297",
     "int8_bscan_display_fused": "fdoct_tpu/ops/pallas_kernels.py:244",
+    "fused_recon_resident": "fdoct_tpu/ops/pallas_kernels.py:109",
 }
 SOURCE = "fdoct_tpu_torch/csrc/fused_recon.cu"
 INT8_SOURCE = "fdoct_tpu_torch/csrc/int8_bscan.cu"
 INT8_TOL = (1e-5, 1e-4)            # rtol, atol of dB and of the min/max partials
+RESIDENT_TOL = 1e-5                # rtol = atol/max of the resident kernel
 
 
 def check(ok: bool, what: str) -> None:
@@ -85,13 +98,6 @@ def check(ok: bool, what: str) -> None:
 
 def phase(name: str, text: str) -> None:
     print(f"[{name}] {text}", flush=True)
-
-
-def card() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def compare(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> dict:
@@ -138,6 +144,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from fdoct_tpu_torch.bench_resident import card_line as card
     from fdoct_tpu_torch.calibration import Calibration
     from fdoct_tpu_torch.config import PipelineConfig
     from fdoct_tpu_torch.ops import _build, kernels
@@ -315,13 +322,14 @@ def main() -> int:
           f"after 4 warm-up groups; host clock) | {card_line}")
 
     int8_entry = int8_phases(cfg, calib, src, frames, card_line, dev)
+    resident_entry = resident_phases(flag_in, rag_in, card_line, dev)
 
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": launches[name], "operator": "bf16",
          "max_abs_err": errors[(name, "flagship", "bf16")]["max_abs_err"],
          "ms": times[(name, "bf16")][0][0], "plain_ms": times[(name, "bf16")][1][0]}
-        for name in runners] + [int8_entry]}
+        for name in runners] + [int8_entry, resident_entry]}
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -458,6 +466,67 @@ def int8_phases(cfg, calib, src, frames, card_line: str, dev: torch.device) -> d
           f"warm-up groups; host clock) | {card_line}")
     return {"name": name, "route": "cuda", "source": INT8_SOURCE, "replaces": REPLACES[name],
             "launches": launches, "operator": "s8", "max_abs_err": flag_err,
+            "ms": k[0], "plain_ms": p[0]}
+
+
+def resident_phases(flag_in: dict, rag_in: dict, card_line: str, dev: torch.device) -> dict:
+    """Phases 9-10: the resident kernel against its plain version and kernel
+    1, then the resident bench; returns the kernel's entry of the
+    {"kernels": [...]} line."""
+    from fdoct_tpu_torch import bench_resident
+    from fdoct_tpu_torch.ops import kernels
+    from fdoct_tpu_torch.ops.kernels import (
+        LAUNCHES, RESIDENT_TILE, fused_recon_raw_accumulate, fused_recon_resident,
+        fused_recon_resident_reference, resident_rows_per_block,
+    )
+
+    name = "fused_recon_resident"
+    tol = RESIDENT_TOL
+
+    # 9. the kernel against its plain version and kernel 1 ----------------------
+    pairs, depths = RESIDENT_TILE
+    B = flag_in["raw"].shape[0]
+    phase("resident kernels", f"block tile: {pairs} (frame, row) pairs x {depths} depths = "
+          f"{resident_rows_per_block(B)} rows x {min(B, pairs)} frames at B={B}")
+    flag_err = None
+    for shape_name, inp in (("flagship", flag_in), ("ragged", rag_in)):
+        x = (inp["raw"], inp["pi"], inp["inv"])
+        bf16_op = inp["bf16"]
+        for op in ("f32", "bf16"):
+            got = fused_recon_resident(*x, *inp[op])
+            torch.cuda.synchronize()
+            want = fused_recon_resident_reference(*x, *inp[op])
+            k1 = fused_recon_raw_accumulate(*x, *bf16_op)
+            res = {"plain": compare(got, want, tol, tol * float(want.abs().max())),
+                   "kernel 1": compare(got, k1, tol, tol * float(k1.abs().max()))}
+            if shape_name == "flagship" and op == "bf16":
+                flag_err = res["plain"]["max_abs_err"]
+            phase("resident kernels", f"{name} {shape_name} {tuple(got.shape)} op={op} passed "
+                  "in: " + "; ".join(f"vs {k} max_abs_err {r['max_abs_err']:.3e}, worst "
+                                     f"{r['worst_share_of_tol']:.3e} of tol"
+                                     for k, r in res.items())
+                  + f" (rtol=atol/max={tol})")
+            check(all(r["finite"] and r["worst_share_of_tol"] <= 1.0 for r in res.values()),
+                  f"{name} {shape_name} {op} disagrees with its plain version or kernel 1")
+    x16 = (flag_in["raw"], flag_in["pi"], flag_in["inv"], *flag_in["bf16"])
+    k = cuda_ms(lambda: fused_recon_resident(*x16))
+    p = cuda_ms(lambda: fused_recon_resident_reference(*x16))
+    phase("resident kernels", f"{name} flagship op=bf16: kernel median {k[0]:.4f} ms (min "
+          f"{k[1]:.4f}, max {k[2]:.4f}); plain median {p[0]:.4f} ms (min {p[1]:.4f}, max "
+          f"{p[2]:.4f}); 20 runs, CUDA events | {card_line}")
+
+    # 10. the resident bench -----------------------------------------------------
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rows = bench_resident.run(dev, card=card_line,
+                              log=lambda s: phase("resident bench", s))
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    phase("resident bench", f"{len(rows)} rows in {time.perf_counter() - t0:.1f} s; "
+          f"launches this run {launches}")
+    check(launches[name] > 0, f"{name} was not launched by the resident bench")
+    return {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+            "launches": launches[name], "operator": "bf16", "max_abs_err": flag_err,
             "ms": k[0], "plain_ms": p[0]}
 
 

@@ -2,7 +2,9 @@
 //
 //   out[r, d] = sum_b | x_b[r, :] @ (op_re + i*op_im)[:, d] |
 //
-// Replaces two Pallas TPU kernels of fdoct_tpu/ops/pallas_kernels.py:
+// Replaces three Pallas TPU kernels of fdoct_tpu/ops/pallas_kernels.py; the
+// third, fused_recon_resident, is the second schedule at the end of the file.
+// The first two:
 //   * fdoct_recon_raw_u8_*  <- fused_recon_raw_accumulate (_recon_raw_kernel):
 //     x_b = (raw[b] - pi_frame) * inv_background, computed per element as the
 //     tile is staged, so the f32 apodization ratio never reaches device memory;
@@ -164,6 +166,231 @@ int launch(const void* x, const void* pi, const void* inv_bg, const void* op_re,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The resident schedule: fdoct_recon_resident_u8_bf16 <- fused_recon_resident
+// (_recon_resident_kernel, pallas_kernels.py:70-123).  The same sum as the
+// raw bf16 instance above, with the bf16 operator the TPU kernel keeps in
+// VMEM for the whole grid while each frame streams through once.
+//
+// On Hopper the 4 MiB bf16 operator of the flagship (2 x 2048 x 512) cannot
+// sit in one SM's shared memory, but it stays hot in the 50 MB L2.  What
+// fits is the other operand, so the roles swap.  A block owns RES_VROWS
+// (frame, row) pairs -- all B frames of RES_VROWS / B rows (4 rows at B = 8)
+// -- times RES_TD depths.  It forms the bf16-rounded ratio of those pairs
+// once from the u8 frames, pi_frame and inv_background and keeps it in
+// shared memory, RES_KS samples at a time; the operator streams from L2 in
+// RES_TK-sample chunks, double-buffered through registers, and each chunk
+// serves every frame of the tile before the next one lands.  Every frame
+// byte is read from device memory once (and ndisp / RES_TD times from L2,
+// by the blocks that split the depths); kernel 1 re-stages pi/inv_background
+// and its operator tile per frame and re-reads each frame row once per
+// 32-wide depth tile.  Per thread 8 pairs x 4 depths x (re, im) = 64 f32
+// accumulators; per k step two broadcast float4 loads of the ratio and two
+// float4 loads of the operator feed 64 FMAs.  What bounds it: the SIMT FP32
+// FMA rate, as kernels 1-2 (17.2 GFLOP per flagship group).  The b loop is
+// inside the block; the block stores its output tile once per chunk of up to
+// RES_VROWS frames: no atomics, deterministic.  Ragged rows, samples and
+// depths are masked.
+
+constexpr int RES_VROWS = 32;     // (frame, row) pairs per block
+constexpr int RES_TD = 128;       // depths per block
+constexpr int RES_KS = 512;       // spectral samples per ratio slab in shared memory
+constexpr int RES_TK = 16;        // spectral samples per operator chunk
+constexpr int RES_THREADS = 128;
+constexpr int RES_VPT = 8;        // (frame, row) pairs per thread
+constexpr int RES_DPT = 4;        // depths per thread
+constexpr int RES_STRIDE = RES_VROWS + 4;   // floats per sample in the slab: 16-byte rows
+constexpr int RES_OPBUF = 2 * RES_TK * RES_TD;   // floats per operator buffer (re, im)
+constexpr size_t RES_SMEM = sizeof(float) * (static_cast<size_t>(RES_KS) * RES_STRIDE +
+                                             2 * RES_OPBUF);
+static_assert((RES_VROWS / RES_VPT) * (RES_TD / RES_DPT) == RES_THREADS, "thread tiling");
+static_assert(RES_KS % RES_TK == 0, "slab holds whole operator chunks");
+static_assert(RES_VROWS * RES_TD <= 2 * RES_OPBUF, "magnitudes fit the operator buffers");
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// One RES_TK x RES_TD chunk of op_re and op_im, held in registers between its
+// load from L2 and its store to shared memory as f32.  VEC: ndisp % 8 == 0
+// and 16-byte aligned operators, so 8 depths load as one uint4.
+template <bool VEC> struct OpChunk;
+
+template <> struct OpChunk<true> {
+  static constexpr int SEGS = RES_TK * RES_TD / 8 / RES_THREADS;   // uint4 per thread per array
+  uint4 v[2][SEGS];
+  __device__ void load(const __nv_bfloat16* re, const __nv_bfloat16* im, int k0, int col0,
+                       int n_in, int ndisp, int tid) {
+#pragma unroll
+    for (int s = 0; s < SEGS; ++s) {
+      const int seg = tid + s * RES_THREADS;
+      const int gk = k0 + seg / (RES_TD / 8), gc = col0 + (seg % (RES_TD / 8)) * 8;
+      const bool ok = gk < n_in && gc < ndisp;
+      const size_t idx = static_cast<size_t>(gk) * ndisp + gc;
+      v[0][s] = ok ? *reinterpret_cast<const uint4*>(re + idx) : make_uint4(0, 0, 0, 0);
+      v[1][s] = ok ? *reinterpret_cast<const uint4*>(im + idx) : make_uint4(0, 0, 0, 0);
+    }
+  }
+  __device__ void store(float* buf, int tid) const {
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+#pragma unroll
+      for (int s = 0; s < SEGS; ++s) {
+        const int seg = tid + s * RES_THREADS;
+        float* dst = buf + a * RES_TK * RES_TD + (seg / (RES_TD / 8)) * RES_TD +
+                     (seg % (RES_TD / 8)) * 8;
+        const uint4 w = v[a][s];
+        *reinterpret_cast<float4*>(dst) = make_float4(bf16_lo(w.x), bf16_hi(w.x),
+                                                      bf16_lo(w.y), bf16_hi(w.y));
+        *reinterpret_cast<float4*>(dst + 4) = make_float4(bf16_lo(w.z), bf16_hi(w.z),
+                                                          bf16_lo(w.w), bf16_hi(w.w));
+      }
+    }
+  }
+};
+
+template <> struct OpChunk<false> {
+  // thread t holds depth col0 + t of every sample of the chunk
+  static_assert(RES_TD == RES_THREADS, "one depth per thread");
+  __nv_bfloat16 v[2][RES_TK];
+  __device__ void load(const __nv_bfloat16* re, const __nv_bfloat16* im, int k0, int col0,
+                       int n_in, int ndisp, int tid) {
+    const int gc = col0 + tid;
+#pragma unroll
+    for (int k = 0; k < RES_TK; ++k) {
+      const int gk = k0 + k;
+      const bool ok = gk < n_in && gc < ndisp;
+      const size_t idx = static_cast<size_t>(gk) * ndisp + gc;
+      v[0][k] = ok ? re[idx] : __float2bfloat16_rn(0.f);
+      v[1][k] = ok ? im[idx] : __float2bfloat16_rn(0.f);
+    }
+  }
+  __device__ void store(float* buf, int tid) const {
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+#pragma unroll
+      for (int k = 0; k < RES_TK; ++k)
+        buf[a * RES_TK * RES_TD + k * RES_TD + tid] = __bfloat162float(v[a][k]);
+    }
+  }
+};
+
+// R rows x Bc frames per block (R * Bc <= RES_VROWS); pair (r, b) is slab
+// column r * Bc + b.
+template <bool VEC>
+__global__ void __launch_bounds__(RES_THREADS)
+fused_recon_resident_kernel(const uint8_t* __restrict__ raw, const float* __restrict__ pi,
+                            const float* __restrict__ inv_bg,
+                            const __nv_bfloat16* __restrict__ op_re,
+                            const __nv_bfloat16* __restrict__ op_im, float* __restrict__ out,
+                            int B, int rows, int n_in, int ndisp, int R, int Bc) {
+  extern __shared__ __align__(16) float res_smem[];
+  float* slab = res_smem;                                   // [RES_KS][RES_STRIDE]
+  float* opbuf = res_smem + static_cast<size_t>(RES_KS) * RES_STRIDE;   // 2 x [re|im][RES_TK][RES_TD]
+  float* mag_s = opbuf;                                     // [RES_VROWS][RES_TD], after the K loop
+
+  const int tid = threadIdx.x;
+  const int tv = tid / (RES_TD / RES_DPT);   // warp-uniform: ratio loads broadcast
+  const int tc = tid % (RES_TD / RES_DPT);
+  const int row0 = blockIdx.y * R;
+  const int col0 = blockIdx.x * RES_TD;
+  const size_t frame = static_cast<size_t>(rows) * n_in;
+
+  for (int b0 = 0; b0 < B; b0 += Bc) {
+    const int nb = min(Bc, B - b0);
+    float re[RES_VPT][RES_DPT] = {};
+    float im[RES_VPT][RES_DPT] = {};
+    for (int ks = 0; ks < n_in; ks += RES_KS) {
+      const int nch = (min(RES_KS, n_in - ks) + RES_TK - 1) / RES_TK;
+      const int kspan = nch * RES_TK;
+      __syncthreads();                 // the last slab, chunk and magnitudes are read
+      // the ratio slab: lanes walk k, so each frame row's reads coalesce;
+      // pi and inv_background are read once for all frames of the row
+      for (int i = tid; i < R * kspan; i += RES_THREADS) {
+        const int r = i / kspan, k = i % kspan;
+        const int gr = row0 + r, gk = ks + k;
+        const bool ok = gr < rows && gk < n_in;
+        const size_t rk = static_cast<size_t>(gr) * n_in + gk;
+        const float p = ok ? pi[rk] : 0.f;
+        const float inv = ok ? inv_bg[rk] : 0.f;
+        float* dst = slab + k * RES_STRIDE + r * Bc;
+        for (int b = 0; b < Bc; ++b) {
+          float v = 0.f;
+          if (ok && b < nb)
+            v = as_operand<__nv_bfloat16>((static_cast<float>(raw[(b0 + b) * frame + rk]) - p) * inv);
+          dst[b] = v;
+        }
+      }
+      OpChunk<VEC> chunk;
+      chunk.load(op_re, op_im, ks, col0, n_in, ndisp, tid);
+      chunk.store(opbuf, tid);
+      __syncthreads();
+      for (int c = 0; c < nch; ++c) {
+        const bool more = c + 1 < nch;
+        if (more) chunk.load(op_re, op_im, ks + (c + 1) * RES_TK, col0, n_in, ndisp, tid);
+        const float* a_s = slab + c * RES_TK * RES_STRIDE + tv * RES_VPT;
+        const float* br_s = opbuf + (c & 1) * RES_OPBUF + tc * RES_DPT;
+        const float* bi_s = br_s + RES_TK * RES_TD;
+#pragma unroll
+        for (int k = 0; k < RES_TK; ++k) {
+          const float4 a0 = *reinterpret_cast<const float4*>(a_s + k * RES_STRIDE);
+          const float4 a1 = *reinterpret_cast<const float4*>(a_s + k * RES_STRIDE + 4);
+          const float4 br4 = *reinterpret_cast<const float4*>(br_s + k * RES_TD);
+          const float4 bi4 = *reinterpret_cast<const float4*>(bi_s + k * RES_TD);
+          const float a[RES_VPT] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+          const float br[RES_DPT] = {br4.x, br4.y, br4.z, br4.w};
+          const float bi[RES_DPT] = {bi4.x, bi4.y, bi4.z, bi4.w};
+#pragma unroll
+          for (int i = 0; i < RES_VPT; ++i) {
+#pragma unroll
+            for (int j = 0; j < RES_DPT; ++j) {
+              re[i][j] = fmaf(a[i], br[j], re[i][j]);
+              im[i][j] = fmaf(a[i], bi[j], im[i][j]);
+            }
+          }
+        }
+        if (more) chunk.store(opbuf + ((c + 1) & 1) * RES_OPBUF, tid);
+        __syncthreads();
+      }
+    }
+    // |re + i im| of every pair, then the sum over the chunk's frames per row
+#pragma unroll
+    for (int i = 0; i < RES_VPT; ++i) {
+      float m[RES_DPT];
+#pragma unroll
+      for (int j = 0; j < RES_DPT; ++j) m[j] = sqrtf(re[i][j] * re[i][j] + im[i][j] * im[i][j]);
+      *reinterpret_cast<float4*>(mag_s + (tv * RES_VPT + i) * RES_TD + tc * RES_DPT) =
+          make_float4(m[0], m[1], m[2], m[3]);
+    }
+    __syncthreads();
+    for (int i = tid; i < R * RES_TD; i += RES_THREADS) {
+      const int r = i / RES_TD, d = i % RES_TD;
+      const int gr = row0 + r, gc = col0 + d;
+      if (gr >= rows || gc >= ndisp) continue;
+      float s = 0.f;
+      for (int b = 0; b < nb; ++b) s += mag_s[(r * Bc + b) * RES_TD + d];
+      float* o = out + static_cast<size_t>(gr) * ndisp + gc;
+      *o = b0 == 0 ? s : *o + s;       // this thread wrote it for the last chunk
+    }
+  }
+}
+
+template <bool VEC>
+int launch_resident(const void* raw, const void* pi, const void* inv_bg, const void* op_re,
+                    const void* op_im, void* out, int B, int rows, int n_in, int ndisp,
+                    int R, int Bc, void* stream) {
+  const auto kernel = fused_recon_resident_kernel<VEC>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(RES_SMEM));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((ndisp + RES_TD - 1) / RES_TD, (rows + R - 1) / R);
+  kernel<<<grid, RES_THREADS, RES_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(raw), static_cast<const float*>(pi),
+      static_cast<const float*>(inv_bg), static_cast<const __nv_bfloat16*>(op_re),
+      static_cast<const __nv_bfloat16*>(op_im), static_cast<float*>(out),
+      B, rows, n_in, ndisp, R, Bc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes.  Every pointer is a contiguous device
@@ -195,6 +422,23 @@ int fdoct_recon_yr_f32_bf16(const void* yr, const void* op_re, const void* op_im
                             int B, int rows, int n_in, int ndisp, void* stream) {
   return launch<float, __nv_bfloat16>(yr, nullptr, nullptr, op_re, op_im, out, B, rows, n_in,
                                       ndisp, stream);
+}
+
+// The resident schedule; op_re, op_im are bf16.  Frames per block
+// min(B, RES_VROWS), rows per block RES_VROWS / that.
+int fdoct_recon_resident_u8_bf16(const void* raw, const void* pi, const void* inv_bg,
+                                 const void* op_re, const void* op_im, void* out,
+                                 int B, int rows, int n_in, int ndisp, void* stream) {
+  if (B < 1 || rows < 1 || n_in < 1 || ndisp < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int Bc = B < RES_VROWS ? B : RES_VROWS;
+  const int R = RES_VROWS / Bc;
+  if ((rows + R - 1) / R > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = ndisp % 8 == 0 && reinterpret_cast<uintptr_t>(op_re) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(op_im) % 16 == 0;
+  return vec ? launch_resident<true>(raw, pi, inv_bg, op_re, op_im, out, B, rows, n_in, ndisp,
+                                     R, Bc, stream)
+             : launch_resident<false>(raw, pi, inv_bg, op_re, op_im, out, B, rows, n_in, ndisp,
+                                      R, Bc, stream);
 }
 
 }  // extern "C"

@@ -35,6 +35,7 @@ SIGNATURES = {
     "fdoct_recon_raw_u8_bf16": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     "fdoct_recon_yr_f32_f32": [_PTR] * 4 + [_INT] * 4 + [_PTR],
     "fdoct_recon_yr_f32_bf16": [_PTR] * 4 + [_INT] * 4 + [_PTR],
+    "fdoct_recon_resident_u8_bf16": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     "fdoct_int8_bscan": [_PTR] * 8 + [_FLOAT] * 4 + [_PTR] * 4 + [_INT] * 4 + [_PTR],
 }
 

@@ -1,15 +1,18 @@
 """The fused group-reconstruction kernels and their plain versions.
 
-Hopper counterparts of three Pallas kernels of ``fdoct_tpu/ops/pallas_kernels.py``:
+Hopper counterparts of the four Pallas kernels of ``fdoct_tpu/ops/pallas_kernels.py``:
 
 - :func:`fused_recon_raw_accumulate`: Σ_b |((raw[b] − y_p)·(1/y_b)) @ M| from
   raw uint8 frames, the ratio formed on the tile;
 - :func:`fused_recon_accumulate`: Σ_b |yr[b] @ M| from a float32 ratio stack;
+- :func:`fused_recon_resident`: the first with a bfloat16 operator, in the
+  schedule that reads each frame byte from device memory once;
 - :func:`int8_bscan_display_fused`: the int8-direct group step, s8 frames
   against a quantized operator with the display epilogue fused.
 
-The first two are one CUDA C++ template (``csrc/fused_recon.cu``), the third
-is ``csrc/int8_bscan.cu``; :mod:`fdoct_tpu_torch.ops._build` builds both.
+The first three are ``csrc/fused_recon.cu`` (one template and a second
+schedule), the fourth is ``csrc/int8_bscan.cu``; :mod:`fdoct_tpu_torch.ops._build`
+builds both.
 M = op_re + i·op_im is float32 or bfloat16; with bfloat16 the ratio is
 rounded to bfloat16 before the product and the sums stay float32.  A wrapper
 given CPU tensors computes the plain version beside it (``*_reference``);
@@ -29,11 +32,15 @@ from fdoct_tpu_torch.ops import _build
 
 #: kernel launches per wrapper since the last reset (CPU calls do not count)
 LAUNCHES = {"fused_recon_raw_accumulate": 0, "fused_recon_accumulate": 0,
-            "int8_bscan_display_fused": 0}
+            "fused_recon_resident": 0, "int8_bscan_display_fused": 0}
 
 #: output tile (rows, depths) of one block of the int8 kernel: one min/max
 #: partial per tile
 INT8_TILE = (32, 32)
+
+#: one block of the resident kernel: (frame, row) pairs x depths
+#: (RES_VROWS, RES_TD of csrc/fused_recon.cu); see resident_rows_per_block
+RESIDENT_TILE = (32, 128)
 
 
 def reset_launches() -> None:
@@ -98,6 +105,16 @@ def _check_stack(x: torch.Tensor, name: str) -> tuple[int, int, int]:
     return x.shape
 
 
+def _check_ratio_terms(pi_frame: torch.Tensor, inv_background: torch.Tensor, rows: int,
+                       n_in: int, device: torch.device, dtype: torch.dtype) -> None:
+    for t, name in ((pi_frame, "pi_frame"), (inv_background, "inv_background")):
+        if t.shape != (rows, n_in) or t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous ({rows}, {n_in}) tensor "
+                             f"on {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} is {t.dtype}; here it must be {dtype}")
+
+
 def _launch(name: str, fn_stem: str, args: list, dims: tuple, op_re: torch.Tensor,
             out: torch.Tensor) -> torch.Tensor:
     lib = _build.load()
@@ -126,13 +143,7 @@ def fused_recon_raw_accumulate(raw: torch.Tensor, pi_frame: torch.Tensor,
     if raw.dtype != torch.uint8:
         raise TypeError(f"raw must be uint8, got {raw.dtype}")
     ndisp = _check_operator(op_re, op_im, n_in, raw.device)
-    for t, name in ((pi_frame, "pi_frame"), (inv_background, "inv_background")):
-        if t.shape != (rows, n_in) or t.device != raw.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous ({rows}, {n_in}) tensor "
-                             f"on {raw.device}")
-        if t.dtype != _ratio_dtype(op_re):
-            raise TypeError(f"{name} is {t.dtype}; with a {op_re.dtype} operator "
-                            f"it must be {_ratio_dtype(op_re)}")
+    _check_ratio_terms(pi_frame, inv_background, rows, n_in, raw.device, _ratio_dtype(op_re))
     if raw.device.type == "cpu":
         return fused_recon_raw_accumulate_reference(raw, pi_frame, inv_background,
                                                     op_re, op_im)
@@ -161,6 +172,49 @@ def fused_recon_accumulate(yr: torch.Tensor, op_re: torch.Tensor,
     out = torch.empty((rows, ndisp), dtype=torch.float32, device=yr.device)
     return _launch("fused_recon_accumulate", "fdoct_recon_yr_f32",
                    [yr, op_re, op_im], (B, rows, n_in, ndisp), op_re, out)
+
+
+def resident_rows_per_block(B: int) -> int:
+    """Rows of one block of the resident kernel: RESIDENT_TILE[0] (frame,
+    row) pairs hold all frames of this many rows (frames beyond
+    RESIDENT_TILE[0] run in further chunks of one row)."""
+    return RESIDENT_TILE[0] // min(B, RESIDENT_TILE[0])
+
+
+def fused_recon_resident_reference(raw, pi_frame, inv_background, op_re, op_im):
+    """Plain version of :func:`fused_recon_resident`: the raw-input plain
+    version with the operator rounded to bfloat16."""
+    return fused_recon_raw_accumulate_reference(raw, pi_frame, inv_background,
+                                                op_re.to(torch.bfloat16),
+                                                op_im.to(torch.bfloat16))
+
+
+def fused_recon_resident(raw: torch.Tensor, pi_frame: torch.Tensor,
+                         inv_background: torch.Tensor, op_re: torch.Tensor,
+                         op_im: torch.Tensor) -> torch.Tensor:
+    """Σ_b |bf16((raw[b] − pi_frame)·inv_background) @ bf16(op_re + i·op_im)|,
+    float32 sums.
+
+    raw: (B, rows, n_in) uint8; pi_frame, inv_background: (rows, n_in)
+    float32; op_re, op_im: (n_in, ndisp), cast to bfloat16 whatever their
+    type, as the TPU kernel casts them.  Returns (rows, ndisp) float32.
+    Replaces the TPU kernel ``fused_recon_resident`` (pallas_kernels.py:90-123),
+    whose operator stays in VMEM for the whole grid; here each block keeps
+    the ratio of its (frame, row) pairs in shared memory and streams the
+    operator from L2 (``csrc/fused_recon.cu``).
+    """
+    B, rows, n_in = _check_stack(raw, "raw")
+    if raw.dtype != torch.uint8:
+        raise TypeError(f"raw must be uint8, got {raw.dtype}")
+    ndisp = _check_operator(op_re, op_im, n_in, raw.device)
+    _check_ratio_terms(pi_frame, inv_background, rows, n_in, raw.device, torch.float32)
+    op_re, op_im = op_re.to(torch.bfloat16), op_im.to(torch.bfloat16)
+    if raw.device.type == "cpu":
+        return fused_recon_resident_reference(raw, pi_frame, inv_background, op_re, op_im)
+    out = torch.empty((rows, ndisp), dtype=torch.float32, device=raw.device)
+    return _launch("fused_recon_resident", "fdoct_recon_resident_u8",
+                   [raw, pi_frame, inv_background, op_re, op_im],
+                   (B, rows, n_in, ndisp), op_re, out)
 
 
 # --------------------------------------------------------------------------

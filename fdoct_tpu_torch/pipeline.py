@@ -33,6 +33,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from fdoct_tpu_torch.calibration import Calibration
@@ -86,10 +87,21 @@ def _int8_tables_apply(precision: str, calib: Calibration) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def preprocess(raw: torch.Tensor, cfg, dtype: torch.dtype | None = None) -> torch.Tensor:
+def as_torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from itself or from anything numpy names a dtype by
+    ("float64", np.float64), as ``jnp.dtype`` reads the JAX package's
+    ``dtype`` arguments."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return getattr(torch, np.dtype(dtype).name)
+
+
+def preprocess(raw: torch.Tensor, cfg, dtype=None) -> torch.Tensor:
     """Raw integer frames → binned float spectra (BscanFFT.cpp:952-991:
-    medianBlur, INTER_AREA resize, convertTo CV_64F, smoothmovavg)."""
-    dtype = dtype or getattr(torch, cfg.dtype)
+    medianBlur, INTER_AREA resize, convertTo CV_64F, smoothmovavg).
+    ``dtype`` (a torch dtype or its name; default ``cfg.dtype``) is the type
+    of the spectra."""
+    dtype = as_torch_dtype(dtype or cfg.dtype)
     x = raw
     if cfg.mediann > 0:
         x = median_blur(x, cfg.mediann)
@@ -127,6 +139,13 @@ def _op_matmul_pair(yr: torch.Tensor, calib: Calibration,
     op_re, op_im = _operator(calib, bf16)
     if bf16:
         yr, op_re, op_im = yr.to(torch.bfloat16).float(), op_re.float(), op_im.float()
+    if op_re.dtype != yr.dtype:
+        # a ratio in another type than M (an explicit ``dtype``): multiply in
+        # the promoted type and return the ratio's, as jnp.matmul with
+        # preferred_element_type=yr.dtype does
+        dt = torch.promote_types(yr.dtype, op_re.dtype)
+        return (torch.matmul(yr.to(dt), op_re.to(dt)).to(yr.dtype),
+                torch.matmul(yr.to(dt), op_im.to(dt)).to(yr.dtype))
     return torch.matmul(yr, op_re), torch.matmul(yr, op_im)
 
 
@@ -168,9 +187,11 @@ def ascan_mags(yr: torch.Tensor, calib: Calibration, method: str = "fused",
 
 
 def reconstruct(raw: torch.Tensor, background: torch.Tensor, pi_frame: torch.Tensor,
-                calib: Calibration, cfg, method: str = "fused") -> torch.Tensor:
-    """Raw frames (..., H, W) → per-frame A-scan magnitudes (..., oph, ndisp)."""
-    yr = apodize_ratio(preprocess(raw, cfg), background, pi_frame, cfg)
+                calib: Calibration, cfg, method: str = "fused", dtype=None) -> torch.Tensor:
+    """Raw frames (..., H, W) → per-frame A-scan magnitudes (..., oph, ndisp).
+    ``dtype`` (a torch dtype or its name; default ``cfg.dtype``) is the type
+    the spectra, the ratio and the products are computed in."""
+    yr = apodize_ratio(preprocess(raw, cfg, dtype), background, pi_frame, cfg)
     return ascan_mags(yr, calib, method, cfg.matmul_precision)
 
 
@@ -240,10 +261,16 @@ def form_bscan(mag_sum: torch.Tensor, cfg, averages: int = 1,
 
 def reconstruct_bscan(raw: torch.Tensor, background: torch.Tensor,
                       pi_frame: torch.Tensor, calib: Calibration, cfg,
-                      method: str = "fused", averages: int | None = None) -> BscanOutputs:
+                      method: str = "fused", averages: int | None = None,
+                      dtype=None) -> BscanOutputs:
     """A batch of raw frames (or one frame) → one averaged, displayed B-scan,
-    through the group kernel."""
+    through the group kernel.  A ``dtype`` other than ``cfg.dtype`` sums the
+    per-frame magnitudes of :func:`reconstruct` in that type instead, as the
+    JAX package does (the kernels take the calibration's type)."""
     frames = raw if raw.ndim == 3 else raw[None]
     n = averages if averages is not None else frames.shape[0]
-    return form_bscan(reconstruct_group(frames, background, pi_frame, calib, cfg, method),
-                      cfg, n)
+    if dtype is not None and as_torch_dtype(dtype) != as_torch_dtype(cfg.dtype):
+        mag_sum = reconstruct(frames, background, pi_frame, calib, cfg, method, dtype).sum(0)
+    else:
+        mag_sum = reconstruct_group(frames, background, pi_frame, calib, cfg, method)
+    return form_bscan(mag_sum, cfg, n)

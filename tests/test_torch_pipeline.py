@@ -102,6 +102,48 @@ def test_reconstruct_per_frame_matches_jax(cfg_name, prec_name):
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol * np.abs(want).max())
 
 
+def _shared_calibs(jcfg, tcfg):
+    """The JAX calibration and the port's built from its leaves: one M."""
+    jcal = JaxCalibration.create(jcfg)
+    leaves = ("op_re", "op_im", "window", "nearest_idx", "frac", "phase", "lambdas", "k",
+              "klinear")
+    return jcal, Calibration.from_arrays({n: np.asarray(getattr(jcal, n)) for n in leaves},
+                                         tcfg, "cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float64", torch.float64], ids=["name", "torch"])
+@pytest.mark.parametrize("cfg_name", ["identity", "binned"])
+def test_dtype_argument_matches_jax(cfg_name, dtype):
+    """reconstruct and reconstruct_bscan with dtype='float64' on a float32
+    config compute in float64, as the JAX package's ``dtype`` does."""
+    jcfg, tcfg, raw, bg, pi = make_case(cfg_name, "highest32", seed=3)
+    jcal, tcal = _shared_calibs(jcfg, tcfg)
+    jargs = (jnp.asarray(raw), jnp.asarray(bg), jnp.asarray(pi), jcal, jcfg)
+    targs = (torch.as_tensor(raw), torch.as_tensor(bg), torch.as_tensor(pi), tcal, tcfg)
+    want = np.asarray(jp.reconstruct(*jargs, method="fused", dtype="float64"))
+    got = tp.reconstruct(*targs, dtype=dtype).numpy()
+    assert want.dtype == np.float64 and got.dtype == np.float64
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12 * np.abs(want).max())
+    want_b = jp.reconstruct_bscan(*jargs, method="fused", dtype="float64")
+    got_b = tp.reconstruct_bscan(*targs, dtype=dtype)
+    for name in ("bscan", "bscandb"):
+        w = np.asarray(getattr(want_b, name))
+        assert getattr(got_b, name).dtype == torch.float64
+        np.testing.assert_allclose(getattr(got_b, name).numpy(), w, rtol=1e-12,
+                                   atol=1e-12 * np.abs(w).max())
+    np.testing.assert_array_equal(got_b.bscandisp.numpy(), np.asarray(want_b.bscandisp))
+
+
+def test_dtype_argument_equal_to_config_keeps_the_group_kernel():
+    jcfg, tcfg, raw, bg, pi = make_case("identity", "highest32")
+    tcal = Calibration.create(tcfg, "cpu")
+    args = (torch.as_tensor(raw), torch.as_tensor(bg), torch.as_tensor(pi), tcal, tcfg)
+    via_group = tp.reconstruct_bscan(*args)
+    for spec in ("float32", torch.float32):
+        same = tp.reconstruct_bscan(*args, dtype=spec)
+        np.testing.assert_array_equal(same.bscan.numpy(), via_group.bscan.numpy())
+
+
 def test_ascan_complex_matches_jax():
     jcfg, tcfg, raw, bg, pi = make_case("binned", "highest64")
     jcal, tcal = calibs(jcfg, tcfg)

@@ -204,6 +204,7 @@ def test_port_never_imports_jax():
         "from fdoct_tpu_torch.sources.synthetic import SyntheticSource\n"
         "from fdoct_tpu_torch.utils.profiling import StageTimer\n"
         "import fdoct_tpu_torch.int8direct\n"
+        "import fdoct_tpu_torch.bench_resident\n"
         "cfg = PipelineConfig(width=256, height=32, averages=2, numfftpoints=512,\n"
         "                     numdisplaypoints=128, donotnormalize=False)\n"
         "src = SyntheticSource(height=32, width=256, noise=0.01)\n"
