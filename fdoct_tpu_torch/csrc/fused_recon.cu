@@ -2,47 +2,52 @@
 //
 //   out[r, d] = sum_b | x_b[r, :] @ (op_re + i*op_im)[:, d] |
 //
-// Replaces three Pallas TPU kernels of fdoct_tpu/ops/pallas_kernels.py; the
-// third, fused_recon_resident, is the second schedule at the end of the file.
-// The first two:
+// Replaces three Pallas TPU kernels of fdoct_tpu/ops/pallas_kernels.py:
 //   * fdoct_recon_raw_u8_*  <- fused_recon_raw_accumulate (_recon_raw_kernel):
-//     x_b = (raw[b] - pi_frame) * inv_background, computed per element as the
+//     x_b = (raw[b] - pi_frame) * inv_background, computed on chip as the
 //     tile is staged, so the f32 apodization ratio never reaches device memory;
 //   * fdoct_recon_yr_f32_*  <- fused_recon_accumulate (_recon_kernel):
-//     x_b = yr[b], an f32 ratio that preprocess/normalization already made.
+//     x_b = yr[b], an f32 ratio that preprocess/normalization already made;
+//   * fdoct_recon_resident_u8_bf16 <- fused_recon_resident, the schedule at
+//     the end of the file.
 // The suffix names the operator type: f32, or bf16.  With a bf16 operator the
-// ratio is rounded to bf16 in registers before the product (round to nearest
-// even, as torch's .to(torch.bfloat16)), matching the bf16 branch of
+// ratio is rounded to bf16 before the product (round to nearest even, as
+// torch's .to(torch.bfloat16)), matching the bf16 branch of
 // fdoct_tpu/pipeline.py:_op_matmul_pair; a bf16 x bf16 product is exact in
-// f32, so f32 FMAs reproduce bf16-operand / f32-accumulate numerics.
+// f32, so every form below computes bf16-operand / f32-accumulate numerics.
 //
-// What bounds it.  At the flagship shape (B=8 frames of 512 rows x 2048
+// What bounds them.  At the flagship shape (B=8 frames of 512 rows x 2048
 // spectral samples, 512 display depths) one group is 2 matmuls x 2 x 4096 x
 // 2048 x 512 = 17.2 GFLOP against 21-25 MiB of compulsory traffic (8 MiB u8
 // frames, 8 MiB pi/inv_background, 4-8 MiB operator, 1 MiB out): about 700
 // FLOP/byte, above the H100's ~295 FLOP/byte bf16 ridge, so the work is
-// compute-bound.  This first form runs on the SIMT FP32 pipes, so its floor
-// is the FP32 FMA rate (~67 TFLOP/s at 700 W: ~0.26 ms per group); the
-// tensor cores (wgmma on bf16 tiles staged by TMA) are the later step.
+// compute-bound.
 //
-// What the design does about it.  Each 128-thread block owns one 32-row x
-// 32-depth output tile; the flagship's 512 x 512 output gives 256 blocks for
-// the 132 SMs.  The TPU grid's sequential batch axis (init at b == 0, += after)
-// becomes a loop over b inside the block: per b, K is walked in 32-sample
-// shared-memory chunks of the ratio tile and of op_re/op_im, two f32
-// accumulators (re, im) per output run over K, and at the end of K
-// sqrt(re^2 + im^2) is added to a third.  The output is stored once: no
-// atomics, no cross-block dependency, deterministic.  Each thread computes a
-// 2-row x 4-depth micro-tile, so one k step costs two broadcast loads of the
-// ratio and two float4 loads of the operator for 16 FMAs.  Ragged edges
-// (rows, n_in, ndisp not multiples of 32) are masked: out-of-range operands
-// stage as zero and out-of-range outputs are not stored.
+// Two designs.  fdoct_recon_raw_u8_bf16 (the 'default' group step on CUDA)
+// runs on the bf16 tensor cores, described before its kernel below.  The
+// f32-operator instances and both yr instances keep the SIMT template that
+// comes first: TF32 would break the f32 operator's 'highest' contract, so
+// its tensor-core form is a later step.  The SIMT template's floor is the
+// FP32 FMA rate (~67 TFLOP/s at 700 W: ~0.26 ms per group).  Each 128-thread
+// block owns one 32-row x 32-depth output tile; the TPU grid's sequential
+// batch axis (init at b == 0, += after) becomes a loop over b inside the
+// block: per b, K is walked in 32-sample shared-memory chunks of the ratio
+// tile and of op_re/op_im, two f32 accumulators (re, im) per output run over
+// K, and at the end of K sqrt(re^2 + im^2) is added to a third.  The output
+// is stored once: no atomics, no cross-block dependency, deterministic.  Each
+// thread computes a 2-row x 4-depth micro-tile, so one k step costs two
+// broadcast loads of the ratio and two float4 loads of the operator for 16
+// FMAs.  Ragged edges (rows, n_in, ndisp not multiples of 32) are masked:
+// out-of-range operands stage as zero and out-of-range outputs are not
+// stored.
 
 #include <cstddef>
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -167,6 +172,265 @@ int launch(const void* x, const void* pi, const void* inv_bg, const void* op_re,
 }
 
 // ---------------------------------------------------------------------------
+// fdoct_recon_raw_u8_bf16 on the bf16 tensor cores.  The products run on
+// mma.sync m16n8k16.f32.bf16.bf16 (exact products, f32 sums), at a 15x
+// higher rate than the SIMT FMAs, so what bounds this form is the traffic
+// from L2 into the SMs (each block reads its operator tile once per 64-pair
+// tile and its frame rows, pi and inv_background once per 64-depth tile:
+// 384 MiB a flagship group) and the pass that forms the ratio.
+//
+// M is (row, frame) pairs, ordered row * F + frame with F = min(8, B rounded
+// up to a power of two) frames in flight, as the resident schedule's slab
+// does: a 64-pair block holds all F frames of 64 / F rows, so pi and
+// inv_background are staged once for all frames of a row and each operator
+// tile serves every frame (the SIMT template re-stages both per frame).  N
+// is 64 depths, re and im side by side.  Per 64-sample stage, the u8
+// frames, pi, inv_background and the operator arrive by 16-byte cp.async in
+// a 3-stage ring; the block then forms the bf16 ratio of its 64 pairs into
+// one shared tile (4 samples per thread and step) and the tensor cores read
+// it with ldmatrix and the depth-contiguous operator with ldmatrix.trans,
+// so the operator needs no repacking.  Rows are padded (144 and 272 bytes)
+// so neither load has bank conflicts.  Four warps (2 x 2) each hold 32 pairs
+// x 32 depths: 64 f32 accumulators and 32 magnitude sums per thread.  After
+// each chunk of F frames |re + i im| is added to the thread's frame slot;
+// after the last, the F slots of a row (lanes whose groupID differs in its
+// low log2(F) bits) are summed with __shfl_xor_sync and one lane stores.
+// Without 16-byte alignment (n_in % 16, ndisp % 8, or a base pointer) the
+// stages load element by element.  Masked pairs (frames past B, rows past
+// rows) get a zero ratio; samples past n_in and depths past ndisp stage as
+// zero.  No atomics, deterministic.  The tiles, the ring, the fragment
+// mapping and the frame sum are namespace tc of hopper_mma.cuh, shared with
+// int8_bscan.cu; what is this kernel's own is the staging, the ratio tile
+// and the bf16 MMA step below.
+
+constexpr int TC_A_LD = tc::KT * 2 + 16;         // bytes per bf16 ratio row: 144
+constexpr int TC_OP_LD = 2 * tc::BN * 2 + 16;    // bytes per operator sample row: 272
+constexpr int TC_RAW_BYTES = tc::BM * tc::KT;    // u8 frames [pair][k]
+constexpr int TC_OP_BYTES = tc::KT * TC_OP_LD;   // bf16 operator [k][re 64 | im 64]
+constexpr int TC_A_BYTES = tc::BM * TC_A_LD;     // bf16 ratio [pair][k], one buffer
+static_assert(tc::KT % 16 == 0 && TC_A_LD % 16 == 0 && TC_OP_LD % 16 == 0, "16-byte rows");
+
+// One stage: raw | operator | pi [R][KT] f32 | inv_background [R][KT] f32,
+// R = tc::BM / F rows.
+__host__ __device__ constexpr int tc_stage_bytes(int R) {
+  return TC_RAW_BYTES + TC_OP_BYTES + 2 * R * tc::KT * static_cast<int>(sizeof(float));
+}
+
+__device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat16 v) { return __bfloat16_as_ushort(v); }
+
+template <bool VEC>
+__device__ __forceinline__ void tc_load_stage(uint8_t* stage, const uint8_t* raw, const float* pi,
+                                              const float* inv_bg, const __nv_bfloat16* op_re,
+                                              const __nv_bfloat16* op_im, int kt, int b0, int fs,
+                                              int R, int row0, int col0, int B, int rows,
+                                              int n_in, int ndisp, int tid) {
+  constexpr int KT = tc::KT;
+  uint8_t* raw_s = stage;
+  uint8_t* op_s = stage + TC_RAW_BYTES;
+  float* pi_s = reinterpret_cast<float*>(op_s + TC_OP_BYTES);
+  float* inv_s = pi_s + R * KT;
+  const int k0 = kt * KT;
+  for (int i = tid; i < tc::BM * (KT / 16); i += tc::THREADS) {
+    const int m = i / (KT / 16), c = i % (KT / 16);
+    const int b = b0 + tc::pair_frame(m, fs), r = row0 + tc::pair_row(m, fs), k = k0 + c * 16;
+    const bool ok = b < B && r < rows;
+    const uint8_t* src = raw + (static_cast<size_t>(b) * rows + r) * n_in + k;
+    uint8_t* dst = raw_s + m * KT + c * 16;
+    if (VEC) {
+      const bool in = ok && k < n_in;
+      cp_async16(dst, in ? src : raw, in ? 16 : 0);
+    } else {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int j = 0; j < 16; ++j) w[j >> 2] |= (ok && k + j < n_in ? src[j] : 0u) << ((j & 3) * 8);
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+  for (int i = tid; i < R * (KT / 4); i += tc::THREADS) {
+    const int rr = i / (KT / 4), c = i % (KT / 4);
+    const int r = row0 + rr, k = k0 + c * 4;
+    const size_t idx = static_cast<size_t>(r) * n_in + k;
+    float* dp = pi_s + rr * KT + c * 4;
+    float* di = inv_s + rr * KT + c * 4;
+    if (VEC) {
+      const bool in = r < rows && k < n_in;
+      cp_async16(dp, in ? pi + idx : pi, in ? 16 : 0);
+      cp_async16(di, in ? inv_bg + idx : inv_bg, in ? 16 : 0);
+    } else {
+      float p[4], v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool in = r < rows && k + j < n_in;
+        p[j] = in ? pi[idx + j] : 0.f;
+        v[j] = in ? inv_bg[idx + j] : 0.f;
+      }
+      *reinterpret_cast<float4*>(dp) = make_float4(p[0], p[1], p[2], p[3]);
+      *reinterpret_cast<float4*>(di) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+  // the operator: 8 depths (16 bytes) per copy, re then im
+  for (int i = tid; i < KT * (2 * tc::BN / 8); i += tc::THREADS) {
+    const int k = i / (2 * tc::BN / 8), n8 = i % (2 * tc::BN / 8);
+    const int gk = k0 + k, d = col0 + (n8 % (tc::BN / 8)) * 8;
+    const __nv_bfloat16* op = n8 < tc::BN / 8 ? op_re : op_im;
+    const size_t idx = static_cast<size_t>(gk) * ndisp + d;
+    uint8_t* dst = op_s + k * TC_OP_LD + n8 * 16;
+    if (VEC) {
+      const bool in = gk < n_in && d < ndisp;
+      cp_async16(dst, in ? op + idx : op, in ? 16 : 0);
+    } else {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        w[j >> 1] |= (gk < n_in && d + j < ndisp ? bf16_bits(op[idx + j]) : 0u) << ((j & 1) * 16);
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// The bf16 ratio bf16((raw - pi) * inv_bg) of the stage's pairs into a_s;
+// zero for masked pairs.
+__device__ __forceinline__ void tc_ratio_tile(const uint8_t* stage, uint8_t* a_s, int b0, int fs,
+                                              int R, int row0, int B, int rows, int tid) {
+  constexpr int KT = tc::KT;
+  const uint8_t* raw_s = stage;
+  const float* pi_s = reinterpret_cast<const float*>(stage + TC_RAW_BYTES + TC_OP_BYTES);
+  const float* inv_s = pi_s + R * KT;
+  for (int i = tid; i < tc::BM * (KT / 4); i += tc::THREADS) {
+    const int m = i / (KT / 4), k = (i % (KT / 4)) * 4;
+    const int rr = tc::pair_row(m, fs);
+    uint2 packed = make_uint2(0u, 0u);
+    if (b0 + tc::pair_frame(m, fs) < B && row0 + rr < rows) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(raw_s + m * KT + k);
+      const float4 p = *reinterpret_cast<const float4*>(pi_s + rr * KT + k);
+      const float4 v = *reinterpret_cast<const float4*>(inv_s + rr * KT + k);
+      const float x[4] = {
+          __fmul_rn(__fsub_rn(static_cast<float>(w & 0xffu), p.x), v.x),
+          __fmul_rn(__fsub_rn(static_cast<float>((w >> 8) & 0xffu), p.y), v.y),
+          __fmul_rn(__fsub_rn(static_cast<float>((w >> 16) & 0xffu), p.z), v.z),
+          __fmul_rn(__fsub_rn(static_cast<float>(w >> 24), p.w), v.w)};
+      packed.x = bf16_bits(__float2bfloat16_rn(x[0])) | bf16_bits(__float2bfloat16_rn(x[1])) << 16;
+      packed.y = bf16_bits(__float2bfloat16_rn(x[2])) | bf16_bits(__float2bfloat16_rn(x[3])) << 16;
+    }
+    *reinterpret_cast<uint2*>(a_s + m * TC_A_LD + k * 2) = packed;
+  }
+}
+
+// One staged chunk through the tensor cores: acc[mt][j] re (j < 4), im (j >= 4)
+__device__ __forceinline__ void tc_mma_stage(const uint8_t* a_s, const uint8_t* op_s,
+                                             float (&acc)[2][8][4], const tc::Frag& f) {
+  const uint32_t a_base = smem_addr(a_s);
+  const uint32_t b_base = smem_addr(op_s);
+  const int lane = f.lane;
+#pragma unroll
+  for (int kk = 0; kk < tc::KT; kk += 16) {
+    uint32_t a[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+      ldmatrix_x4(a[mt], a_base + (f.wm * tc::WM + mt * 16 + (lane & 15)) * TC_A_LD +
+                             (kk + (lane >> 4) * 8) * 2);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // matrices: re k0-7, re k8-15, im k0-7, im k8-15 of depths j*8..+7
+      uint32_t b[4];
+      const int krow = kk + ((lane >> 3) & 1) * 8 + (lane & 7);
+      const int n = (lane >> 4) * tc::BN + f.wn * tc::WN + j * 8;
+      ldmatrix_x4_trans(b, b_base + krow * TC_OP_LD + n * 2);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        mma_bf16(acc[mt][j], a[mt], b[0], b[1]);
+        mma_bf16(acc[mt][4 + j], a[mt], b[2], b[3]);
+      }
+    }
+  }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(tc::THREADS)
+fused_recon_bf16_tc_kernel(const uint8_t* __restrict__ raw, const float* __restrict__ pi,
+                           const float* __restrict__ inv_bg,
+                           const __nv_bfloat16* __restrict__ op_re,
+                           const __nv_bfloat16* __restrict__ op_im, float* __restrict__ out,
+                           int B, int rows, int n_in, int ndisp, int fs) {
+  extern __shared__ __align__(128) uint8_t tc_smem[];
+  const int R = tc::BM >> fs;
+  const int stage_bytes = tc_stage_bytes(R);
+  uint8_t* a_s = tc_smem + tc::STAGES * stage_bytes;
+
+  const int tid = threadIdx.x;
+  const tc::Frag f(tid, fs);
+  const int row0 = blockIdx.y * R;
+  const int col0 = blockIdx.x * tc::BN;
+  const int nk = (n_in + tc::KT - 1) / tc::KT;
+
+  float mag[2][2][4][2] = {};          // [mt][h][j][e], this thread's frame slot
+  for (int b0 = 0; b0 < B; b0 += 1 << fs) {
+    float acc[2][8][4] = {};
+    tc::stage_ring(
+        tc_smem, stage_bytes, nk,
+        [&](uint8_t* stage, int kt) {
+          tc_load_stage<VEC>(stage, raw, pi, inv_bg, op_re, op_im, kt, b0, fs, R, row0, col0, B,
+                             rows, n_in, ndisp, tid);
+        },
+        [&](const uint8_t* stage) {   // a_s is free: every warp is past the last stage's MMAs
+          tc_ratio_tile(stage, a_s, b0, fs, R, row0, B, rows, tid);
+          __syncthreads();             // the ratio tile is whole
+          tc_mma_stage(a_s, stage + TC_RAW_BYTES, acc, f);
+        });
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            tc::add_magnitude(mag[mt][h][j][e], acc[mt][j][h * 2 + e], acc[mt][4 + j][h * 2 + e]);
+  }
+  tc::sum_frame_slots(mag, fs);
+  if (f.slot() != 0) return;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = f.row(row0, mt, h);
+      if (r >= rows) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = f.depth(col0, j, e);
+          if (d < ndisp) out[static_cast<size_t>(r) * ndisp + d] = mag[mt][h][j][e];
+        }
+      }
+    }
+  }
+}
+
+int launch_bf16_tc(const void* raw, const void* pi, const void* inv_bg, const void* op_re,
+                   const void* op_im, void* out, int B, int rows, int n_in, int ndisp,
+                   void* stream) {
+  if (B < 1 || rows < 1 || n_in < 1 || ndisp < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int fs = tc::frames_shift(B);  // log2 of the frames in flight
+  const int R = tc::BM >> fs;
+  if ((rows + R - 1) / R > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool vec = n_in % 16 == 0 && ndisp % 8 == 0 && aligned(raw) && aligned(pi) &&
+                   aligned(inv_bg) && aligned(op_re) && aligned(op_im);
+  const auto kernel = vec ? fused_recon_bf16_tc_kernel<true> : fused_recon_bf16_tc_kernel<false>;
+  const int smem = tc::STAGES * tc_stage_bytes(R) + TC_A_BYTES;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((ndisp + tc::BN - 1) / tc::BN, (rows + R - 1) / R);
+  kernel<<<grid, tc::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(raw), static_cast<const float*>(pi),
+      static_cast<const float*>(inv_bg), static_cast<const __nv_bfloat16*>(op_re),
+      static_cast<const __nv_bfloat16*>(op_im), static_cast<float*>(out), B, rows, n_in, ndisp, fs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
 // The resident schedule: fdoct_recon_resident_u8_bf16 <- fused_recon_resident
 // (_recon_resident_kernel, pallas_kernels.py:70-123).  The same sum as the
 // raw bf16 instance above, with the bf16 operator the TPU kernel keeps in
@@ -182,9 +446,7 @@ int launch(const void* x, const void* pi, const void* inv_bg, const void* op_re,
 // RES_TK-sample chunks, double-buffered through registers, and each chunk
 // serves every frame of the tile before the next one lands.  Every frame
 // byte is read from device memory once (and ndisp / RES_TD times from L2,
-// by the blocks that split the depths); kernel 1 re-stages pi/inv_background
-// and its operator tile per frame and re-reads each frame row once per
-// 32-wide depth tile.  Per thread 8 pairs x 4 depths x (re, im) = 64 f32
+// by the blocks that split the depths).  Per thread 8 pairs x 4 depths x (re, im) = 64 f32
 // accumulators; per k step two broadcast float4 loads of the ratio and two
 // float4 loads of the operator feed 64 FMAs.  What bounds it: the SIMT FP32
 // FMA rate, as kernels 1-2 (17.2 GFLOP per flagship group).  The b loop is
@@ -408,8 +670,7 @@ int fdoct_recon_raw_u8_f32(const void* raw, const void* pi, const void* inv_bg,
 int fdoct_recon_raw_u8_bf16(const void* raw, const void* pi, const void* inv_bg,
                             const void* op_re, const void* op_im, void* out,
                             int B, int rows, int n_in, int ndisp, void* stream) {
-  return launch<uint8_t, __nv_bfloat16>(raw, pi, inv_bg, op_re, op_im, out, B, rows, n_in, ndisp,
-                                        stream);
+  return launch_bf16_tc(raw, pi, inv_bg, op_re, op_im, out, B, rows, n_in, ndisp, stream);
 }
 
 int fdoct_recon_yr_f32_f32(const void* yr, const void* op_re, const void* op_im, void* out,

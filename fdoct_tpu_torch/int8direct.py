@@ -34,7 +34,9 @@ import torch
 
 from fdoct_tpu_torch.calibration import Calibration
 from fdoct_tpu_torch.ops import to_uint8
-from fdoct_tpu_torch.ops.kernels import int8_bscan_display_fused, int8_matmul
+from fdoct_tpu_torch.ops.kernels import (
+    int8_bscan_display_fused, int8_matmul, pack_int8_operator,
+)
 from fdoct_tpu_torch.pipeline import BscanOutputs
 
 
@@ -129,6 +131,9 @@ class Int8DirectPlan:
     Rebuilt whenever the background / π / dark frames change (the 'b'/'p'
     captures); the per-frame path touches only the tables.  The rank-2
     fields (``oq2_*``, ``s2_*``, ``row_gain2``) are None for a rank-1 plan.
+    ``oq_packed`` is not a leaf of the JAX plan: it is (oq_re, oq_im) packed
+    K-major for the s8 tensor cores (``pack_int8_operator``), made once per
+    plan by :meth:`from_arrays`.
     """
 
     oph: int
@@ -148,6 +153,7 @@ class Int8DirectPlan:
     s2_re: torch.Tensor | None = None    # (ndisp,) float32
     s2_im: torch.Tensor | None = None
     row_gain2: torch.Tensor | None = None  # (oph, 1) float32: u2
+    oq_packed: torch.Tensor | None = None  # (2, ndisp, opw padded) int8, K-major
 
     @classmethod
     def create(cls, calib: Calibration, cfg, background, pi_frame, dark_frame=None,
@@ -214,8 +220,9 @@ class Int8DirectPlan:
                     device: torch.device | str) -> "Int8DirectPlan":
         """Tensors on ``device`` from host arrays named as the JAX plan's
         leaves (the rank-2 ones may be missing or None): int8 tables stay
-        int8, the rest become float32.  How the JAX package and the port run
-        on one plan."""
+        int8, the rest become float32, and the K-major operator is packed
+        from oq_re and oq_im.  How the JAX package and the port run on one
+        plan."""
         device = torch.device(device)
 
         def as_dev(name: str) -> torch.Tensor | None:
@@ -229,9 +236,10 @@ class Int8DirectPlan:
             return torch.as_tensor(a, device=device)
 
         tables = {f.name: as_dev(f.name) for f in dataclasses.fields(cls)
-                  if f.name not in ("oph", "opw", "ndisp")}
+                  if f.name not in ("oph", "opw", "ndisp", "oq_packed")}
         opw, ndisp = tables["oq_re"].shape
-        return cls(oph=tables["const_re"].shape[0], opw=opw, ndisp=ndisp, **tables)
+        return cls(oph=tables["const_re"].shape[0], opw=opw, ndisp=ndisp,
+                   oq_packed=pack_int8_operator(tables["oq_re"], tables["oq_im"]), **tables)
 
 
 def reconstruct_int8_direct(frames_s8: torch.Tensor, plan: Int8DirectPlan) -> torch.Tensor:
@@ -264,7 +272,7 @@ def int8_bscan_outputs(frames_s8: torch.Tensor, plan: Int8DirectPlan, thresh: fl
     out = int8_bscan_display_fused(frames_s8, plan.oq_re, plan.oq_im, plan.s_re, plan.s_im,
                                    plan.row_gain_inv, plan.const_re, plan.const_im,
                                    thresh, averages, eps=eps, denom=denom,
-                                   with_linear=with_linear)
+                                   with_linear=with_linear, oq_packed=plan.oq_packed)
     lo, hi = out.mn.min(), out.mx.max()
     rng = hi - lo
     safe = torch.where(rng == 0, 1.0, rng)

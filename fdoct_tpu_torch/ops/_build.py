@@ -1,10 +1,14 @@
 """Build the hand-written CUDA kernels with nvcc and load them with ctypes.
 
 Every source under ``csrc/`` (``fused_recon.cu``, ``int8_bscan.cu``) has a
-plain C interface, so each compiles in seconds without PyTorch's headers.
-One ``nvcc -c`` per source runs in parallel; the objects are linked into one
-library in ``build/fdoct_tpu_torch/`` beside the package, under a file name
-that carries a hash of every source and the flags, so an edited source
+plain C interface, so each compiles in seconds without PyTorch's headers;
+both include ``hopper_mma.cuh``, the inline-PTX wrappers (``cp.async``,
+``ldmatrix``, ``mma.sync``) and the block schedule their tensor-core
+kernels share, which need the ``sm_90a`` target and no extra flag or
+library.  One ``nvcc -c`` per source
+runs in parallel; the objects are linked into one library in
+``build/fdoct_tpu_torch/`` beside the package, under a file name that
+carries a hash of every source, header and flag, so an edited file
 rebuilds.  Nothing is built at import: :func:`load` builds at first use and
 raises if ``nvcc`` is missing or a build fails.
 """
@@ -21,6 +25,7 @@ from pathlib import Path
 
 PACKAGE_ROOT = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((PACKAGE_ROOT / "csrc").glob("*.cu")))
+HEADERS = tuple(sorted((PACKAGE_ROOT / "csrc").glob("*.cuh")))
 BUILD_DIR = PACKAGE_ROOT.parent / "build" / "fdoct_tpu_torch"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,7 +41,7 @@ SIGNATURES = {
     "fdoct_recon_yr_f32_f32": [_PTR] * 4 + [_INT] * 4 + [_PTR],
     "fdoct_recon_yr_f32_bf16": [_PTR] * 4 + [_INT] * 4 + [_PTR],
     "fdoct_recon_resident_u8_bf16": [_PTR] * 6 + [_INT] * 4 + [_PTR],
-    "fdoct_int8_bscan": [_PTR] * 8 + [_FLOAT] * 4 + [_PTR] * 4 + [_INT] * 4 + [_PTR],
+    "fdoct_int8_bscan": [_PTR] * 7 + [_FLOAT] * 4 + [_PTR] * 4 + [_INT] * 5 + [_PTR],
 }
 
 _lock = threading.Lock()
@@ -61,7 +66,7 @@ def find_nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"libfdoct_kernels-{digest.hexdigest()[:16]}.so"
 

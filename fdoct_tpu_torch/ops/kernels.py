@@ -10,9 +10,10 @@ Hopper counterparts of the four Pallas kernels of ``fdoct_tpu/ops/pallas_kernels
 - :func:`int8_bscan_display_fused`: the int8-direct group step, s8 frames
   against a quantized operator with the display epilogue fused.
 
-The first three are ``csrc/fused_recon.cu`` (one template and a second
-schedule), the fourth is ``csrc/int8_bscan.cu``; :mod:`fdoct_tpu_torch.ops._build`
-builds both.
+The first three are ``csrc/fused_recon.cu``, the fourth is
+``csrc/int8_bscan.cu``; :mod:`fdoct_tpu_torch.ops._build` builds both.  The
+first with a bfloat16 operator, and the fourth, run on the tensor cores
+(``mma.sync`` on bf16 and on s8); the rest on the SIMT pipes.
 M = op_re + i·op_im is float32 or bfloat16; with bfloat16 the ratio is
 rounded to bfloat16 before the product and the sums stay float32.  A wrapper
 given CPU tensors computes the plain version beside it (``*_reference``);
@@ -34,9 +35,13 @@ from fdoct_tpu_torch.ops import _build
 LAUNCHES = {"fused_recon_raw_accumulate": 0, "fused_recon_accumulate": 0,
             "fused_recon_resident": 0, "int8_bscan_display_fused": 0}
 
-#: output tile (rows, depths) of one block of the int8 kernel: one min/max
-#: partial per tile
+#: tile (rows, depths) of the int8 kernel's min/max partials: one pair per
+#: tile of db
 INT8_TILE = (32, 32)
+
+#: spectral samples per pipeline stage of the int8 kernel; the packed
+#: operator's n_in is padded to a multiple of it
+INT8_K_TILE = 64
 
 #: one block of the resident kernel: (frame, row) pairs x depths
 #: (RES_VROWS, RES_TD of csrc/fused_recon.cu); see resident_rows_per_block
@@ -138,6 +143,11 @@ def fused_recon_raw_accumulate(raw: torch.Tensor, pi_frame: torch.Tensor,
     float32 (float64 with a float64 operator, CPU only); op_re, op_im:
     (n_in, ndisp) float32 or bfloat16.  Returns (rows, ndisp).  Replaces the
     TPU kernel ``fused_recon_raw_accumulate`` (pallas_kernels.py:126-160).
+    With a bfloat16 operator the products run on the bf16 tensor cores
+    (``mma.sync`` m16n8k16, float32 sums): a block holds all frames of its
+    rows, forms their bf16 ratio on chip and stages pi_frame,
+    inv_background and each operator tile once for all of them.  With a
+    float32 operator it runs the SIMT FP32 kernel.
     """
     B, rows, n_in = _check_stack(raw, "raw")
     if raw.dtype != torch.uint8:
@@ -221,19 +231,32 @@ def fused_recon_resident(raw: torch.Tensor, pi_frame: torch.Tensor,
 # int8-direct: s8 frames against a quantized operator, display epilogue fused
 
 
+def cuda_int_mm_takes(m: int, k: int, n: int, ptr_a: int, ptr_b: int) -> bool:
+    """Whether ``torch._int_mm`` runs an (m, k) @ (k, n) product on CUDA.
+
+    torch itself checks only m > 16 and k, n multiples of 8, and cuBLASLt
+    then refuses some of those shapes (CUBLAS_STATUS_NOT_SUPPORTED on an
+    H100 for (m, k, n) = (296, 48, 80) and (65, 64, 64), and for operands
+    that are not 16-byte aligned).  Taken only where all three are
+    multiples of 32 and both operands 16-byte aligned, as the flagship's
+    (4096, 2048, 512) is."""
+    return (m >= 32 and m % 32 == 0 and k % 32 == 0 and n % 32 == 0
+            and ptr_a % 16 == 0 and ptr_b % 16 == 0)
+
+
 def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact s8 × s8 → s32 product of a (..., k) stack and a (k, n) matrix.
 
     ``torch._int_mm`` on a 2-D view where it takes the shapes (always on the
-    CPU; on CUDA only with more than 16 rows and k, n multiples of 8);
-    elsewhere the float64 product, which is exact here (|sum| ≤ k·128·127 <
-    2^53), cast to int32."""
+    CPU; on CUDA see :func:`cuda_int_mm_takes`); elsewhere the float64
+    product, which is exact here (|sum| ≤ k·128·127 < 2^53), cast to int32."""
     if a.dtype != torch.int8 or b.dtype != torch.int8:
         raise TypeError(f"int8_matmul takes int8 operands, got {a.dtype} and {b.dtype}")
     lead, k = a.shape[:-1], a.shape[-1]
     a2 = a.reshape(-1, k)
     n = b.shape[1]
-    if a.device.type == "cpu" or (a2.shape[0] > 16 and k % 8 == 0 and n % 8 == 0):
+    if a.device.type == "cpu" or cuda_int_mm_takes(a2.shape[0], k, n, a2.data_ptr(),
+                                                   b.data_ptr()):
         out = torch._int_mm(a2, b)
     else:
         out = (a2.double() @ b.double()).to(torch.int32)
@@ -246,6 +269,24 @@ class Int8BscanOutputs(NamedTuple):
     mn: torch.Tensor              # (row tiles, depth tiles) min of max(db, thresh)
     mx: torch.Tensor              # (row tiles, depth tiles) max of max(db, thresh)
     linear: torch.Tensor | None   # (rows, ndisp) sum/N + eps, when asked for
+
+
+def pack_int8_operator(oq_re: torch.Tensor, oq_im: torch.Tensor,
+                       k_tile: int = INT8_K_TILE) -> torch.Tensor:
+    """The int8 operator K-major, as the s8 tensor cores take it:
+    (2, ndisp, n_in_pad) int8, ``[0] = oq_re.T`` and ``[1] = oq_im.T``, each
+    depth's samples contiguous, n_in zero-padded to a multiple of
+    ``k_tile`` (zeros add nothing to an s32 sum).  Built once per plan."""
+    if oq_re.dtype != torch.int8 or oq_im.dtype != torch.int8:
+        raise TypeError(f"the int8 operator must be int8, got {oq_re.dtype}/{oq_im.dtype}")
+    if oq_re.shape != oq_im.shape or oq_re.ndim != 2:
+        raise ValueError(f"operator shapes {tuple(oq_re.shape)}/{tuple(oq_im.shape)}")
+    n_in, ndisp = oq_re.shape
+    packed = torch.zeros((2, ndisp, -(-n_in // k_tile) * k_tile), dtype=torch.int8,
+                         device=oq_re.device)
+    packed[0, :, :n_in] = oq_re.T
+    packed[1, :, :n_in] = oq_im.T
+    return packed
 
 
 def _tile_minmax(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -281,7 +322,8 @@ def int8_bscan_display_fused(frames_s8: torch.Tensor, oq_re: torch.Tensor,
                              row_gain: torch.Tensor, const_re: torch.Tensor,
                              const_im: torch.Tensor, thresh: float, averages: float,
                              eps: float = 1e-5, denom: float = 2.303,
-                             with_linear: bool = False) -> Int8BscanOutputs:
+                             with_linear: bool = False,
+                             oq_packed: torch.Tensor | None = None) -> Int8BscanOutputs:
     """One averaged int8-direct B-scan, display epilogue fused.
 
     frames_s8: (B, rows, n_in) int8 bias-shifted counts; oq_re, oq_im:
@@ -293,6 +335,12 @@ def int8_bscan_display_fused(frames_s8: torch.Tensor, oq_re: torch.Tensor,
     column 4, and the per-tile min/max of max(db, thresh).  ``with_linear``
     also returns the linear sum/averages + eps.  Replaces the TPU kernel
     ``int8_bscan_display_fused`` (pallas_kernels.py:212-272).
+
+    On CUDA the products run on the s8 tensor cores (``mma.sync``
+    m16n8k32, exact s32 sums), which take the operator K-major:
+    ``oq_packed`` is :func:`pack_int8_operator` of (oq_re, oq_im), packed
+    here when not given (an ``Int8DirectPlan`` carries it).  The min/max
+    partials are per INT8_TILE of db whatever the kernel's block.
     """
     B, rows, n_in = _check_stack(frames_s8, "frames_s8")
     if frames_s8.dtype != torch.int8:
@@ -316,24 +364,37 @@ def int8_bscan_display_fused(frames_s8: torch.Tensor, oq_re: torch.Tensor,
         if tuple(t.shape) != shape or t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {shape} tensor on {dev}, "
                              f"got {tuple(t.shape)} on {t.device}")
+    if oq_packed is not None:
+        shape = (2, ndisp, -(-n_in // INT8_K_TILE) * INT8_K_TILE)
+        if (oq_packed.dtype != torch.int8 or tuple(oq_packed.shape) != shape
+                or oq_packed.device != dev or not oq_packed.is_contiguous()):
+            raise ValueError(f"oq_packed must be a contiguous int8 {shape} tensor on {dev}, "
+                             f"got {oq_packed.dtype} {tuple(oq_packed.shape)} on "
+                             f"{oq_packed.device}")
     thresh, averages, eps, denom = (float(v) for v in (thresh, averages, eps, denom))
     if dev.type == "cpu":
         return int8_bscan_display_fused_reference(frames_s8, oq_re, oq_im, s_re, s_im,
                                                   row_gain, const_re, const_im, thresh,
                                                   averages, eps, denom, with_linear)
+    if oq_packed is None:
+        oq_packed = pack_int8_operator(oq_re, oq_im)
+    if oq_packed.data_ptr() % 16:
+        raise ValueError("oq_packed must be 16-byte aligned")
     tm, tn = INT8_TILE
     db = torch.empty((rows, ndisp), dtype=torch.float32, device=dev)
     lin = torch.empty_like(db) if with_linear else None
-    mn = torch.empty((-(-rows // tm), -(-ndisp // tn)), dtype=torch.float32, device=dev)
-    mx = torch.empty_like(mn)
+    # the kernel folds each warp's partials in with atomic min / max
+    mn = torch.full((-(-rows // tm), -(-ndisp // tn)), math.inf, device=dev)
+    mx = torch.full_like(mn, -math.inf)
     fn = _build.load().fdoct_int8_bscan
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*(t.data_ptr() for t in (frames_s8, oq_re, oq_im, s_re, s_im, row_gain,
+        rc = fn(*(t.data_ptr() for t in (frames_s8, oq_packed, s_re, s_im, row_gain,
                                          const_re, const_im)),
                 *(ctypes.c_float(v) for v in (thresh, averages, eps, denom)),
                 db.data_ptr(), None if lin is None else lin.data_ptr(),
-                mn.data_ptr(), mx.data_ptr(), B, rows, n_in, ndisp, stream)
+                mn.data_ptr(), mx.data_ptr(), B, rows, n_in, ndisp, oq_packed.shape[2],
+                stream)
     if rc != 0:
         raise RuntimeError(f"fdoct_int8_bscan launch failed: cudaError {rc}")
     LAUNCHES["int8_bscan_display_fused"] += 1

@@ -24,8 +24,8 @@ from fdoct_tpu_torch.calibration import Calibration
 from fdoct_tpu_torch.config import PipelineConfig
 from fdoct_tpu_torch.ops import kernels
 from fdoct_tpu_torch.ops.kernels import (
-    INT8_TILE, LAUNCHES, int8_bscan_display_fused, int8_bscan_display_fused_reference,
-    int8_matmul,
+    INT8_K_TILE, INT8_TILE, LAUNCHES, int8_bscan_display_fused,
+    int8_bscan_display_fused_reference, int8_matmul, pack_int8_operator,
 )
 from fdoct_tpu_torch.sources.synthetic import SyntheticSource
 
@@ -34,6 +34,12 @@ CAL_LEAVES = ("op_re", "op_im", "window", "nearest_idx", "frac", "phase", "lambd
 PLAN_LEAVES = ("oq_re", "oq_im", "s_re", "s_im", "row_gain_inv", "const_re", "const_im",
                "bg_rank1_resid", "oq2_re", "oq2_im", "s2_re", "s2_im", "row_gain2")
 KERNEL_SHAPES = {"tiled": (3, 64, 128, 64), "ragged": (3, 100, 300, 77)}
+#: the s8 tensor-core kernel's edges (B, rows, n_in, ndisp): rows not a
+#: multiple of a block's rows, n_in not a multiple of 16 (byte staging) or
+#: of the 64-sample stage, ndisp not a multiple of 8, and 1 to 40 frames
+EDGE_SHAPES = {"rows-ragged": (8, 70, 300, 100), "k-tail": (8, 37, 48, 80),
+               "one-frame": (1, 65, 64, 64), "forty-frames": (40, 9, 96, 24),
+               "three-frames": (3, 20, 100, 13), "two-frames": (2, 130, 512, 136)}
 
 
 @pytest.fixture(scope="module")
@@ -193,6 +199,65 @@ def test_plan_from_arrays_round_trips_jax_leaves(data, rank):
             np.testing.assert_array_equal(getattr(tplan, name).numpy(), want)
 
 
+@pytest.mark.parametrize("n_in,ndisp", [(300, 77), (64, 5), (1, 9), (65, 160), (128, 64)])
+def test_pack_int8_operator_is_a_padded_transpose(n_in, ndisp):
+    rng = np.random.default_rng(n_in)
+    re, im = (rng.integers(-127, 128, (n_in, ndisp)).astype(np.int8) for _ in range(2))
+    got = pack_int8_operator(torch.as_tensor(re), torch.as_tensor(im))
+    pad = -(-n_in // INT8_K_TILE) * INT8_K_TILE
+    assert got.dtype == torch.int8 and got.shape == (2, ndisp, pad) and got.is_contiguous()
+    want = np.zeros((2, ndisp, pad), np.int8)
+    want[0, :, :n_in], want[1, :, :n_in] = re.T, im.T
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not got[:, :, n_in:].any()
+
+
+def test_pack_int8_operator_rejects():
+    q = torch.zeros(4, 6, dtype=torch.int8)
+    with pytest.raises(TypeError, match="int8"):
+        pack_int8_operator(q.float(), q)
+    with pytest.raises(ValueError, match="operator shapes"):
+        pack_int8_operator(q, q[:, :5])
+
+
+@pytest.mark.parametrize("how", ["create-rank1", "create-rank2", "from_arrays"])
+def test_plan_carries_the_packed_operator(data, how):
+    """create and from_arrays both pack (oq_re, oq_im) K-major, once."""
+    jplan, tplan = plans(data, rank=2 if how == "create-rank2" else 1)
+    if how == "from_arrays":
+        tplan = ti.Int8DirectPlan.from_arrays(plan_arrays(jplan), "cpu")
+    want = pack_int8_operator(torch.as_tensor(np.array(jplan.oq_re)),
+                              torch.as_tensor(np.array(jplan.oq_im)))
+    assert tplan.oq_packed is not None and tplan.oq_packed.device.type == "cpu"
+    np.testing.assert_array_equal(tplan.oq_packed.numpy(), want.numpy())
+    assert "oq_packed" not in PLAN_LEAVES
+
+
+@pytest.mark.parametrize("with_linear", [False, True], ids=["no-linear", "linear"])
+@pytest.mark.parametrize("shape", list(KERNEL_SHAPES.values()), ids=list(KERNEL_SHAPES))
+def test_int8_wrapper_same_with_packed_operator(shape, with_linear):
+    args = _kernel_args(shape)
+    packed = pack_int8_operator(args[1], args[2])
+    plain = int8_bscan_display_fused(*args, -30.0, shape[0], with_linear=with_linear)
+    given = int8_bscan_display_fused(*args, -30.0, shape[0], with_linear=with_linear,
+                                     oq_packed=packed)
+    for name in plain._fields:
+        a, b = getattr(plain, name), getattr(given, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "strided"])
+def test_int8_wrapper_rejects_a_wrong_packed_operator(bad):
+    args = _kernel_args()
+    packed = pack_int8_operator(args[1], args[2])
+    packed = {"shape": packed[:, :, :-INT8_K_TILE], "dtype": packed.to(torch.int16),
+              "strided": packed.transpose(1, 2).contiguous().transpose(1, 2)}[bad]
+    with pytest.raises(ValueError, match="oq_packed"):
+        int8_bscan_display_fused(*args, -30.0, 3, oq_packed=packed)
+
+
 # --------------------------------------------------------------------------
 # device part
 
@@ -234,7 +299,7 @@ def fixture_kernel_args(data):
                 const_re=a["const_re"], const_im=a["const_im"])
 
 
-@pytest.mark.parametrize("thresh", [-30.0, -np.inf, 5.0])
+@pytest.mark.parametrize("thresh", [-30.0, -np.inf, 5.0, -0.0])
 @pytest.mark.parametrize("problem", ["fixture", "ragged"])
 def test_kernel_plain_matches_pallas_kernel(jx, data, problem, thresh):
     """The plain version against the Pallas kernel in interpret mode (as
@@ -356,6 +421,18 @@ def test_int8_matmul_routes_agree(shape):
         int8_matmul(a.to(torch.int16), b)
 
 
+@pytest.mark.parametrize("m,k,n,ptr_a,ptr_b,takes", [
+    (4096, 2048, 512, 0, 256, True), (192, 128, 64, 512, 0, True),
+    (296, 48, 80, 0, 0, False), (65, 64, 64, 0, 0, False), (96, 64, 64, 1, 0, False),
+    (96, 64, 64, 0, 8, False), (16, 64, 64, 0, 0, False), (40, 16, 24, 0, 0, False)],
+    ids=["flagship", "tiled", "k-tail", "odd-rows", "a-unaligned", "b-unaligned", "16-rows",
+         "small"])
+def test_cuda_int_mm_route(m, k, n, ptr_a, ptr_b, takes):
+    """CUDA's torch._int_mm is taken only for shapes cuBLASLt runs; the rest
+    (shapes it refused on an H100) take the exact float64 product."""
+    assert kernels.cuda_int_mm_takes(m, k, n, ptr_a, ptr_b) is takes
+
+
 def _kernel_args(shape=KERNEL_SHAPES["tiled"], device="cpu"):
     return [torch.as_tensor(v).to(device) for v in random_kernel_args(shape).values()]
 
@@ -418,7 +495,7 @@ def test_cuda_int8_kernel_matches_plain(cuda, shape, with_linear):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 20, 16, 24), (1, 3, 40, 9)], ids=["int_mm", "float64"])
+@pytest.mark.parametrize("shape", [(2, 32, 64, 32), (1, 3, 40, 9)], ids=["int_mm", "float64"])
 def test_cuda_int8_matmul_routes_agree(cuda, shape):
     rng = np.random.default_rng(1)
     *lead, k, n = shape
@@ -426,3 +503,70 @@ def test_cuda_int8_matmul_routes_agree(cuda, shape):
     b = torch.as_tensor(rng.integers(-128, 128, (k, n)).astype(np.int8)).to(cuda)
     np.testing.assert_array_equal(int8_matmul(a, b).cpu().numpy(),
                                   int8_matmul(a.cpu(), b.cpu()).numpy())
+
+
+def _assert_int8_outputs_close(got, want):
+    assert_db_close(got.db.cpu().numpy(), want.db.cpu().numpy())
+    np.testing.assert_allclose(got.mn.cpu().numpy(), want.mn.cpu().numpy(), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got.mx.cpu().numpy(), want.mx.cpu().numpy(), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got.linear.cpu().numpy(), want.linear.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(EDGE_SHAPES.values()), ids=list(EDGE_SHAPES))
+def test_cuda_int8_tensor_core_edges(cuda, shape):
+    """The s8 tensor-core kernel at its tile edges, with and without the
+    packed operator passed in."""
+    args = _kernel_args(shape, cuda)
+    want = int8_bscan_display_fused_reference(*args, -30.0, shape[0], with_linear=True)
+    got = int8_bscan_display_fused(*args, -30.0, shape[0], with_linear=True)
+    packed = int8_bscan_display_fused(*args, -30.0, shape[0], with_linear=True,
+                                      oq_packed=pack_int8_operator(args[1], args[2]))
+    torch.cuda.synchronize()
+    _assert_int8_outputs_close(got, want)
+    for name in got._fields:
+        np.testing.assert_array_equal(getattr(got, name).cpu().numpy(),
+                                      getattr(packed, name).cpu().numpy(), err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thresh", [-0.0, 0.0], ids=["minus-zero", "plus-zero"])
+def test_cuda_int8_partials_at_a_zero_floor(cuda, thresh):
+    """A floor of -0 or +0 under a B-scan whose dB are all negative: every
+    element clamps to the floor, so every min/max partial is that zero; the
+    kernel's atomic min/max order -0 below +0 by the float's bits."""
+    shape = (8, 64, 64, 64)                       # 8 warps fold into each partial
+    args = _kernel_args(shape, cuda)
+    for i in (3, 4, 6, 7):                        # scales and constants: |x| << 1
+        args[i] = args[i] * 1e-4
+    want = int8_bscan_display_fused_reference(*args, thresh, shape[0])
+    assert float(want.db.max()) < 0.0
+    got = int8_bscan_display_fused(*args, thresh, shape[0])
+    torch.cuda.synchronize()
+    assert_db_close(got.db.cpu().numpy(), want.db.cpu().numpy())
+    for name in ("mn", "mx"):
+        np.testing.assert_array_equal(getattr(got, name).cpu().numpy(),
+                                      getattr(want, name).cpu().numpy(), err_msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_tensor_core_unaligned(cuda):
+    """Frames and operator views that are not 16-byte aligned: the frames
+    stage byte by byte, the operator is packed into an aligned copy; a
+    misaligned packed operator is refused."""
+    shape = (4, 24, 64, 40)
+    args = _kernel_args(shape, cuda)
+    for i in (0, 1):
+        flat = torch.empty(args[i].numel() + 1, dtype=torch.int8, device=cuda)
+        flat[1:] = args[i].flatten()
+        args[i] = flat[1:].view(args[i].shape)
+    want = int8_bscan_display_fused_reference(*args, -30.0, shape[0], with_linear=True)
+    got = int8_bscan_display_fused(*args, -30.0, shape[0], with_linear=True)
+    torch.cuda.synchronize()
+    _assert_int8_outputs_close(got, want)
+    packed = pack_int8_operator(args[1], args[2])
+    flat = torch.empty(packed.numel() + 1, dtype=torch.int8, device=cuda)
+    flat[1:] = packed.flatten()
+    with pytest.raises(ValueError, match="aligned"):
+        int8_bscan_display_fused(*args, -30.0, shape[0], oq_packed=flat[1:].view(packed.shape))

@@ -6,20 +6,35 @@ plain versions.
 Tolerances (as tests/test_pallas.py): a float32 operator rtol 1e-4, atol
 1e-4·max (summation order); a bfloat16 operator rtol 2e-2, atol 2e-2·max
 (the port rounds the ratio to bf16, the Pallas raw kernel keeps it f32).
+The bf16 tensor-core kernel against its plain version on the card: rtol
+1e-5, atol 1e-5·max, since both round the same float32 ratio to bf16 and
+only the order of the float32 sums differs.  The C entry points of
+``csrc/*.cu`` are held to the ctypes signatures of ``ops._build``.
 """
+
+import ctypes
+import re
 
 import numpy as np
 import pytest
 import torch
 
-from fdoct_tpu_torch.ops import kernels
+from fdoct_tpu_torch.ops import _build, kernels
 from fdoct_tpu_torch.ops.kernels import (
-    LAUNCHES, fused_recon_accumulate, fused_recon_accumulate_reference,
-    fused_recon_raw_accumulate, fused_recon_raw_accumulate_reference,
+    INT8_K_TILE, INT8_TILE, LAUNCHES, RESIDENT_TILE, fused_recon_accumulate,
+    fused_recon_accumulate_reference, fused_recon_raw_accumulate,
+    fused_recon_raw_accumulate_reference,
 )
 
 TOL = {"f32": 1e-4, "bf16": 2e-2}
+TC_TOL = 1e-5
 SHAPES = {"tiled": (3, 16, 64, 32), "ragged": (3, 10, 30, 7)}
+#: the bf16 tensor-core kernel's edges (B, rows, n_in, ndisp): rows not a
+#: multiple of a block's rows, n_in not a multiple of 16 (element staging)
+#: or of the 32-sample stage, ndisp not a multiple of 8, and 1 to 40 frames
+EDGE_SHAPES = {"rows-ragged": (8, 70, 300, 100), "k-tail": (8, 37, 48, 80),
+               "one-frame": (1, 65, 64, 64), "forty-frames": (40, 9, 96, 24),
+               "three-frames": (3, 20, 100, 13), "two-frames": (2, 130, 512, 136)}
 
 
 def make_problem(shape, seed=0):
@@ -163,6 +178,56 @@ def test_yr_wrapper_rejects_mismatched_dtype():
 
 
 # --------------------------------------------------------------------------
+# the C entry points against their ctypes signatures
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "int": ctypes.c_int, "float": ctypes.c_float}
+
+
+def c_entry_points() -> dict[str, list]:
+    """name → ctypes argument types of every ``fdoct_*`` function defined
+    in csrc/*.cu (all of them inside ``extern "C"``)."""
+    found = {}
+    for src in _build.SOURCES:
+        text = src.read_text()
+        assert 'extern "C"' in text, src.name
+        for name, params in re.findall(r"\bint\s+(fdoct_\w+)\s*\(([^)]*)\)\s*\{", text):
+            # "const void* frames" -> "const void*"
+            found[name] = [_C_TYPES[" ".join(p.split()[:-1])] for p in params.split(",")]
+    return found
+
+
+def test_every_signature_has_a_c_entry_point_and_back():
+    assert set(c_entry_points()) == set(_build.SIGNATURES)
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_c_entry_point_matches_its_ctypes_signature(name):
+    assert c_entry_points()[name] == _build.SIGNATURES[name]
+
+
+def test_tile_constants_match_the_sources():
+    """The Python tile constants are the ones the kernels are built with."""
+    text = {src.name: src.read_text() for src in _build.SOURCES + _build.HEADERS}
+
+    def const(file, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text[file]).group(1))
+
+    assert const("hopper_mma.cuh", "KT") == INT8_K_TILE           # namespace tc
+    assert "using tc::KT;" in text["int8_bscan.cu"]
+    assert INT8_TILE == (32, 32) and "32 x 32 tile" in text["int8_bscan.cu"]
+    assert RESIDENT_TILE == (const("fused_recon.cu", "RES_VROWS"),
+                             const("fused_recon.cu", "RES_TD"))
+
+
+def test_build_hashes_the_shared_header():
+    assert [h.name for h in _build.HEADERS] == ["hopper_mma.cuh"]
+    for src in _build.SOURCES:
+        assert '#include "hopper_mma.cuh"' in src.read_text(), src.name
+
+
+# --------------------------------------------------------------------------
 # on the card
 
 
@@ -203,3 +268,38 @@ def test_cuda_rejects_float64_operator(cuda):
     op = torch.as_tensor(p["mr"]).double().to(cuda)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fused_recon_accumulate(yr, op, op)
+
+
+def assert_tc_close(got, want):
+    np.testing.assert_allclose(got, want, rtol=TC_TOL, atol=TC_TOL * np.abs(want).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(EDGE_SHAPES.values()), ids=list(EDGE_SHAPES))
+def test_cuda_bf16_tensor_core_edges(cuda, shape):
+    p = make_problem(shape, seed=7)
+    t = {k: torch.as_tensor(v).to(cuda) for k, v in p.items()}
+    op = torch_op(p, "bf16", cuda)
+    inv = (1.0 / t["bg"]).contiguous()
+    before = LAUNCHES["fused_recon_raw_accumulate"]
+    got = fused_recon_raw_accumulate(t["raw"], t["pi"], inv, *op)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_recon_raw_accumulate"] == before + 1
+    want = fused_recon_raw_accumulate_reference(t["raw"], t["pi"], inv, *op)
+    assert_tc_close(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_tensor_core_unaligned(cuda):
+    """An operator view that is not 16-byte aligned takes the element loads."""
+    shape = (4, 16, 64, 32)
+    p = make_problem(shape, seed=8)
+    t = {k: torch.as_tensor(v).to(cuda) for k, v in p.items()}
+    op_re, op_im = torch_op(p, "bf16", cuda)
+    flat = torch.empty(op_re.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    flat[1:] = op_re.flatten()
+    op_re = flat[1:].view(op_re.shape)
+    inv = (1.0 / t["bg"]).contiguous()
+    got = fused_recon_raw_accumulate(t["raw"], t["pi"], inv, op_re, op_im)
+    want = fused_recon_raw_accumulate_reference(t["raw"], t["pi"], inv, op_re, op_im)
+    assert_tc_close(got.cpu().numpy(), want.cpu().numpy())
