@@ -12,28 +12,42 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 2. build   — compiles csrc/fused_recon.cu and csrc/int8_bscan.cu with nvcc
    for sm_90a (one nvcc per source, in parallel) and prints ptxas's
    registers, shared memory and spills per kernel.
-3. kernels — each kernel against its plain PyTorch version on the card, for
-   a float32 and a bfloat16 operator, at the flagship shape (8 frames of
-   512 x 2048 u8, the flagship M from Calibration.create, 512 depths) and at
-   a ragged shape.  Tolerance: float32 rtol 1e-4, atol 1e-4*max; bfloat16
-   rtol 2e-2, atol 2e-2*max, except kernel 1's bfloat16 instance (the bf16
-   tensor cores), held at rtol 1e-5, atol 1e-5*max: it rounds the same f32
-   ratio to bf16 as its plain version, so only the order of the f32 sums
-   differs.
-4. slice   — the port's main path at the flagship config: Session
-   (variant 'base', matmul_precision 'default' = bf16 on CUDA) captures
-   'b' and 'p' from synthetic frames per frame, then process_group on 4
-   batches of 16 frames (8 groups, kernel 1); a 'sim' session
-   (donotnormalize=False, as `fdoct sim` sets it) runs its groups through
-   kernel 2.  Launch counts are reset just before and read just after.
-   One group of each is compared with the plain versions plus form_bscan:
-   2e-2 dB on pixels within 40 dB of the peak, uint8 within 1 level.
-5. times   — CUDA-event medians of 20 calls of each kernel and its plain
+3. kernels — each instance of kernels 1-2 (raw u8 frames or an f32 ratio,
+   against a float32 or a bfloat16 operator) against its plain PyTorch
+   version on the card, at the flagship shape (8 frames of 512 x 2048 u8,
+   the flagship M from Calibration.create, 512 depths), at a ragged shape
+   and at the tensor-core schedule's edge shapes (ops.kernels.EDGE_SHAPES).
+   Tolerance: float32 operator rtol 1e-4, atol 1e-4*max (3xTF32 against
+   cuBLAS f32 with TF32 off); bfloat16 operator rtol 1e-5, atol 1e-5*max
+   (TC_TOL: both round the same f32 ratio to bf16, so only the order of the
+   f32 sums differs).  The float32-operator instance and cuBLAS f32 are also
+   held to the float64 product of the same f32 ratio and operator at
+   F64_TOL, rtol 5e-6, atol 5e-6*max, which a TF32 control (cuBLAS with
+   TF32 on) must fail at every shape.  Prints each worst share of
+   tolerance.
+4. slice   — the port's main path at the flagship config, one Session per
+   instance (SESSION_PATHS): 'base' (the raw kernel) and 'sim' with
+   donotnormalize off, as `fdoct sim` sets it (the ratio kernel), each at
+   'default' (bf16 operator on CUDA) and 'highest' (f32 operator).  Each
+   captures 'b' and 'p', then the launch counts are set to 0 just before its
+   process_group calls (4 batches of 16 frames, 8 groups, for 'base'; one,
+   2 groups, for 'sim') and read just after: exactly one launch of its
+   kernel per group, and no other.  Its last group is compared with the
+   plain version plus form_bscan: bf16, 2e-2 dB on pixels within 40 dB of
+   the peak; f32, the linear B-scan at rtol 1e-4, atol 1e-4*max, and
+   against form_bscan of the float64 product at F64_TOL; uint8 within 1
+   level.
+5. times   — CUDA-event medians of 20 calls of each instance and its plain
    version at the flagship shape, each call timed alone ("ms", which
    includes the wrapper's host time where that is longer than the kernel)
    and as the mean of 10 back-to-back calls ("ms_b2b", where the host's
-   time hides behind the device's), and the wall time per group of
-   Session.process_group.
+   time hides behind the device's); the cuBLAS product of the (B*rows x
+   n_in) stack by the concatenated (n_in x 2*ndisp) operator, f32 (TF32
+   off) and bf16 ("product_ms": the product alone, not the function); and
+   per session time_session: the host-clock time per group of
+   process_group, then a torch.profiler pass (device busy time, idle share,
+   H2D and group-kernel time per group).  bench_sessions.py times the
+   kernels and the sessions of another checkout with these functions.
 6. int8 kernels — int8_bscan_display_fused against its plain version
    (torch._int_mm + torch epilogue) on the card, with and without the linear
    output, at the flagship shape (8 s8 frames of 512 x 2048 and the plan
@@ -52,7 +66,7 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    session calls it) against its plain version, hot (the same group every
    call) and streamed (each call the next of 32 distinct groups, 256 MiB,
    more than the L2 holds), timed both ways as in phase 5, and the int8
-   session's wall time per group.
+   session by time_session.
 9. resident kernels — fused_recon_resident against its plain version (the
    raw-input plain version with the operator rounded to bf16) and against
    kernel 1's bf16 instance, at the flagship shape and at the ragged shape,
@@ -66,11 +80,22 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    route, timed hot and streamed over 32 distinct groups.  Launch counts are
    reset just before and read just after; the resident kernel must launch.
 
-The line before the last is {"kernels": [...]}: every number in it was
-measured in this run; "ms"/"plain_ms" are single calls and "ms_b2b"/
-"plain_ms_b2b" back-to-back calls (phase 5); "mma" names the tensor-core
-instruction of kernels 1 (bf16) and 3.  The last line is
-{"ok": true, "device": {...}}.
+The line before the last is {"kernels": [...]}, one entry per instance
+(kernels 1-2 each with a bf16 and an f32 operator, kernel 3, the resident
+kernel): every time in it was measured in this run; "ms"/"plain_ms" are
+single calls and "ms_b2b"/"plain_ms_b2b" back-to-back calls (phase 5);
+"launches" is the count from the instance's session path (for the
+resident kernel, which no session runs, the count from phase 10's
+bench_resident run, with the counts set to 0 just before it);
+"bound_ms" is the larger of the bytes (each input read and each output
+written once, at 3.35 TB/s) and the product's operations at the dense peak
+of the operator type (bf16 989 TFLOP/s, s8 1,979 TOPS; an f32 operator as
+three TF32 products at 495 TFLOP/s), computed from this run's inputs;
+"library_ms" is null (no single PyTorch call computes sum_b |x_b @ M|) and
+"product_ms" times the operator product alone; "mma" names the
+tensor-core instruction; the float32-operator entries add their worst
+shares of F64_TOL and those of cuBLAS f32 and of the TF32 control.  The
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -102,11 +127,38 @@ SOURCE = "fdoct_tpu_torch/csrc/fused_recon.cu"
 INT8_SOURCE = "fdoct_tpu_torch/csrc/int8_bscan.cu"
 INT8_TOL = (1e-5, 1e-4)            # rtol, atol of dB and of the min/max partials
 RESIDENT_TOL = 1e-5                # rtol = atol/max of the resident kernel
-TC_TOL = {("fused_recon_raw_accumulate", "bf16"): 1e-5}   # rtol = atol/max, tensor cores
-MMA = {"fused_recon_raw_accumulate": "mma.sync.m16n8k16.f32.bf16.bf16.f32",
+#: rtol = atol/max of the bf16 tensor-core instances: they round the same f32
+#: ratio to bf16 as their plain versions, so only the order of the f32 sums
+#: differs (the f32 instances keep TOL["f32"])
+TC_TOL = {("fused_recon_raw_accumulate", "bf16"): 1e-5, ("fused_recon_accumulate", "bf16"): 1e-5}
+#: rtol = atol/max of the f32 instances and of cuBLAS f32 against the float64
+#: product of the same f32 ratio and operator: float32-grade products pass
+#: it, one TF32 product per multiply-add (~3 decimal digits) does not, nor
+#: do 3xTF32 products chained in one tensor-core accumulator
+F64_TOL = 5e-6
+MMA_BF16 = "mma.sync.m16n8k16.f32.bf16.bf16.f32"
+MMA_TF32X3 = ("mma.sync.m16n8k8.f32.tf32.tf32.f32 (3xTF32: lo.hi + hi.lo + hi.hi, each "
+              "stage's sums added in round-to-nearest f32)")
+MMA = {("fused_recon_raw_accumulate", "bf16"): MMA_BF16,
+       ("fused_recon_raw_accumulate", "f32"): MMA_TF32X3,
+       ("fused_recon_accumulate", "bf16"): MMA_BF16,
+       ("fused_recon_accumulate", "f32"): MMA_TF32X3,
        "int8_bscan_display_fused": "mma.sync.m16n8k32.s32.s8.s8.s32"}
+#: the session paths of phase 4: (variant, matmul_precision, kernel, operator,
+#: batches of 16 frames = 2 groups each)
+SESSION_PATHS = [("base", "default", "fused_recon_raw_accumulate", "bf16", 4),
+                 ("base", "highest", "fused_recon_raw_accumulate", "f32", 4),
+                 ("sim", "default", "fused_recon_accumulate", "bf16", 1),
+                 ("sim", "highest", "fused_recon_accumulate", "f32", 1)]
+#: dense peaks of one H100 SXM at 700 W (operations per second) and the
+#: operations each multiply-add of the operator product costs there: an f32
+#: operator runs as three TF32 products
+PEAK = {"bf16": 989e12, "f32": 495e12, "s8": 1979e12}
+OPS_PER_MAC = {"bf16": 2, "f32": 6, "s8": 2}
+HBM_BYTES_PER_S = 3.35e12
 B2B = 10                           # back-to-back calls per sample of the *_b2b times
 STREAM_GROUPS = 32
+SESSION_CALLS = 20                 # timed process_group calls per session, after one pass
 
 
 def check(ok: bool, what: str) -> None:
@@ -127,17 +179,140 @@ def compare(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> 
             "finite": bool(torch.isfinite(got).all())}
 
 
-def session_group_ms(session, batches, per_call: int) -> list[float]:
-    """Host-clock ms per group of ``process_group`` (``per_call`` groups per
-    batch): one warm-up pass over ``batches``, then 4 timed passes."""
+def random_problem(shape, seed: int, dev: torch.device) -> dict:
+    """Random u8 frames, pi, inv_background, an f32 ratio and an operator
+    (f32 and its bf16 rounding) of shape (B, rows, n_in, ndisp)."""
+    B, rows, n_in, ndisp = shape
+    rng = np.random.default_rng(seed)
+    inp = {
+        "raw": torch.as_tensor(rng.integers(0, 255, (B, rows, n_in), dtype=np.uint8)).to(dev),
+        "pi": torch.as_tensor(rng.uniform(0, 50, (rows, n_in))).to(dev, torch.float32),
+        "inv": torch.as_tensor(1.0 / rng.uniform(50, 200, (rows, n_in))).to(dev, torch.float32),
+        "yr": torch.as_tensor(rng.normal(size=(B, rows, n_in))).to(dev, torch.float32),
+    }
+    mr, mi = (torch.as_tensor(rng.normal(size=(n_in, ndisp))).to(dev, torch.float32)
+              for _ in range(2))
+    inp["f32"], inp["bf16"] = (mr, mi), (mr.to(torch.bfloat16), mi.to(torch.bfloat16))
+    return inp
+
+
+def captured_session(session_cls, cfg, variant: str, src, frames, calib, dev):
+    """A session with its 'b' and 'p' captures done: 'base' from 8 background
+    frames and the pi frame + 7 frames, 'sim' from its source, then one
+    group."""
+    s = session_cls(cfg, device=dev, variant=variant, calib=calib,
+                    **({"source": src} if variant == "sim" else {}))
+    s.key("b")
+    if variant == "base":
+        for _ in range(cfg.averages):                 # S(k) from 8 background frames
+            s.process(src.background())
+    s.key("p")
+    first = [src.pi_frame()] if variant == "base" else []
+    for f in first + [next(frames) for _ in range(cfg.averages - len(first))]:
+        s.process(f)
+    check(s.indextemp == 0 and not s._pending, f"{variant} captures left it mid-group")
+    return s
+
+
+def bound_keys(op: str, macs: int, inputs, outputs) -> dict:
+    """The least time of the card for the work: the larger of each input read
+    and each output written once at the HBM rate, and the product's
+    operations at the dense peak of the operator type."""
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in list(inputs) + list(outputs if isinstance(outputs, (list, tuple))
+                                              else [outputs]))
+    ops_ms = macs * OPS_PER_MAC[op] / PEAK[op] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms}
+
+
+def worst_shares(shares: dict) -> dict:
+    """Worst share of tolerance at the flagship, the ragged shape and over
+    the edge shapes."""
+    return {"flagship": shares["flagship"], "ragged": shares["ragged"],
+            "edges": max(v for k, v in shares.items() if k.startswith("edge"))}
+
+
+def product_times(fn) -> tuple[float, float]:
+    """Median ms of single calls and of back-to-back calls of one product."""
+    return cuda_ms(fn)[0], cuda_ms(fn, per=B2B)[0]
+
+
+def f64_product(x32: torch.Tensor, op_re: torch.Tensor, op_im: torch.Tensor) -> torch.Tensor:
+    """Σ_b |x32[b] @ (op_re + i·op_im)| in float64, from the float32 ratio
+    and operator that the kernels take."""
+    x = x32.double()
+    return torch.hypot(x @ op_re.double(), x @ op_im.double()).sum(0)
+
+
+def tf32_control(x32: torch.Tensor, op_re: torch.Tensor, op_im: torch.Tensor) -> torch.Tensor:
+    """The same sum with one TF32 product per multiply-add (cuBLAS with TF32
+    on): what F64_TOL must reject."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return torch.hypot(x32 @ op_re, x32 @ op_im).sum(0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def union_us(intervals) -> float:
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, -float("inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def time_session(session, batches, groups_per_call: int = 2) -> dict:
+    """Host-clock ms per group of ``process_group`` (which ends in the D2H of
+    the displays): one warm-up pass over ``batches``, then SESSION_CALLS
+    timed calls; then ``torch.profiler`` over one more pass: per group the
+    device's busy time (the union of its kernel and copy intervals), its
+    idle share of the profiled host time, the H2D copies and the group
+    kernels (every fused_recon* and int8_bscan* kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    for b in batches:
+        session.process_group(b)
     ms = []
-    for _ in range(5):
+    for i in range(SESSION_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.process_group(batches[i % len(batches)])
+        ms.append((time.perf_counter() - t0) / groups_per_call * 1e3)
+    out = {"group_ms": statistics.median(ms), "group_ms_min": min(ms),
+           "group_ms_max": max(ms), "groups": groups_per_call * len(ms)}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for b in batches:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            session.process_group(b)                 # ends in the D2H of the displays
-            ms.append((time.perf_counter() - t0) / per_call * 1e3)
-    return ms[len(batches):]
+            session.process_group(b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = groups_per_call * len(batches)
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return {**out, "profiled": "not measured: no device events in the trace"}
+    busy = union_us((e.time_range.start, e.time_range.end) for e in dev) / 1e3
+    h2d = sum(e.time_range.elapsed_us() for e in dev if "HtoD" in e.name) / 1e3
+    kern = sum(e.time_range.elapsed_us() for e in dev
+               if "fused_recon" in e.name or "int8_bscan" in e.name) / 1e3
+    return {**out, "profiled_group_ms": wall_ms / groups, "device_busy_ms": busy / groups,
+            "idle_share": 1.0 - busy / wall_ms, "h2d_ms": h2d / groups,
+            "group_kernel_ms": kern / groups}
+
+
+def describe_session(t: dict) -> str:
+    head = (f"median {t['group_ms']:.3f} ms (min {t['group_ms_min']:.3f}, max "
+            f"{t['group_ms_max']:.3f}; {t['groups']} groups after one warm-up pass; host clock)")
+    if "profiled_group_ms" not in t:
+        return f"{head}; profiler {t['profiled']}"
+    return (f"{head}; profiled pass {t['profiled_group_ms']:.3f} ms/group: device busy "
+            f"{t['device_busy_ms']:.3f} ms (idle share {t['idle_share']:.3f}), H2D "
+            f"{t['h2d_ms']:.3f} ms, group kernel {t['group_kernel_ms']:.3f} ms")
 
 
 def cuda_ms(fn, runs: int = 20, warmup: int = 3, per: int = 1) -> tuple[float, float, float]:
@@ -191,7 +366,7 @@ def main() -> int:
     from fdoct_tpu_torch.config import PipelineConfig
     from fdoct_tpu_torch.ops import _build, kernels
     from fdoct_tpu_torch.ops.kernels import (
-        LAUNCHES, fused_recon_accumulate, fused_recon_accumulate_reference,
+        EDGE_SHAPES, LAUNCHES, fused_recon_accumulate, fused_recon_accumulate_reference,
         fused_recon_raw_accumulate, fused_recon_raw_accumulate_reference,
     )
     from fdoct_tpu_torch.pipeline import apodize_ratio, form_bscan, preprocess, use_bf16
@@ -237,17 +412,7 @@ def main() -> int:
                             cfg.replace(donotnormalize=False)).contiguous(),
         "f32": (calib.op_re, calib.op_im), "bf16": (calib.op_re_bf16, calib.op_im_bf16),
     }
-    B, rows, n_in, ndisp = RAGGED
-    rng = np.random.default_rng(SEED)
-    rag_in = {
-        "raw": torch.as_tensor(rng.integers(0, 255, (B, rows, n_in), dtype=np.uint8)).to(dev),
-        "pi": torch.as_tensor(rng.uniform(0, 50, (rows, n_in))).to(dev, torch.float32),
-        "inv": torch.as_tensor(1.0 / rng.uniform(50, 200, (rows, n_in))).to(dev, torch.float32),
-        "yr": torch.as_tensor(rng.normal(size=(B, rows, n_in))).to(dev, torch.float32),
-    }
-    mr, mi = (torch.as_tensor(rng.normal(size=(n_in, ndisp))).to(dev, torch.float32)
-              for _ in range(2))
-    rag_in["f32"], rag_in["bf16"] = (mr, mi), (mr.to(torch.bfloat16), mi.to(torch.bfloat16))
+    rag_in = random_problem(RAGGED, SEED, dev)
 
     def run_raw(inp, op, kernel=True):
         fn = fused_recon_raw_accumulate if kernel else fused_recon_raw_accumulate_reference
@@ -257,10 +422,21 @@ def main() -> int:
         fn = fused_recon_accumulate if kernel else fused_recon_accumulate_reference
         return fn(inp["yr"], *inp[op])
 
+    def ratio32(inp, name):
+        """The f32 ratio each kernel takes or forms (rounded as it forms it)."""
+        if name == "fused_recon_raw_accumulate":
+            return (inp["raw"].float() - inp["pi"]) * inp["inv"]
+        return inp["yr"]
+
     runners = {"fused_recon_raw_accumulate": run_raw, "fused_recon_accumulate": run_yr}
+    shares = {}                                      # (name, op) -> {shape: worst share of tol}
+    f64_shares = {}                                  # name -> {shape: {reading: worst share}}
     errors = {}
-    for name, run in runners.items():
-        for shape_name, inp in (("flagship", flag_in), ("ragged", rag_in)):
+    problems = [("flagship", flag_in), ("ragged", rag_in)] + [
+        (f"edge {label}", random_problem(shape, SEED + 2, dev))
+        for label, shape in EDGE_SHAPES.items()]
+    for shape_name, inp in problems:
+        for name, run in runners.items():
             for op in ("f32", "bf16"):
                 got = run(inp, op)
                 torch.cuda.synchronize()
@@ -268,76 +444,91 @@ def main() -> int:
                 tol = TC_TOL.get((name, op), TOL[op])
                 res = compare(got, want, tol, tol * float(want.abs().max()))
                 errors[(name, shape_name, op)] = res
-                phase("kernels", f"{name} {shape_name} {tuple(got.shape)} op={op}: "
-                      f"max_abs_err {res['max_abs_err']:.3e}, worst "
-                      f"{res['worst_share_of_tol']:.3e} of tol (rtol=atol/max={tol})")
+                shares.setdefault((name, op), {})[shape_name] = res["worst_share_of_tol"]
+                phase("kernels", f"{name} {shape_name} {tuple(inp['raw'].shape)}->"
+                      f"{tuple(got.shape)} op={op}: max_abs_err {res['max_abs_err']:.3e}, "
+                      f"worst {res['worst_share_of_tol']:.3e} of tol (rtol=atol/max={tol})")
                 check(res["finite"] and res["worst_share_of_tol"] <= 1.0,
                       f"{name} {shape_name} {op} disagrees with its plain version")
+            # the f32 instance and cuBLAS f32 against the float64 product, and
+            # the TF32 control that the limit must reject
+            x32, ops32 = ratio32(inp, name), inp["f32"]
+            want = f64_product(x32, *ops32)
+            atol = F64_TOL * float(want.abs().max())
+            readings = {"kernel": run(inp, "f32"), "cuBLAS f32": run(inp, "f32", kernel=False),
+                        "TF32 control": tf32_control(x32, *ops32)}
+            got = {k: compare(v, want, F64_TOL, atol)["worst_share_of_tol"]
+                   for k, v in readings.items()}
+            f64_shares.setdefault(name, {})[shape_name] = got
+            phase("kernels", f"{name} {shape_name} op=f32 against the float64 product: " +
+                  ", ".join(f"{k} worst {v:.3e}" for k, v in got.items()) +
+                  f" of tol (rtol=atol/max={F64_TOL}; the TF32 control must exceed 1)")
+            check(got["kernel"] <= 1.0 and got["cuBLAS f32"] <= 1.0,
+                  f"{name} {shape_name} f32 is not float32-grade against float64")
+            check(got["TF32 control"] > 1.0,
+                  f"{name} {shape_name}: the float64 limit passes one TF32 product")
 
-    # 4. the slice --------------------------------------------------------
-    kernels.reset_launches()
-    t_slice = time.perf_counter()
-    base = Session(cfg, device=dev, variant="base", calib=calib)
-    base.key("b")
-    for _ in range(cfg.averages):                   # S(k) from 8 background frames
-        base.process(src.background())
-    base.key("p")
-    for f in [src.pi_frame()] + [next(frames) for _ in range(cfg.averages - 1)]:
-        base.process(f)
-    check(base.indextemp == 0 and not base._pending, "captures left the session mid-group")
-    raw_before = LAUNCHES["fused_recon_raw_accumulate"]
+    # 4. the sessions: one per instance, counts at 0 just before each ------
     batches = [np.stack([next(frames) for _ in range(16)]) for _ in range(4)]
-    results = [r for b in batches for r in base.process_group(b)]
-    raw_grew = LAUNCHES["fused_recon_raw_accumulate"] - raw_before
+    sessions, launches = {}, {}
+    for variant, precision, name, op, nbatches in SESSION_PATHS:
+        scfg = cfg.replace(matmul_precision=precision, donotnormalize=variant == "base")
+        s = captured_session(Session, scfg, variant, src, frames, calib, dev)
+        kernels.reset_launches()
+        results = [r for b in batches[:nbatches] for r in s.process_group(b)]
+        torch.cuda.synchronize()
+        ran = {k: v for k, v in LAUNCHES.items() if v}
+        groups = 2 * nbatches
+        check(len(results) == groups, f"{variant} {precision} gave {len(results)} B-scans")
+        for r in results:
+            check(r.bscandisp.dtype == np.uint8 and r.bscandisp.shape == (512, 512),
+                  f"bscandisp {r.bscandisp.dtype} {r.bscandisp.shape}")
+            check(bool(torch.isfinite(r.bscandb).all()), "non-finite bscandb")
+        check(ran == {name: groups},
+              f"{variant} {precision}: launches {ran} for {groups} groups, not {name}: {groups}")
+        sessions[(variant, precision)] = s
+        launches[(name, op)] = ran[name]
+        phase("slice", f"{variant} '{precision}': {groups} B-scans "
+              f"{results[0].bscandisp.shape} uint8 through {name} op={op}; launches this "
+              f"path {ran}")
 
-    sim_cfg = cfg.replace(donotnormalize=False)     # as `fdoct sim` configures it
-    sim = Session(sim_cfg, device=dev, variant="sim", source=src, calib=calib)
-    sim.key("b")
-    sim.key("p")
-    for _ in range(sim_cfg.averages):
-        sim.process(next(frames))
-    yr_before = LAUNCHES["fused_recon_accumulate"]
-    sim_batch = np.stack([next(frames) for _ in range(16)])
-    sim_results = sim.process_group(sim_batch)
-    torch.cuda.synchronize()
-    yr_grew = LAUNCHES["fused_recon_accumulate"] - yr_before
-    launches = dict(LAUNCHES)
-    slice_s = time.perf_counter() - t_slice
-
-    check(len(results) == 8, f"base session gave {len(results)} B-scans, not 8")
-    for r in results + sim_results:
-        check(r.bscandisp.dtype == np.uint8 and r.bscandisp.shape == (512, 512),
-              f"bscandisp {r.bscandisp.dtype} {r.bscandisp.shape}")
-        check(bool(torch.isfinite(r.bscandb).all()), "non-finite bscandb")
-    check(len(sim_results) == 2, f"sim session gave {len(sim_results)} B-scans, not 2")
-    check(raw_grew >= 8, f"kernel 1 launched {raw_grew} times for 8 groups")
-    check(yr_grew >= 2, f"kernel 2 launched {yr_grew} times for 2 sim groups")
-    phase("slice", f"base: 8 B-scans {results[0].bscandisp.shape} uint8 through "
-          f"fused_recon_raw_accumulate (+{raw_grew} launches); sim: 2 B-scans through "
-          f"fused_recon_accumulate (+{yr_grew} launches); launches this run {launches}; "
-          f"{slice_s:.2f} s")
-
-    # one group of each against the plain versions + form_bscan
-    last = torch.as_tensor(batches[-1][-cfg.averages:]).to(dev)
-    check(use_bf16(cfg.matmul_precision, torch.float32, dev), "'default' is not bf16 on CUDA")
-    op = (calib.op_re_bf16, calib.op_im_bf16)
-    plain_base = form_bscan(fused_recon_raw_accumulate_reference(
-        last, base.data_yp, (1.0 / base.data_yb).contiguous(), *op),
-        cfg, cfg.averages, bscanthreshold=base.bscanthreshold)
-    sim_last = torch.as_tensor(sim_batch[-cfg.averages:]).to(dev)
-    plain_sim = form_bscan(fused_recon_accumulate_reference(
-        apodize_ratio(preprocess(sim_last, sim_cfg), sim.data_yb, sim.data_yp, sim_cfg), *op),
-        sim_cfg, cfg.averages, bscanthreshold=sim.bscanthreshold)
-    for label, got, want in (("base", results[-1], plain_base),
-                             ("sim", sim_results[-1], plain_sim)):
-        near = want.bscandb >= want.bscandb.max() - 40.0
-        db_err = float((got.bscandb - want.bscandb).abs()[near].max())
+        # the last group against the plain versions + form_bscan
+        last = torch.as_tensor(batches[nbatches - 1][-cfg.averages:]).to(dev)
+        check(use_bf16(precision, torch.float32, dev) == (op == "bf16"),
+              f"'{precision}' does not take the {op} operator on CUDA")
+        ops = flag_in[op]
+        if variant == "base":
+            mag = fused_recon_raw_accumulate_reference(
+                last, s.data_yp, (1.0 / s.data_yb).contiguous(), *ops)
+        else:
+            mag = fused_recon_accumulate_reference(
+                apodize_ratio(preprocess(last, scfg), s.data_yb, s.data_yp, scfg), *ops)
+        want = form_bscan(mag, scfg, cfg.averages, bscanthreshold=s.bscanthreshold)
+        got = results[-1]
         u8_err = int(np.abs(got.bscandisp.astype(int)
                             - want.bscandisp.cpu().numpy().astype(int)).max())
-        phase("slice", f"{label} group vs plain pipeline: max |dB err| {db_err:.3e} on "
-              f"{int(near.sum())} px within 40 dB of peak (limit 2e-2); "
-              f"max uint8 diff {u8_err} (limit 1)")
-        check(db_err <= 2e-2 and u8_err <= 1, f"{label} slice disagrees with plain pipeline")
+        if op == "bf16":
+            near = want.bscandb >= want.bscandb.max() - 40.0
+            db_err = float((got.bscandb - want.bscandb).abs()[near].max())
+            phase("slice", f"{variant} '{precision}' group vs plain pipeline: max |dB err| "
+                  f"{db_err:.3e} on {int(near.sum())} px within 40 dB of peak (limit 2e-2); "
+                  f"max uint8 diff {u8_err} (limit 1)")
+            ok = db_err <= 2e-2
+        else:
+            tol = TOL["f32"]
+            res = compare(got.bscan, want.bscan, tol, tol * float(want.bscan.abs().max()))
+            x32 = ((last.float() - s.data_yp) * (1.0 / s.data_yb) if variant == "base" else
+                   apodize_ratio(preprocess(last, scfg), s.data_yb, s.data_yp, scfg))
+            want64 = form_bscan(f64_product(x32, *ops).float(), scfg, cfg.averages,
+                                bscanthreshold=s.bscanthreshold).bscan
+            res64 = compare(got.bscan, want64, F64_TOL, F64_TOL * float(want64.abs().max()))
+            phase("slice", f"{variant} '{precision}' group vs plain pipeline: linear max_abs_err "
+                  f"{res['max_abs_err']:.3e}, worst {res['worst_share_of_tol']:.3e} of tol "
+                  f"(rtol=atol/max={tol}); vs the float64 product: worst "
+                  f"{res64['worst_share_of_tol']:.3e} of tol (rtol=atol/max={F64_TOL}); max "
+                  f"uint8 diff {u8_err} (limit 1)")
+            ok = res["worst_share_of_tol"] <= 1.0 and res64["worst_share_of_tol"] <= 1.0
+        check(ok and u8_err <= 1, f"{variant} '{precision}' slice disagrees with plain pipeline")
 
     # 5. times --------------------------------------------------------------
     times = {}
@@ -346,31 +537,58 @@ def main() -> int:
             times[(name, op_name)] = t = timed_pair(lambda: run(flag_in, op_name),
                                                     lambda: run(flag_in, op_name, kernel=False))
             phase("times", f"{name} flagship op={op_name}: {describe(t)} | {card_line}")
+    n_in = flag_in["yr"].shape[-1]
+    stack = {"f32": flag_in["yr"].reshape(-1, n_in)}
+    stack["bf16"] = stack["f32"].to(torch.bfloat16)
+    products = {}
+    for op_name in ("bf16", "f32"):
+        cat = torch.cat(flag_in[op_name], dim=1).contiguous()
+        products[op_name] = product_times(lambda: torch.matmul(stack[op_name], cat))
+        phase("times", f"product {tuple(stack[op_name].shape)} @ {tuple(cat.shape)} "
+              f"{op_name} (cuBLAS, TF32 off): median {products[op_name][0]:.4f} ms single, "
+              f"{products[op_name][1]:.4f} ms b2b | {card_line}")
     h2d = cuda_ms(lambda: torch.as_tensor(batches[0]).to(dev))
     mag = fused_recon_raw_accumulate(flag_in["raw"], flag_in["pi"], flag_in["inv"],
                                      *flag_in["bf16"])
+    base = sessions[("base", "default")]
     display = cuda_ms(lambda: form_bscan(mag, cfg, cfg.averages,
                                          bscanthreshold=base.bscanthreshold).bscandisp.cpu())
     phase("times", f"breakdown: H2D of 16 pageable frames (16 MiB) median {h2d[0]:.4f} ms "
           f"(min {h2d[1]:.4f}, max {h2d[2]:.4f}); form_bscan + D2H of one uint8 display "
           f"median {display[0]:.4f} ms (min {display[1]:.4f}, max {display[2]:.4f}); "
           f"20 single calls, CUDA events | {card_line}")
-    steady = session_group_ms(base, batches, per_call=2)
-    phase("times", f"Session.process_group per group (8 frames 512x2048 u8 from host "
-          f"memory to uint8 display on host): median {statistics.median(steady):.3f} ms "
-          f"(min {min(steady):.3f}, max {max(steady):.3f}; {len(steady)} groups "
-          f"after 4 warm-up groups; host clock) | {card_line}")
+    for (variant, precision), s in sessions.items():
+        phase("times", f"Session.process_group per group, {variant} '{precision}' (8 frames "
+              f"512x2048 u8 from host memory to uint8 display on host): "
+              f"{describe_session(time_session(s, batches))} | {card_line}")
 
     int8_entry = int8_phases(cfg, calib, src, frames, card_line, dev)
-    resident_entry = resident_phases(flag_in, rag_in, card_line, dev)
+    resident_entry = resident_phases(flag_in, rag_in, products["bf16"], card_line, dev)
 
-    report = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": launches[name], "operator": "bf16", "mma": MMA.get(name, "none (SIMT)"),
-         "max_abs_err": errors[(name, "flagship", "bf16")]["max_abs_err"],
-         **time_keys(times[(name, "bf16")])}
-        for name in runners] + [int8_entry, resident_entry]}
-    print(json.dumps(report), flush=True)
+    entries = []
+    for name in runners:
+        for op in ("bf16", "f32"):
+            ins = ([flag_in["raw"], flag_in["pi"], flag_in["inv"]]
+                   if name == "fused_recon_raw_accumulate" else [flag_in["yr"]])
+            x = ins[0]
+            flag64 = f64_shares[name]["flagship"]
+            f64 = ({"f64_tol": F64_TOL,
+                    "worst_share_of_f64_tol": worst_shares(
+                        {k: v["kernel"] for k, v in f64_shares[name].items()}),
+                    "cublas_f32_share_of_f64_tol": flag64["cuBLAS f32"],
+                    "tf32_control_share_of_f64_tol": flag64["TF32 control"]}
+                   if op == "f32" else {})
+            entries.append({
+                "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+                "launches": launches[(name, op)], "operator": op, "mma": MMA[(name, op)],
+                "max_abs_err": errors[(name, "flagship", op)]["max_abs_err"],
+                "worst_share_of_tol": worst_shares(shares[(name, op)]), **f64,
+                **time_keys(times[(name, op)]),
+                **bound_keys(op, 2 * x.numel() * calib.op_re.shape[1],
+                             ins + list(flag_in[op]), mag),
+                "library_ms": None, "product_ms": products[op][0],
+                "product_ms_b2b": products[op][1]})
+    print(json.dumps({"kernels": entries + [int8_entry, resident_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -513,17 +731,25 @@ def int8_phases(cfg, calib, src, frames, card_line: str, dev: torch.device) -> d
           f"epilogue; hot: {describe(hot)} | {card_line}")
     phase("int8 times", f"{name} flagship streamed over {STREAM_GROUPS} groups: "
           f"{describe(streamed)} | {card_line}")
-    steady = session_group_ms(i8, batches, per_call=2)
     phase("int8 times", f"int8_direct Session.process_group per group (8 frames 512x2048 u8 "
-          f"from host memory to uint8 display on host): median {statistics.median(steady):.3f}"
-          f" ms (min {min(steady):.3f}, max {max(steady):.3f}; {len(steady)} groups after 4 "
-          f"warm-up groups; host clock) | {card_line}")
+          f"from host memory to uint8 display on host): "
+          f"{describe_session(time_session(i8, batches))} | {card_line}")
+    x2 = s8.reshape(-1, s8.shape[-1])
+    cat = torch.cat([plan.oq_re, plan.oq_im], dim=1).contiguous()
+    product = product_times(lambda: torch._int_mm(x2, cat))
+    phase("int8 times", f"product {tuple(x2.shape)} @ {tuple(cat.shape)} s8 (torch._int_mm): "
+          f"median {product[0]:.4f} ms single, {product[1]:.4f} ms b2b | {card_line}")
+    out = int8_bscan_display_fused(*flag_args, thresh, cfg.averages, oq_packed=packed)
     return {"name": name, "route": "cuda", "source": INT8_SOURCE, "replaces": REPLACES[name],
             "launches": launches, "operator": "s8", "mma": MMA[name], "max_abs_err": flag_err,
-            **time_keys(hot), **time_keys(streamed, "streamed_")}
+            **time_keys(hot), **time_keys(streamed, "streamed_"),
+            **bound_keys("s8", 2 * s8.numel() * plan.oq_re.shape[1],
+                         [s8, packed] + flag_args[3:], [out.db, out.mn, out.mx]),
+            "library_ms": None, "product_ms": product[0], "product_ms_b2b": product[1]}
 
 
-def resident_phases(flag_in: dict, rag_in: dict, card_line: str, dev: torch.device) -> dict:
+def resident_phases(flag_in: dict, rag_in: dict, product: tuple, card_line: str,
+                    dev: torch.device) -> dict:
     """Phases 9-10: the resident kernel against its plain version and kernel
     1, then the resident bench; returns the kernel's entry of the
     {"kernels": [...]} line."""
@@ -577,9 +803,12 @@ def resident_phases(flag_in: dict, rag_in: dict, card_line: str, dev: torch.devi
     phase("resident bench", f"{len(rows)} rows in {time.perf_counter() - t0:.1f} s; "
           f"launches this run {launches}")
     check(launches[name] > 0, f"{name} was not launched by the resident bench")
+    out = fused_recon_resident(*x16)
     return {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "launches": launches[name], "operator": "bf16", "max_abs_err": flag_err,
-            **time_keys(t)}
+            "launches": launches[name], "operator": "bf16", "mma": "none (SIMT)",
+            "max_abs_err": flag_err, **time_keys(t),
+            **bound_keys("bf16", 2 * x16[0].numel() * out.shape[1], x16, out),
+            "library_ms": None, "product_ms": product[0], "product_ms_b2b": product[1]}
 
 
 if __name__ == "__main__":

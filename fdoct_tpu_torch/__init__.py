@@ -2,9 +2,10 @@
 
 A port of ``fdoct_tpu`` (JAX) that runs the frame→B-scan main path on an
 NVIDIA GPU, with the fused group reconstruction as hand-written Hopper
-kernels (``csrc/fused_recon.cu``).  It imports ``torch`` and never ``jax``:
-the JAX package's pure host modules (configuration, synthetic source,
-profiling meters) are shared by file path, see :mod:`fdoct_tpu_torch._shared`.
+kernels (``csrc/fused_recon.cu``).  It imports ``torch`` and never ``jax``,
+and nothing of ``fdoct_tpu``: where it needs one of that package's pure host
+modules (configuration, synthetic source, profiling meters) it keeps its own
+copy.
 """
 
 from fdoct_tpu_torch.calibration import Calibration

@@ -1,6 +1,7 @@
 // What the tensor-core kernels of fused_recon.cu and int8_bscan.cu share
 // (sm_90a): PTX wrappers for 16-byte cp.async staging, ldmatrix fragment
-// loads and the two mma.sync shapes, and the block schedule of namespace tc.
+// loads and the three mma.sync shapes (s8, bf16, tf32), and the block
+// schedule of namespace tc.
 #pragma once
 
 #include <cstdint>
@@ -61,14 +62,26 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The block schedule of both tensor-core kernels.  A block of four warps
+// c += a (16 x 8 tf32, row-major) @ b (8 x 8 tf32): tf32 operands (f32 bit
+// patterns with the low 13 mantissa bits zero), exact products, f32 sums.
+// The accumulator fragment has the layout of m16n8k16's.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The block schedule of every tensor-core kernel.  A block of four warps
 // (2 along pairs x 2 along depths) sums sum_b |x_b @ (op_re + i op_im)| for
 // a tile of BM (row, frame) pairs x BN depths, re and im side by side in N.
 // Pair m is frame m & (F - 1) of row m >> fs, with F = 1 << fs frames in
 // flight: all F frames of BM / F rows, so every operator tile a block stages
 // serves all of them, and a warp's WM pairs hold whole rows.  Groups of more
 // than F frames run in chunks of F.  Spectral samples arrive KT at a time
-// through a STAGES-deep cp.async ring.
+// (KT / 2 with an f32 operator) through a STAGES-deep cp.async ring.
 namespace tc {
 
 constexpr int BM = 64;           // (row, frame) pairs per block

@@ -12,10 +12,13 @@ Hopper counterparts of the four Pallas kernels of ``fdoct_tpu/ops/pallas_kernels
 
 The first three are ``csrc/fused_recon.cu``, the fourth is
 ``csrc/int8_bscan.cu``; :mod:`fdoct_tpu_torch.ops._build` builds both.  The
-first with a bfloat16 operator, and the fourth, run on the tensor cores
-(``mma.sync`` on bf16 and on s8); the rest on the SIMT pipes.
+first two and the fourth run on the tensor cores (``mma.sync``: bf16 with a
+bfloat16 operator, three TF32 products (3xTF32) with a float32 one, s8 for
+the fourth); the resident kernel on the SIMT pipes.
 M = op_re + i·op_im is float32 or bfloat16; with bfloat16 the ratio is
-rounded to bfloat16 before the product and the sums stay float32.  A wrapper
+rounded to bfloat16 before the product and the sums stay float32; with
+float32 each operand is split into two TF32 parts and the three largest
+cross products are summed in float32 (:func:`split_tf32`).  A wrapper
 given CPU tensors computes the plain version beside it (``*_reference``);
 given CUDA tensors it launches the kernel, or raises.  :data:`LAUNCHES`
 counts kernel launches, and only those.
@@ -47,6 +50,14 @@ INT8_K_TILE = 64
 #: (RES_VROWS, RES_TD of csrc/fused_recon.cu); see resident_rows_per_block
 RESIDENT_TILE = (32, 128)
 
+#: the edges of the tensor-core schedule (B, rows, n_in, ndisp), at which
+#: the tests and chip_smoke.py hold every instance to its plain version: rows
+#: not a multiple of a block's rows, n_in not a multiple of 16 (element
+#: staging) or of a stage, ndisp not a multiple of 8, and 1 to 40 frames
+EDGE_SHAPES = {"rows-ragged": (8, 70, 300, 100), "k-tail": (8, 37, 48, 80),
+               "one-frame": (1, 65, 64, 64), "forty-frames": (40, 9, 96, 24),
+               "three-frames": (3, 20, 100, 13), "two-frames": (2, 130, 512, 136)}
+
 
 def reset_launches() -> None:
     for name in LAUNCHES:
@@ -75,6 +86,20 @@ def fused_recon_raw_accumulate_reference(raw, pi_frame, inv_background, op_re, o
 def fused_recon_accumulate_reference(yr, op_re, op_im):
     """Plain version of :func:`fused_recon_accumulate`."""
     return _magnitude_sum(yr, op_re, op_im)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two TF32 parts (float32, low 13 mantissa bits zero) of a float32
+    tensor, as the float32-operator kernels split each operand: hi rounds x
+    to the nearest TF32 (ties away from zero), lo truncates the exact
+    remainder x − hi, so |x − hi − lo| ≤ 2⁻²¹·|x|.  The kernels then sum
+    lo_a·hi_b + hi_a·lo_b + hi_a·hi_b in float32 (3xTF32)."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"split_tf32 takes float32, got {x.dtype}")
+    mask = torch.tensor(-0x2000, dtype=torch.int32)          # 0xffffe000
+    hi = ((x.view(torch.int32) + 0x1000) & mask).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & mask).view(torch.float32)
+    return hi, lo
 
 
 def _ratio_dtype(op_re: torch.Tensor) -> torch.dtype:
@@ -143,11 +168,12 @@ def fused_recon_raw_accumulate(raw: torch.Tensor, pi_frame: torch.Tensor,
     float32 (float64 with a float64 operator, CPU only); op_re, op_im:
     (n_in, ndisp) float32 or bfloat16.  Returns (rows, ndisp).  Replaces the
     TPU kernel ``fused_recon_raw_accumulate`` (pallas_kernels.py:126-160).
-    With a bfloat16 operator the products run on the bf16 tensor cores
-    (``mma.sync`` m16n8k16, float32 sums): a block holds all frames of its
-    rows, forms their bf16 ratio on chip and stages pi_frame,
-    inv_background and each operator tile once for all of them.  With a
-    float32 operator it runs the SIMT FP32 kernel.
+    On CUDA a block holds all frames of its rows, forms their ratio on chip
+    and stages pi_frame, inv_background and each operator tile once for all
+    of them.  With a bfloat16 operator the products run on the bf16 tensor
+    cores (``mma.sync`` m16n8k16, float32 sums); with a float32 operator on
+    the TF32 tensor cores as three products of the operands' TF32 parts
+    (``mma.sync`` m16n8k8, float32 sums; see :func:`split_tf32`).
     """
     B, rows, n_in = _check_stack(raw, "raw")
     if raw.dtype != torch.uint8:
@@ -170,7 +196,10 @@ def fused_recon_accumulate(yr: torch.Tensor, op_re: torch.Tensor,
     yr: (B, rows, n_in) float32 (float64 with a float64 operator, CPU only);
     op_re, op_im: (n_in, ndisp) float32 or bfloat16.  Returns (rows, ndisp).
     Replaces the TPU kernel ``fused_recon_accumulate``
-    (pallas_kernels.py:275-308).
+    (pallas_kernels.py:275-308).  On CUDA it runs the schedule of
+    :func:`fused_recon_raw_accumulate` with the ratio read instead of
+    formed: rounded to bfloat16 for a bfloat16 operator, split into TF32
+    parts for a float32 one.
     """
     B, rows, n_in = _check_stack(yr, "yr")
     ndisp = _check_operator(op_re, op_im, n_in, yr.device)

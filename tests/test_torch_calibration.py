@@ -2,10 +2,11 @@
 
 import dataclasses
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+jnp = pytest.importorskip("jax.numpy")   # the JAX reference; without it (a GPU-only host) skip
 
 from fdoct_tpu.calibration import Calibration as JaxCalibration
 from fdoct_tpu.calibration import reference_grids as jax_reference_grids

@@ -1,9 +1,10 @@
 """The port's scale and filter ops against ``fdoct_tpu.ops``, in float64."""
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+jnp = pytest.importorskip("jax.numpy")   # the JAX reference; without it (a GPU-only host) skip
 
 from fdoct_tpu.ops import filters as jf
 from fdoct_tpu.ops import scale as js

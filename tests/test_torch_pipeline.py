@@ -14,10 +14,11 @@ level.
 
 import dataclasses
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+jnp = pytest.importorskip("jax.numpy")   # the JAX reference; without it (a GPU-only host) skip
 
 from fdoct_tpu import pipeline as jp
 from fdoct_tpu.calibration import Calibration as JaxCalibration

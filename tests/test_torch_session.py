@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-import jax.numpy as jnp
+jnp = pytest.importorskip("jax.numpy")   # the JAX reference; without it (a GPU-only host) skip
 
 from fdoct_tpu.config import PipelineConfig as JaxConfig
 from fdoct_tpu.session import Session as JaxSession
@@ -193,13 +193,17 @@ def test_results_stay_on_device_but_display(source):
 
 
 def test_port_never_imports_jax():
-    """A fresh interpreter imports the port and runs a small sim session on
-    the CPU; neither jax nor the JAX package may be loaded."""
+    """A fresh interpreter imports every module of the port and runs a small
+    sim session on the CPU; neither jax nor the JAX package may be loaded,
+    under any module name: no loaded module's file lies under fdoct_tpu/."""
     prog = (
-        "import sys\n"
+        "import sys, importlib, pkgutil\n"
+        "from pathlib import Path\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
         "import numpy as np\n"
         "import fdoct_tpu_torch\n"
+        "for m in pkgutil.walk_packages(fdoct_tpu_torch.__path__, 'fdoct_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
         "from fdoct_tpu_torch import PipelineConfig, Session\n"
         "from fdoct_tpu_torch.sources.synthetic import SyntheticSource\n"
         "from fdoct_tpu_torch.utils.profiling import StageTimer\n"
@@ -221,12 +225,36 @@ def test_port_never_imports_jax():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'fdoct_tpu'))\n"
         "assert not bad, bad\n"
+        f"ref = Path({str(ROOT / 'fdoct_tpu')!r})\n"
+        "files = [Path(f).resolve() for f in (getattr(m, '__file__', None)\n"
+        "         for m in list(sys.modules.values())) if f]\n"
+        "under = sorted(str(f) for f in files if f.is_relative_to(ref))\n"
+        "assert not under, under\n"
+        "assert 'fdoct_tpu_torch.ops.kernels' in sys.modules\n"
         "print('clean')\n"
     )
     out = subprocess.run([sys.executable, "-c", prog], capture_output=True, text=True,
                          timeout=240)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "clean" in out.stdout
+
+
+@pytest.mark.parametrize("pattern", [r"\b_shared\b", r"spec_from_file_location",
+                                     r"load_reference_module", r"^\s*(import|from) fdoct_tpu\b(?!_)"],
+                         ids=["_shared", "spec_from_file_location", "load_reference_module",
+                              "import fdoct_tpu"])
+def test_port_sources_load_nothing_of_the_jax_package(pattern):
+    """No source of the port (nor chip_smoke.py) loads a module of fdoct_tpu/
+    by any route: it keeps its own copies."""
+    import re
+    pkg = ROOT / "fdoct_tpu_torch"
+    assert not (pkg / "_shared.py").exists()
+    sources = [p for p in sorted(pkg.rglob("*")) if p.suffix in (".py", ".cu", ".cuh")]
+    sources.append(ROOT / "chip_smoke.py")
+    hits = [f"{p.relative_to(ROOT)}:{i}" for p in sources
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if re.search(pattern, line)]
+    assert not hits, hits
 
 
 # ---------------------------------------------------------------------------
