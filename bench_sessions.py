@@ -2,7 +2,7 @@
 """Group-kernel times and accuracy and session times of the PyTorch/CUDA
 port at the flagship shape, for one source tree, on one NVIDIA GPU.
 
-    python3 bench_sessions.py [--tree DIR]
+    python3 bench_sessions.py [--tree DIR] [--kernels-only]
 
 DIR (default: the directory of this file) is a checkout of the repository;
 its ``fdoct_tpu_torch`` is imported, built and measured.  So one call can
@@ -11,7 +11,7 @@ commit with ``git archive <commit> | tar -x -C build/parent`` and run
 parent, change, change, parent (``--tree build/parent``, no flag, no flag,
 ``--tree build/parent``), each in its own process.  Only entry points that
 every commit of the port has are used: ``Session``, ``Calibration.create``,
-``SyntheticSource`` and the two group-kernel wrappers.  The measuring
+``SyntheticSource`` and the three group-kernel wrappers.  The measuring
 functions are chip_smoke.py's.
 
 Flagship: 8 frames of 512 x 2048 u8 per group, 512 depths, the operator of
@@ -23,13 +23,16 @@ Flagship: 8 frames of 512 x 2048 u8 per group, 512 depths, the operator of
   ("ms_b2b"); for the f32 operator also the worst error against the
   float64 product of the same f32 ratio and operator, as a share of
   rtol = atol/max = 1e-4 ("f64_share"), beside the same share of cuBLAS
-  f32 (TF32 off) and of the TF32 control (TF32 on);
+  f32 (TF32 off) and of the TF32 control (TF32 on); and the resident
+  kernel (bf16 operator) the same way, with its device time per call from
+  a ``torch.profiler`` pass ("device_us", median of 20 calls);
 - sessions: ``base`` (the raw kernel) and ``sim`` with ``donotnormalize``
   off (the ratio kernel), each at 'default' (bf16 operator on CUDA) and at
   'highest' (f32 operator), by ``chip_smoke.time_session``: host-clock ms
   per group of ``process_group`` on batches of 16 frames (2 groups), then
   per group the device's busy time, its idle share, the H2D copies and the
-  group kernel from a ``torch.profiler`` pass.
+  group kernel from a ``torch.profiler`` pass.  ``--kernels-only`` skips
+  them: a development aid for comparing variants of a kernel's source.
 
 Prints one JSON object per line (the card's name and power limit in each)
 and exits non-zero without CUDA.
@@ -46,8 +49,8 @@ import numpy as np
 import torch
 
 from chip_smoke import (
-    B2B, FLAGSHIP, SEED, TOL, captured_session, compare, cuda_ms, f64_product, tf32_control,
-    time_session,
+    B2B, FLAGSHIP, SEED, TOL, captured_session, compare, cuda_ms, device_us, f64_product,
+    tf32_control, time_session,
 )
 
 SESSIONS = [("base", "default"), ("base", "highest"), ("sim", "default"), ("sim", "highest")]
@@ -57,6 +60,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parent),
                     help="checkout whose fdoct_tpu_torch is measured")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="skip the sessions (to compare kernel variants)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_sessions: torch.cuda.is_available() is false; this needs a GPU",
@@ -118,6 +123,12 @@ def main(argv=None) -> int:
                        for k, v in readings.items()}
             emit(kind="kernel", name=name, operator=op_name, ms=cuda_ms(fn)[0],
                  ms_b2b=cuda_ms(fn, per=B2B)[0], **acc)
+
+    resident = lambda: kernels.fused_recon_resident(batch, pi, inv, *ops["bf16"])   # noqa: E731
+    emit(kind="kernel", name="fused_recon_resident", operator="bf16", ms=cuda_ms(resident)[0],
+         ms_b2b=cuda_ms(resident, per=B2B)[0], device_us=device_us(resident))
+    if args.kernels_only:
+        return 0
 
     # the sessions -------------------------------------------------------
     for variant, precision in SESSIONS:

@@ -23,8 +23,14 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    f32 sums differs).  The float32-operator instance and cuBLAS f32 are also
    held to the float64 product of the same f32 ratio and operator at
    F64_TOL, rtol 5e-6, atol 5e-6*max, which a TF32 control (cuBLAS with
-   TF32 on) must fail at every shape.  Prints each worst share of
-   tolerance.
+   TF32 on) must fail at every shape.  Each bf16 instance and cuBLAS f32 on
+   its bf16-rounded operands (its plain version) are held to the float64
+   product of those operands at BF16_F64_TOL, rtol 2e-6, atol 2e-6*max
+   (4x what cuBLAS f32 reads at the flagship), so that a drift of the
+   tensor cores' truncating sums shows; at the flagship the chain of k16
+   steps truncated to 24 bits (truncating_chain, a model of those sums) is
+   read beside them, and the same chain at 23 bits, a control, must fail
+   the limit.  Prints each worst share of tolerance.
 4. slice   — the port's main path at the flagship config, one Session per
    instance (SESSION_PATHS): 'base' (the raw kernel) and 'sim' with
    donotnormalize off, as `fdoct sim` sets it (the ratio kernel), each at
@@ -36,7 +42,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    plain version plus form_bscan: bf16, 2e-2 dB on pixels within 40 dB of
    the peak; f32, the linear B-scan at rtol 1e-4, atol 1e-4*max, and
    against form_bscan of the float64 product at F64_TOL; uint8 within 1
-   level.
+   level.  Then a 'base' session at dtype="float64" runs one group on the
+   card through the plain chain (pipeline.group_kernel_applies) with no
+   kernel launch, held to form_bscan of the float64 product at rtol 1e-9.
 5. times   — CUDA-event medians of 20 calls of each instance and its plain
    version at the flagship shape, each call timed alone ("ms", which
    includes the wrapper's host time where that is longer than the kernel)
@@ -67,13 +75,18 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    call) and streamed (each call the next of 32 distinct groups, 256 MiB,
    more than the L2 holds), timed both ways as in phase 5, and the int8
    session by time_session.
-9. resident kernels — fused_recon_resident against its plain version (the
-   raw-input plain version with the operator rounded to bf16) and against
-   kernel 1's bf16 instance, at the flagship shape and at the ragged shape,
-   with a float32 and a bfloat16 operator passed in (the wrapper casts to
-   bf16).  Tolerance rtol 1e-5, atol 1e-5*max: all three round the same f32
-   ratio, so only the order of the f32 sums differs.  Prints the block tile
-   and the kernel's and the plain version's times, both ways as in phase 5.
+9. resident kernels — fused_recon_resident (wgmma + TMA) against its plain
+   version (the raw-input plain version with the operator rounded to bf16)
+   and against kernel 1's bf16 instance, at the flagship shape, the ragged
+   shape, a shape ragged in every tile of the wgmma schedule
+   (RESIDENT_RAGGED) and every EDGE_SHAPES entry, with a float32 and a
+   bfloat16 operator passed in (the wrapper casts to bf16), printing the
+   schedule each shape takes (the flagship and RESIDENT_RAGGED must take
+   "wgmma").  Tolerance rtol 1e-5, atol 1e-5*max: all three round the same
+   f32 ratio, so only the order of the f32 sums differs.  Each shape also
+   against the float64 product at BF16_F64_TOL, as in phase 3.  Times, both
+   ways as in phase 5: the kernel and its plain version hot and streamed
+   over 32 groups, and kernel 1 bf16 on the same sum.
 10. resident bench — fdoct_tpu_torch.bench_resident at the flagship: every
    reconstruction route of one group (f32, default, int8, int8_direct, plain
    bf16, kernels 1, 2 and the resident kernel), each within 5e-2 of the f32
@@ -86,7 +99,8 @@ kernel): every time in it was measured in this run; "ms"/"plain_ms" are
 single calls and "ms_b2b"/"plain_ms_b2b" back-to-back calls (phase 5);
 "launches" is the count from the instance's session path (for the
 resident kernel, which no session runs, the count from phase 10's
-bench_resident run, with the counts set to 0 just before it);
+bench_resident run, with the counts set to 0 just before it; its entry adds
+its schedule, streamed times and kernel 1 bf16's times);
 "bound_ms" is the larger of the bytes (each input read and each output
 written once, at 3.35 TB/s) and the product's operations at the dense peak
 of the operator type (bf16 989 TFLOP/s, s8 1,979 TOPS; an f32 operator as
@@ -94,8 +108,9 @@ three TF32 products at 495 TFLOP/s), computed from this run's inputs;
 "library_ms" is null (no single PyTorch call computes sum_b |x_b @ M|) and
 "product_ms" times the operator product alone; "mma" names the
 tensor-core instruction; the float32-operator entries add their worst
-shares of F64_TOL and those of cuBLAS f32 and of the TF32 control.  The
-last line is {"ok": true, "device": {...}}.
+shares of F64_TOL and those of cuBLAS f32 and of the TF32 control, the
+bf16 entries theirs of BF16_F64_TOL and cuBLAS f32's (kernels 1-2 also the
+24- and 23-bit chains' at the flagship).  The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -116,6 +131,9 @@ FLAGSHIP = dict(width=2048, height=512, binvalue=1, averages=8,
                 lambdamin=816e-9, lambdamax=884e-9,
                 increasefftpointsmultiplier=1, dtype="float32", compat=True)
 RAGGED = (3, 100, 300, 77)         # B, rows, n_in, ndisp
+#: ragged in every tile of the resident kernel's wgmma schedule (rows % 16,
+#: n_in % 64, ndisp % 128) at strides TMA takes
+RESIDENT_RAGGED = (8, 70, 1040, 200)
 TOL = {"f32": 1e-4, "bf16": 2e-2}
 REPLACES = {
     "fused_recon_raw_accumulate": "fdoct_tpu/ops/pallas_kernels.py:147",
@@ -136,7 +154,19 @@ TC_TOL = {("fused_recon_raw_accumulate", "bf16"): 1e-5, ("fused_recon_accumulate
 #: it, one TF32 product per multiply-add (~3 decimal digits) does not, nor
 #: do 3xTF32 products chained in one tensor-core accumulator
 F64_TOL = 5e-6
+#: rtol = atol/max of every bf16 instance (kernels 1-2, the resident kernel)
+#: and of cuBLAS f32 against the float64 product of the same bf16-rounded
+#: ratio and operator.  At the flagship cuBLAS f32 reads at most 5.2e-7 and
+#: the tensor cores' truncating f32 sums 1.6e-6 (NVIDIA H100 80GB HBM3,
+#: 700 W); the limit is 4x cuBLAS f32's reading, so a drift of the
+#: tensor-core sums by another 1.3x fails it, as the 23-bit truncating_chain
+#: control does
+BF16_F64_TOL = 2e-6
+#: rtol = atol/max of the float64 session's B-scan against form_bscan of
+#: the float64 product: both run float64 products, in another order
+F64_SESSION_TOL = 1e-9
 MMA_BF16 = "mma.sync.m16n8k16.f32.bf16.bf16.f32"
+MMA_RESIDENT = "wgmma.mma_async.m64n256k16.f32.bf16.bf16 (A from registers, B by TMA)"
 MMA_TF32X3 = ("mma.sync.m16n8k8.f32.tf32.tf32.f32 (3xTF32: lo.hi + hi.lo + hi.hi, each "
               "stage's sums added in round-to-nearest f32)")
 MMA = {("fused_recon_raw_accumulate", "bf16"): MMA_BF16,
@@ -228,6 +258,16 @@ def bound_keys(op: str, macs: int, inputs, outputs) -> dict:
             "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms}
 
 
+def bf16_f64_keys(shares: dict) -> dict:
+    """The kernels line's float64 keys of a bf16 instance, from its
+    {shape: bf16_f64_shares} readings."""
+    return {"bf16_f64_tol": BF16_F64_TOL,
+            "worst_share_of_bf16_f64_tol": worst_shares({k: v["kernel"] for k, v in shares.items()}),
+            "cublas_f32_share_of_bf16_f64_tol": max(v["cuBLAS f32"] for v in shares.values()),
+            **{f"{k.replace(' ', '_')}_share_of_bf16_f64_tol": v
+               for k, v in shares["flagship"].items() if k.startswith("chain")}}
+
+
 def worst_shares(shares: dict) -> dict:
     """Worst share of tolerance at the flagship, the ragged shape and over
     the edge shapes."""
@@ -245,6 +285,40 @@ def f64_product(x32: torch.Tensor, op_re: torch.Tensor, op_im: torch.Tensor) -> 
     and operator that the kernels take."""
     x = x32.double()
     return torch.hypot(x @ op_re.double(), x @ op_im.double()).sum(0)
+
+
+def bf16_f64_product(x32: torch.Tensor, op_re: torch.Tensor, op_im: torch.Tensor) -> torch.Tensor:
+    """Σ_b |bf16(x32[b]) @ (op_re + i·op_im)| in float64, from the float32
+    ratio and the bf16 operator of a bf16 instance."""
+    return f64_product(x32.to(torch.bfloat16).float(), op_re.float(), op_im.float())
+
+
+def bf16_f64_shares(kernel: torch.Tensor, cublas: torch.Tensor, want: torch.Tensor,
+                    **more: torch.Tensor) -> dict:
+    """Worst shares of BF16_F64_TOL of a bf16 instance, of cuBLAS f32 on
+    the same rounded operands (its plain version) and of ``more``, against
+    ``want``."""
+    atol = BF16_F64_TOL * float(want.abs().max())
+    return {k: compare(v, want, BF16_F64_TOL, atol)["worst_share_of_tol"]
+            for k, v in {"kernel": kernel, "cuBLAS f32": cublas, **more}.items()}
+
+
+def truncating_chain(x32: torch.Tensor, op_re: torch.Tensor, op_im: torch.Tensor,
+                     bits: int) -> torch.Tensor:
+    """Σ_b |bf16(x32[b]) @ (op_re + i·op_im)| with re and im each summed as a
+    chain of 16-sample steps (one wgmma or mma.sync k16 step each): every
+    step's partial sum exact (float64), the running sum truncated toward
+    zero to ``bits`` significant bits after each step.  At 24 bits it models
+    the tensor cores' truncating f32 sums; at fewer, a drift that
+    BF16_F64_TOL must reject."""
+    x = x32.to(torch.bfloat16).double()
+    op = torch.cat([op_re, op_im], 1).double()
+    mask = -(1 << (53 - bits))               # sign, exponent and ``bits`` - 1 stored bits
+    acc = torch.zeros((*x.shape[:-1], op.shape[1]), dtype=torch.float64, device=x.device)
+    for k in range(0, x.shape[-1], 16):
+        acc = ((acc + x[..., k:k + 16] @ op[k:k + 16]).view(torch.int64) & mask).view(torch.float64)
+    re, im = acc.split(op_re.shape[1], -1)
+    return torch.hypot(re, im).sum(0)
 
 
 def tf32_control(x32: torch.Tensor, op_re: torch.Tensor, op_im: torch.Tensor) -> torch.Tensor:
@@ -267,6 +341,28 @@ def union_us(intervals) -> float:
     return total
 
 
+def profiled(fn) -> tuple[list, float]:
+    """One call of ``fn`` under ``torch.profiler``: the device events of the
+    trace and the call's host-clock ms."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return ([e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA],
+            wall_ms)
+
+
+def device_us(fn, calls: int = 20) -> float:
+    """Median device time (us) of the kernels that ``calls`` calls of ``fn``
+    launch, after one call outside the trace."""
+    fn()
+    dev, _ = profiled(lambda: [fn() for _ in range(calls)])
+    return statistics.median(e.time_range.elapsed_us() for e in dev)
+
+
 def time_session(session, batches, groups_per_call: int = 2) -> dict:
     """Host-clock ms per group of ``process_group`` (which ends in the D2H of
     the displays): one warm-up pass over ``batches``, then SESSION_CALLS
@@ -274,7 +370,6 @@ def time_session(session, batches, groups_per_call: int = 2) -> dict:
     device's busy time (the union of its kernel and copy intervals), its
     idle share of the profiled host time, the H2D copies and the group
     kernels (every fused_recon* and int8_bscan* kernel)."""
-    from torch.profiler import ProfilerActivity, profile
     for b in batches:
         session.process_group(b)
     ms = []
@@ -285,15 +380,8 @@ def time_session(session, batches, groups_per_call: int = 2) -> dict:
         ms.append((time.perf_counter() - t0) / groups_per_call * 1e3)
     out = {"group_ms": statistics.median(ms), "group_ms_min": min(ms),
            "group_ms_max": max(ms), "groups": groups_per_call * len(ms)}
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for b in batches:
-            session.process_group(b)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev, wall_ms = profiled(lambda: [session.process_group(b) for b in batches])
     groups = groups_per_call * len(batches)
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
         return {**out, "profiled": "not measured: no device events in the trace"}
     busy = union_us((e.time_range.start, e.time_range.end) for e in dev) / 1e3
@@ -431,6 +519,7 @@ def main() -> int:
     runners = {"fused_recon_raw_accumulate": run_raw, "fused_recon_accumulate": run_yr}
     shares = {}                                      # (name, op) -> {shape: worst share of tol}
     f64_shares = {}                                  # name -> {shape: {reading: worst share}}
+    bf16_f64 = {}                                    # the same for the bf16 instances
     errors = {}
     problems = [("flagship", flag_in), ("ragged", rag_in)] + [
         (f"edge {label}", random_problem(shape, SEED + 2, dev))
@@ -467,6 +556,23 @@ def main() -> int:
                   f"{name} {shape_name} f32 is not float32-grade against float64")
             check(got["TF32 control"] > 1.0,
                   f"{name} {shape_name}: the float64 limit passes one TF32 product")
+            # the bf16 instance and cuBLAS f32 on its rounded operands against
+            # the float64 product of those operands; at the flagship also the
+            # chain of k16 steps with truncating sums, at 24 bits and at 23
+            # (the control that the limit must reject)
+            chains = ({f"chain {bits} bits": truncating_chain(x32, *inp["bf16"], bits)
+                       for bits in (24, 23)} if shape_name == "flagship" else {})
+            got = bf16_f64_shares(run(inp, "bf16"), run(inp, "bf16", kernel=False),
+                                  bf16_f64_product(x32, *inp["bf16"]), **chains)
+            bf16_f64.setdefault(name, {})[shape_name] = got
+            phase("kernels", f"{name} {shape_name} op=bf16 against the float64 product of the "
+                  "bf16-rounded operands: " + ", ".join(f"{k} worst {v:.3e}" for k, v in got.items())
+                  + f" of tol (rtol=atol/max={BF16_F64_TOL}"
+                  + ("; the 23-bit chain must exceed 1)" if chains else ")"))
+            check(got["kernel"] <= 1.0 and got["cuBLAS f32"] <= 1.0,
+                  f"{name} {shape_name} bf16 sums drift from the float64 product")
+            check(got.get("chain 23 bits", 2.0) > 1.0,
+                  f"{name} {shape_name}: the bf16 float64 limit passes a 23-bit truncating chain")
 
     # 4. the sessions: one per instance, counts at 0 just before each ------
     batches = [np.stack([next(frames) for _ in range(16)]) for _ in range(4)]
@@ -530,6 +636,9 @@ def main() -> int:
             ok = res["worst_share_of_tol"] <= 1.0 and res64["worst_share_of_tol"] <= 1.0
         check(ok and u8_err <= 1, f"{variant} '{precision}' slice disagrees with plain pipeline")
 
+    # the float64 config: the plain chain on the card, no kernel launch
+    f64_session_phase(cfg, src, frames, batches[0][:cfg.averages], dev)
+
     # 5. times --------------------------------------------------------------
     times = {}
     for name, run in runners.items():
@@ -577,7 +686,7 @@ def main() -> int:
                         {k: v["kernel"] for k, v in f64_shares[name].items()}),
                     "cublas_f32_share_of_f64_tol": flag64["cuBLAS f32"],
                     "tf32_control_share_of_f64_tol": flag64["TF32 control"]}
-                   if op == "f32" else {})
+                   if op == "f32" else bf16_f64_keys(bf16_f64[name]))
             entries.append({
                 "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
                 "launches": launches[(name, op)], "operator": op, "mma": MMA[(name, op)],
@@ -593,6 +702,44 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def f64_session_phase(cfg, src, frames, group: np.ndarray, dev: torch.device) -> None:
+    """Phase 4's float64 case: a 'base' session at dtype="float64" runs one
+    group on the card through the plain chain (pipeline.group_kernel_applies
+    refuses a float64 operator) with no kernel launch; its B-scan is held to
+    form_bscan of the float64 product written out here (rtol = atol/max
+    F64_SESSION_TOL; uint8 within 1)."""
+    from fdoct_tpu_torch.calibration import Calibration
+    from fdoct_tpu_torch.ops import kernels
+    from fdoct_tpu_torch.ops.kernels import LAUNCHES
+    from fdoct_tpu_torch.pipeline import form_bscan, group_kernel_applies
+    from fdoct_tpu_torch.session import Session
+
+    cfg64 = cfg.replace(dtype="float64")
+    calib64 = Calibration.create(cfg64, dev)
+    check(calib64.op_re.dtype == torch.float64 and not group_kernel_applies(calib64.op_re.dtype),
+          "a float64 config's operator is taken by the group kernels")
+    s = captured_session(Session, cfg64, "base", src, frames, calib64, dev)
+    kernels.reset_launches()
+    got = s.process_group(group)
+    torch.cuda.synchronize()
+    ran = {k: v for k, v in LAUNCHES.items() if v}
+    check(len(got) == 1 and ran == {}, f"float64 session: {len(got)} B-scans, launches {ran}")
+    x = (torch.as_tensor(group).to(dev).double() - s.data_yp) / s.data_yb
+    want = form_bscan(torch.hypot(x @ calib64.op_re, x @ calib64.op_im).sum(0), cfg64,
+                      cfg.averages, bscanthreshold=s.bscanthreshold)
+    res = compare(got[0].bscan, want.bscan, F64_SESSION_TOL,
+                  F64_SESSION_TOL * float(want.bscan.abs().max()))
+    u8_err = int(np.abs(got[0].bscandisp.astype(int)
+                        - want.bscandisp.cpu().numpy().astype(int)).max())
+    phase("slice", f"base dtype=float64: 1 B-scan {got[0].bscandisp.shape} uint8 through the "
+          f"plain chain, launches this path {ran}; linear B-scan vs form_bscan of the float64 "
+          f"product: max_abs_err {res['max_abs_err']:.3e}, worst {res['worst_share_of_tol']:.3e} "
+          f"of tol (rtol=atol/max={F64_SESSION_TOL}); max uint8 diff {u8_err} (limit 1)")
+    check(got[0].bscan.dtype == torch.float64 and res["finite"]
+          and res["worst_share_of_tol"] <= 1.0 and u8_err <= 1,
+          "the float64 session disagrees with its float64 plain chain")
 
 
 def int8_phases(cfg, calib, src, frames, card_line: str, dev: torch.device) -> dict:
@@ -750,48 +897,83 @@ def int8_phases(cfg, calib, src, frames, card_line: str, dev: torch.device) -> d
 
 def resident_phases(flag_in: dict, rag_in: dict, product: tuple, card_line: str,
                     dev: torch.device) -> dict:
-    """Phases 9-10: the resident kernel against its plain version and kernel
-    1, then the resident bench; returns the kernel's entry of the
-    {"kernels": [...]} line."""
+    """Phases 9-10: the resident kernel against its plain version, kernel 1
+    and the float64 product, its schedules and times, then the resident
+    bench; returns the kernel's entry of the {"kernels": [...]} line."""
     from fdoct_tpu_torch import bench_resident
     from fdoct_tpu_torch.ops import kernels
     from fdoct_tpu_torch.ops.kernels import (
-        LAUNCHES, RESIDENT_TILE, fused_recon_raw_accumulate, fused_recon_resident,
-        fused_recon_resident_reference, resident_rows_per_block,
+        EDGE_SHAPES, LAUNCHES, RESIDENT_TILE, fused_recon_raw_accumulate, fused_recon_resident,
+        fused_recon_resident_reference, resident_schedule,
     )
 
     name = "fused_recon_resident"
     tol = RESIDENT_TOL
 
-    # 9. the kernel against its plain version and kernel 1 ----------------------
+    # 9. the kernel against its plain version, kernel 1 and float64 -----------
     pairs, depths = RESIDENT_TILE
-    B = flag_in["raw"].shape[0]
-    phase("resident kernels", f"block tile: {pairs} (frame, row) pairs x {depths} depths = "
-          f"{resident_rows_per_block(B)} rows x {min(B, pairs)} frames at B={B}")
-    flag_err = None
-    for shape_name, inp in (("flagship", flag_in), ("ragged", rag_in)):
+    phase("resident kernels", f"wgmma schedule: blocks of {pairs} (row, frame) pairs x {depths} "
+          f"depths, {MMA_RESIDENT}; shapes TMA cannot address run kernel 1 bf16's mma.sync")
+    problems = [("flagship", flag_in), ("ragged", rag_in),
+                ("ragged wgmma", random_problem(RESIDENT_RAGGED, SEED + 3, dev))] + [
+        (f"edge {label}", random_problem(shape, SEED + 4, dev))
+        for label, shape in EDGE_SHAPES.items()]
+    flag_err, shares, f64 = None, {}, {}
+    for shape_name, inp in problems:
         x = (inp["raw"], inp["pi"], inp["inv"])
-        bf16_op = inp["bf16"]
+        sched = resident_schedule(*inp["raw"].shape, inp["bf16"][0].shape[1],
+                                  [t.data_ptr() for t in x + inp["bf16"]])
+        check(sched == "wgmma" or shape_name not in ("flagship", "ragged wgmma"),
+              f"{name} {shape_name} takes the {sched} schedule, not wgmma")
+        k1 = fused_recon_raw_accumulate(*x, *inp["bf16"])
         for op in ("f32", "bf16"):
             got = fused_recon_resident(*x, *inp[op])
             torch.cuda.synchronize()
             want = fused_recon_resident_reference(*x, *inp[op])
-            k1 = fused_recon_raw_accumulate(*x, *bf16_op)
             res = {"plain": compare(got, want, tol, tol * float(want.abs().max())),
                    "kernel 1": compare(got, k1, tol, tol * float(k1.abs().max()))}
             if shape_name == "flagship" and op == "bf16":
                 flag_err = res["plain"]["max_abs_err"]
-            phase("resident kernels", f"{name} {shape_name} {tuple(got.shape)} op={op} passed "
-                  "in: " + "; ".join(f"vs {k} max_abs_err {r['max_abs_err']:.3e}, worst "
-                                     f"{r['worst_share_of_tol']:.3e} of tol"
-                                     for k, r in res.items())
+            shares[(shape_name, op)] = max(r["worst_share_of_tol"] for r in res.values())
+            phase("resident kernels", f"{name} {shape_name} {tuple(inp['raw'].shape)}->"
+                  f"{tuple(got.shape)} schedule {sched} op={op} passed in: " +
+                  "; ".join(f"vs {k} max_abs_err {r['max_abs_err']:.3e}, worst "
+                            f"{r['worst_share_of_tol']:.3e} of tol" for k, r in res.items())
                   + f" (rtol=atol/max={tol})")
             check(all(r["finite"] and r["worst_share_of_tol"] <= 1.0 for r in res.values()),
                   f"{name} {shape_name} {op} disagrees with its plain version or kernel 1")
+        x32 = (inp["raw"].float() - inp["pi"]) * inp["inv"]
+        f64[shape_name] = got64 = bf16_f64_shares(
+            fused_recon_resident(*x, *inp["bf16"]), fused_recon_resident_reference(*x, *inp["bf16"]),
+            bf16_f64_product(x32, *inp["bf16"]))
+        phase("resident kernels", f"{name} {shape_name} against the float64 product of the "
+              "bf16-rounded operands: " + ", ".join(f"{k} worst {v:.3e}" for k, v in got64.items())
+              + f" of tol (rtol=atol/max={BF16_F64_TOL})")
+        check(got64["kernel"] <= 1.0 and got64["cuBLAS f32"] <= 1.0,
+              f"{name} {shape_name} drifts from the float64 product")
+
+    # times: hot and streamed, beside kernel 1 bf16 and the cuBLAS product
     x16 = (flag_in["raw"], flag_in["pi"], flag_in["inv"], *flag_in["bf16"])
-    t = timed_pair(lambda: fused_recon_resident(*x16),
-                   lambda: fused_recon_resident_reference(*x16))
-    phase("resident kernels", f"{name} flagship op=bf16: {describe(t)} | {card_line}")
+    hot = timed_pair(lambda: fused_recon_resident(*x16),
+                     lambda: fused_recon_resident_reference(*x16))
+    k1_hot = product_times(lambda: fused_recon_raw_accumulate(*x16))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    groups = torch.randint(0, 255, (STREAM_GROUPS, *x16[0].shape), dtype=torch.uint8,
+                           generator=gen, device=dev)
+    stream = itertools.cycle(list(groups))
+    streamed = timed_pair(lambda: fused_recon_resident(next(stream), *x16[1:]),
+                          lambda: fused_recon_resident_reference(next(stream), *x16[1:]))
+    k1_streamed = product_times(lambda: fused_recon_raw_accumulate(next(stream), *x16[1:]))
+    del groups, stream
+    phase("resident kernels", f"{name} flagship op=bf16 hot: {describe(hot)} | {card_line}")
+    phase("resident kernels", f"{name} flagship streamed over {STREAM_GROUPS} groups: "
+          f"{describe(streamed)} | {card_line}")
+    phase("resident kernels", f"kernel 1 bf16 on the same sum: hot median {k1_hot[0]:.4f} ms "
+          f"single, {k1_hot[1]:.4f} ms b2b; streamed {k1_streamed[0]:.4f} / "
+          f"{k1_streamed[1]:.4f} | {card_line}")
+    phase("resident kernels", f"product {tuple(flag_in['yr'].reshape(-1, x16[0].shape[-1]).shape)}"
+          f" @ (n_in x 2 ndisp) bf16 (cuBLAS): median {product[0]:.4f} ms single, "
+          f"{product[1]:.4f} ms b2b | {card_line}")
 
     # 10. the resident bench -----------------------------------------------------
     kernels.reset_launches()
@@ -805,8 +987,14 @@ def resident_phases(flag_in: dict, rag_in: dict, product: tuple, card_line: str,
     check(launches[name] > 0, f"{name} was not launched by the resident bench")
     out = fused_recon_resident(*x16)
     return {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "launches": launches[name], "operator": "bf16", "mma": "none (SIMT)",
-            "max_abs_err": flag_err, **time_keys(t),
+            "launches": launches[name], "operator": "bf16", "mma": MMA_RESIDENT,
+            "schedule": resident_schedule(*x16[0].shape, x16[3].shape[1],
+                                          [t.data_ptr() for t in x16]),
+            "max_abs_err": flag_err,
+            "worst_share_of_tol": worst_shares({k: v for (k, op), v in shares.items()
+                                                if op == "bf16"}),
+            **bf16_f64_keys(f64), **time_keys(hot), **time_keys(streamed, "streamed_"),
+            "kernel1_bf16_ms": list(k1_hot), "kernel1_bf16_streamed_ms": list(k1_streamed),
             **bound_keys("bf16", 2 * x16[0].numel() * out.shape[1], x16, out),
             "library_ms": None, "product_ms": product[0], "product_ms_b2b": product[1]}
 

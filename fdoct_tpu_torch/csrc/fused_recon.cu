@@ -30,10 +30,11 @@
 // TFLOP/s) or 0.104 ms as three TF32 products on the tensor cores (495
 // TFLOP/s), the form taken here.
 //
-// The four raw and yr entry points run one tensor-core schedule,
-// fused_recon_tc_kernel<In, Op> below; the resident kernel keeps its own SIMT
-// schedule.
+// The four raw and yr entry points run one mma.sync schedule,
+// fused_recon_tc_kernel<In, Op> below; the resident kernel runs its own
+// wgmma + TMA schedule at the end of the file.
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
@@ -45,9 +46,6 @@
 
 namespace {
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 __device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat16 v) { return __bfloat16_as_ushort(v); }
 
 // ---------------------------------------------------------------------------
@@ -438,223 +436,326 @@ int launch_tc(const void* x, const void* pi, const void* inv_bg, const void* op_
 // ---------------------------------------------------------------------------
 // The resident schedule: fdoct_recon_resident_u8_bf16 <- fused_recon_resident
 // (_recon_resident_kernel, pallas_kernels.py:70-123).  The same sum as the
-// raw bf16 instance above, with the bf16 operator the TPU kernel keeps in
-// VMEM for the whole grid while each frame streams through once.
+// raw bf16 instance above, with the bf16 operator that the TPU kernel keeps
+// in VMEM for the whole grid while each frame streams through once.
 //
-// On Hopper the 4 MiB bf16 operator of the flagship (2 x 2048 x 512) cannot
-// sit in one SM's shared memory, but it stays hot in the 50 MB L2.  What
-// fits is the other operand, so the roles swap.  A block owns RES_VROWS
-// (frame, row) pairs -- all B frames of RES_VROWS / B rows (4 rows at B = 8)
-// -- times RES_TD depths.  It forms the bf16-rounded ratio of those pairs
-// once from the u8 frames, pi_frame and inv_background and keeps it in
-// shared memory, RES_KS samples at a time; the operator streams from L2 in
-// RES_TK-sample chunks, double-buffered through registers, and each chunk
-// serves every frame of the tile before the next one lands.  Every frame
-// byte is read from device memory once (and ndisp / RES_TD times from L2,
-// by the blocks that split the depths).  Per thread 8 pairs x 4 depths x (re, im) = 64 f32
-// accumulators; per k step two broadcast float4 loads of the ratio and two
-// float4 loads of the operator feed 64 FMAs.  What bounds it: the SIMT FP32
-// FMA rate (17.2 GFLOP per flagship group: 0.256 ms at 67 TFLOP/s).  The b loop is
-// inside the block; the block stores its output tile once per chunk of up to
-// RES_VROWS frames: no atomics, deterministic.  Ragged rows, samples and
-// depths are masked.
+// On Hopper the 4 MiB bf16 operator of the flagship (2 x 2048 x 512) stays
+// hot in the 50 MB L2, and what the schedule saves is the work around the
+// products: TMA moves every tile (no thread instruction or register per
+// byte), and wgmma takes its A operand, the bf16 ratio, straight from
+// registers, so the ratio never goes through shared memory and needs no
+// barrier of its own.
+//
+//   * Block tile: 128 (row, frame) pairs (tc::pair_row / pair_frame: pair
+//     m = row * F + frame, F = 1 << tc::frames_shift(B) frames in flight,
+//     so 16 rows x 8 frames at B >= 8) x 128 depths.  Two warpgroups of 64
+//     pairs each run wgmma.mma_async.m64n256k16.f32.bf16.bf16: N = 256 is
+//     re and im of the 128 depths, 128 f32 sums per thread.  The flagship
+//     grid is 4 depth tiles x 32 pair tiles = 128 blocks, one wave on 132
+//     SMs.  Groups of more than F frames run in chunks of F.
+//   * A from registers: lane (g, t) of warp w holds pairs 16w + g and 16w +
+//     g + 8 of its warpgroup (rows 2w and 2w + 1, frame g at F = 8).  Per
+//     16-sample step it reads its 8 u8 samples, pi and inv_background from
+//     the stage, forms the ratio op by op as tc_ratio_tile does ((raw - pi)
+//     * inv, each rounded to f32, then to bf16 to nearest even) and packs
+//     the four A registers.  pi and inv_background are the same for the 8
+//     g-lanes of a row: their loads broadcast.  The frames tile arrives
+//     pair-major ([row][frame][64 samples]) with TMA's 64-byte swizzle, so
+//     the 8 g-lanes' sample loads fall on 8 distinct bank groups.
+//   * B, the operator, by TMA into a 128-byte-swizzled ring of RES_STAGES
+//     stages, MN-major (the operator is depth-contiguous as Calibration
+//     builds it): per 64-sample stage re and im as four 64 x 64 boxes (a
+//     128-byte swizzle limits a box's row to 64 bf16).  With the frames
+//     (64 B x 128 pairs), pi and inv_background (R rows x 64 f32 each) a
+//     stage is 48 KiB at B >= 8; 4 stages, 192 KiB.  One mbarrier per stage
+//     counts the TMA bytes in (full), one counts the 8 warps out (empty).
+//     Thread 0 issues the loads: a stage's slot is reloaded as soon as the
+//     wgmmas of the stage before have been waited for, so RES_STAGES - 1
+//     stages are in flight behind the one being multiplied.
+//   * Per 16-sample step one wgmma is committed and the previous one waited
+//     for (wgmma.wait_group 1), the A registers double-buffered.  ptxas
+//     still serialises the wgmmas (C7513: an A register is written while a
+//     wgmma is in flight) and waits for each right after it is issued, so
+//     one warpgroup forms its ratio while the other's wgmma runs, not its
+//     own.  Forming a stage's four fragments before four back-to-back
+//     wgmmas avoids the serialisation but measured no faster (PERF.md).
+//     Each block loads its own operator tiles: a cluster of 2 that
+//     multicast each tile to both SMs measured 17 % slower (PERF.md).
+//   * Epilogue: after the last stage of a chunk of frames, |re + i im| is
+//     added to the thread's frame slot (tc::add_magnitude's rounding); after
+//     the last chunk the slots of a row are summed with tc::sum_frame_slots'
+//     shuffles (the wgmma accumulator has the mma.sync (g, t) row map) and
+//     one lane stores.  No atomics, deterministic.
+//
+// Ragged edges cost nothing: TMA fills elements outside a tensor with zero,
+// so rows past ``rows`` and samples past n_in give a zero ratio and zero
+// operator rows, depths past ndisp zero columns; pairs of frames past B are
+// zeroed in registers.  TMA needs n_in % 16 == 0, ndisp % 8 == 0 and 16-byte
+// aligned bases (resident_wgmma_applies); other shapes run the mma.sync
+// schedule launch_tc<uint8_t, __nv_bfloat16> from the same C entry
+// (ops.kernels.resident_schedule mirrors the rule).
+//
+// The least time: the products, 17.2 GFLOP a flagship group, 17.4 us at the
+// dense bf16 peak, against L2 -> SM traffic of 128 MiB of operator (32 pair
+// tiles x 4 MiB) and 64 MiB of frames, pi and
+// inv_background (4 depth tiles x 16 MiB), where kernel 1 bf16 moves 384 MiB.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W it takes ~58 us, and the
+// products are not what bounds it: without any wgmma, without the ratio's
+// formation or without the TMA traffic it still takes 41-53 us, and the
+// stage loop with none of the three ~28 us (PERF.md).
 
-constexpr int RES_VROWS = 32;     // (frame, row) pairs per block
-constexpr int RES_TD = 128;       // depths per block
-constexpr int RES_KS = 512;       // spectral samples per ratio slab in shared memory
-constexpr int RES_TK = 16;        // spectral samples per operator chunk
-constexpr int RES_THREADS = 128;
-constexpr int RES_VPT = 8;        // (frame, row) pairs per thread
-constexpr int RES_DPT = 4;        // depths per thread
-constexpr int RES_STRIDE = RES_VROWS + 4;   // floats per sample in the slab: 16-byte rows
-constexpr int RES_OPBUF = 2 * RES_TK * RES_TD;   // floats per operator buffer (re, im)
-constexpr size_t RES_SMEM = sizeof(float) * (static_cast<size_t>(RES_KS) * RES_STRIDE +
-                                             2 * RES_OPBUF);
-static_assert((RES_VROWS / RES_VPT) * (RES_TD / RES_DPT) == RES_THREADS, "thread tiling");
-static_assert(RES_KS % RES_TK == 0, "slab holds whole operator chunks");
-static_assert(RES_VROWS * RES_TD <= 2 * RES_OPBUF, "magnitudes fit the operator buffers");
+namespace res {
+constexpr int BM = 128;            // (row, frame) pairs per block: two warpgroups of 64
+constexpr int BN = 128;            // depths per block; N = 256 with re and im
+constexpr int KT = 64;             // spectral samples per stage
+constexpr int MAX_STAGES = 4;
+constexpr int THREADS = 256;
+constexpr int OP_BOX = KT * 64 * 2;           // one 64-sample x 64-depth bf16 box
+constexpr int OP_BYTES = 4 * OP_BOX;          // re 0-63 | re 64-127 | im 0-63 | im 64-127
+constexpr int FRAME_BYTES = BM * KT;          // u8 [pair][sample], 64-byte swizzle
+constexpr int SMEM_LIMIT = 232448;            // shared memory a block may take
+constexpr int SMEM_EXTRA = 1024 + 2 * MAX_STAGES * 8;   // 1,024-byte alignment + barriers
+static_assert(FRAME_BYTES % 1024 == 0 && OP_BOX % 1024 == 0, "1,024-byte aligned regions");
 
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+// One stage: operator | frames | pi [R][KT] f32 | inv_background [R][KT] f32,
+// R = BM / F rows; a multiple of 1,024 bytes for every R.
+__host__ __device__ constexpr int stage_bytes(int R) {
+  return OP_BYTES + FRAME_BYTES + 2 * R * KT * static_cast<int>(sizeof(float));
+}
+}  // namespace res
 
-// One RES_TK x RES_TD chunk of op_re and op_im, held in registers between its
-// load from L2 and its store to shared memory as f32.  VEC: ndisp % 8 == 0
-// and 16-byte aligned operators, so 8 depths load as one uint4.
-template <bool VEC> struct OpChunk;
-
-template <> struct OpChunk<true> {
-  static constexpr int SEGS = RES_TK * RES_TD / 8 / RES_THREADS;   // uint4 per thread per array
-  uint4 v[2][SEGS];
-  __device__ void load(const __nv_bfloat16* re, const __nv_bfloat16* im, int k0, int col0,
-                       int n_in, int ndisp, int tid) {
+// The A fragment of 16-sample step kk of a landed stage: pairs m0 (a[0],
+// a[2]) and m1 = m0 + 8 (a[1], a[3]), rows r0 and r1 of the block, samples
+// 16kk + 2t, +1 (a[0], a[1]) and +8, +9 (a[2], a[3]).  Pairs of frames past
+// B (live false) are zero.
+__device__ __forceinline__ void res_ratio_fragment(uint32_t (&a)[4], const uint8_t* stage, int kk,
+                                                   int m0, int r0, int r1, int t, int R,
+                                                   bool live) {
+  const uint8_t* frames = stage + res::OP_BYTES;
+  const float* pi_s = reinterpret_cast<const float*>(frames + res::FRAME_BYTES);
+  const float* inv_s = pi_s + R * res::KT;
 #pragma unroll
-    for (int s = 0; s < SEGS; ++s) {
-      const int seg = tid + s * RES_THREADS;
-      const int gk = k0 + seg / (RES_TD / 8), gc = col0 + (seg % (RES_TD / 8)) * 8;
-      const bool ok = gk < n_in && gc < ndisp;
-      const size_t idx = static_cast<size_t>(gk) * ndisp + gc;
-      v[0][s] = ok ? *reinterpret_cast<const uint4*>(re + idx) : make_uint4(0, 0, 0, 0);
-      v[1][s] = ok ? *reinterpret_cast<const uint4*>(im + idx) : make_uint4(0, 0, 0, 0);
-    }
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + 8 * h, r = h ? r1 : r0;
+    // 64-byte swizzle: the 16-byte chunk of a 64-byte row XOR bits 7-8 of its address
+    const uint8_t* x = frames + m * res::KT + (((kk ^ (m >> 1)) & 3) << 4) + 2 * t;
+    const uint32_t lo = *reinterpret_cast<const uint16_t*>(x);
+    const uint32_t hi = *reinterpret_cast<const uint16_t*>(x + 8);
+    const int k = r * res::KT + 16 * kk + 2 * t;
+    const float2 p0 = *reinterpret_cast<const float2*>(pi_s + k);
+    const float2 p1 = *reinterpret_cast<const float2*>(pi_s + k + 8);
+    const float2 v0 = *reinterpret_cast<const float2*>(inv_s + k);
+    const float2 v1 = *reinterpret_cast<const float2*>(inv_s + k + 8);
+    float y[4] = {__fmul_rn(__fsub_rn(static_cast<float>(lo & 0xffu), p0.x), v0.x),
+                  __fmul_rn(__fsub_rn(static_cast<float>(lo >> 8), p0.y), v0.y),
+                  __fmul_rn(__fsub_rn(static_cast<float>(hi & 0xffu), p1.x), v1.x),
+                  __fmul_rn(__fsub_rn(static_cast<float>(hi >> 8), p1.y), v1.y)};
+    if (!live) y[0] = y[1] = y[2] = y[3] = 0.f;
+    a[h] = bf16_bits(__float2bfloat16_rn(y[0])) | bf16_bits(__float2bfloat16_rn(y[1])) << 16;
+    a[2 + h] = bf16_bits(__float2bfloat16_rn(y[2])) | bf16_bits(__float2bfloat16_rn(y[3])) << 16;
   }
-  __device__ void store(float* buf, int tid) const {
+}
+
+__global__ void __launch_bounds__(res::THREADS, 1)
+fused_recon_resident_kernel(const __grid_constant__ CUtensorMap raw_map,
+                            const __grid_constant__ CUtensorMap pi_map,
+                            const __grid_constant__ CUtensorMap inv_map,
+                            const __grid_constant__ CUtensorMap re_map,
+                            const __grid_constant__ CUtensorMap im_map, float* __restrict__ out,
+                            int B, int rows, int n_in, int ndisp, int fs, int nst) {
+  extern __shared__ uint8_t res_smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(res_smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int R = res::BM >> fs;
+  const int sbytes = res::stage_bytes(R);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + nst * sbytes);
+  uint64_t* empty = full + res::MAX_STAGES;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.y * R, col0 = blockIdx.x * res::BN;
+  const int nk = (n_in + res::KT - 1) / res::KT;
+  const int total = nk * ((B + (1 << fs) - 1) >> fs);    // stages of all chunks of frames
+
+  if (tid == 0) {
+    for (int s = 0; s < nst; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // thread 0: the copies of stage ``it`` into its slot, once the slot's
+  // previous stage has been released by every warp
+  const auto issue = [&](int it) {
+    const int s = it % nst;
+    uint8_t* st = smem + s * sbytes;
+    const int k0 = (it % nk) * res::KT, b0 = (it / nk) << fs;
+    if (it >= nst) mbar_wait(&empty[s], (it / nst - 1) & 1);
+    mbar_expect_tx(&full[s], sbytes);
+    tma_load_3d(st + res::OP_BYTES, &raw_map, &full[s], k0, b0, row0);
+    tma_load_2d(st + res::OP_BYTES + res::FRAME_BYTES, &pi_map, &full[s], k0, row0);
+    tma_load_2d(st + res::OP_BYTES + res::FRAME_BYTES + R * res::KT * 4, &inv_map, &full[s], k0,
+                row0);
 #pragma unroll
-    for (int a = 0; a < 2; ++a) {
+    for (int h = 0; h < 4; ++h)
+      tma_load_2d(st + h * res::OP_BOX, h < 2 ? &re_map : &im_map, &full[s], col0 + (h & 1) * 64,
+                  k0);
+  };
+  if (tid == 0)
+    for (int it = 0; it < nst && it < total; ++it) issue(it);
+  __syncwarp();
+
+  const int m0 = (warp >> 2) * 64 + (warp & 3) * 16 + g;   // this lane's pairs: m0, m0 + 8
+  const int frame = tc::pair_frame(m0, fs);                // the same for m0 + 8
+  const int r0 = tc::pair_row(m0, fs), r1 = tc::pair_row(m0 + 8, fs);
+  float acc[128];
+  float mag[64];                     // [j][e]: re/im columns j*8 + 2t + (e & 1), row g + 8*(e >> 1)
 #pragma unroll
-      for (int s = 0; s < SEGS; ++s) {
-        const int seg = tid + s * RES_THREADS;
-        float* dst = buf + a * RES_TK * RES_TD + (seg / (RES_TD / 8)) * RES_TD +
-                     (seg % (RES_TD / 8)) * 8;
-        const uint4 w = v[a][s];
-        *reinterpret_cast<float4*>(dst) = make_float4(bf16_lo(w.x), bf16_hi(w.x),
-                                                      bf16_lo(w.y), bf16_hi(w.y));
-        *reinterpret_cast<float4*>(dst + 4) = make_float4(bf16_lo(w.z), bf16_hi(w.z),
-                                                          bf16_lo(w.w), bf16_hi(w.w));
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) mag[i] = 0.f;
+  uint32_t a[2][4] = {};
+  for (int it = 0; it < total; ++it) {
+    const int s = it % nst, kt = it % nk;
+    const uint8_t* st = smem + s * sbytes;
+    const bool live = ((it / nk) << fs) + frame < B;
+    const uint32_t b_base = smem_addr(st);
+    mbar_wait(&full[s], (it / nst) & 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      res_ratio_fragment(a[kk & 1], st, kk, m0, r0, r1, t, R, live);
+      wgmma_fence();
+      wgmma_m64n256k16_rs(acc, a[kk & 1],
+                          wgmma_desc_mn_sw128(b_base + kk * 16 * 128, res::OP_BOX, 1024),
+                          kt > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();               // the step before is done: its A registers are free
+      wgmma_hold(a[(kk + 1) & 1]);
+      if (kk == 0 && it > 0) {       // ... and with it every wgmma of stage it - 1
+        const int ps = (it - 1) % nst;
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[ps]);
+        if (tid == 0 && it - 1 + nst < total) issue(it - 1 + nst);
+        __syncwarp();
       }
     }
-  }
-};
-
-template <> struct OpChunk<false> {
-  // thread t holds depth col0 + t of every sample of the chunk
-  static_assert(RES_TD == RES_THREADS, "one depth per thread");
-  __nv_bfloat16 v[2][RES_TK];
-  __device__ void load(const __nv_bfloat16* re, const __nv_bfloat16* im, int k0, int col0,
-                       int n_in, int ndisp, int tid) {
-    const int gc = col0 + tid;
+    if (kt == nk - 1) {              // the last stage of a chunk of frames
+      wgmma_wait<0>();
+      wgmma_hold(acc);
 #pragma unroll
-    for (int k = 0; k < RES_TK; ++k) {
-      const int gk = k0 + k;
-      const bool ok = gk < n_in && gc < ndisp;
-      const size_t idx = static_cast<size_t>(gk) * ndisp + gc;
-      v[0][k] = ok ? re[idx] : __float2bfloat16_rn(0.f);
-      v[1][k] = ok ? im[idx] : __float2bfloat16_rn(0.f);
+      for (int i = 0; i < 64; ++i) tc::add_magnitude(mag[i], acc[i], acc[64 + i]);
     }
   }
-  __device__ void store(float* buf, int tid) const {
+  // the F frame slots of a row (lanes 4 * slot apart)
+  for (int off = 4; off < (4 << fs); off <<= 1)
 #pragma unroll
-    for (int a = 0; a < 2; ++a) {
+    for (int i = 0; i < 64; ++i) mag[i] += __shfl_xor_sync(0xffffffffu, mag[i], off);
+  if (frame == 0) {
 #pragma unroll
-      for (int k = 0; k < RES_TK; ++k)
-        buf[a * RES_TK * RES_TD + k * RES_TD + tid] = __bfloat162float(v[a][k]);
-    }
-  }
-};
-
-// R rows x Bc frames per block (R * Bc <= RES_VROWS); pair (r, b) is slab
-// column r * Bc + b.
-template <bool VEC>
-__global__ void __launch_bounds__(RES_THREADS)
-fused_recon_resident_kernel(const uint8_t* __restrict__ raw, const float* __restrict__ pi,
-                            const float* __restrict__ inv_bg,
-                            const __nv_bfloat16* __restrict__ op_re,
-                            const __nv_bfloat16* __restrict__ op_im, float* __restrict__ out,
-                            int B, int rows, int n_in, int ndisp, int R, int Bc) {
-  extern __shared__ __align__(16) float res_smem[];
-  float* slab = res_smem;                                   // [RES_KS][RES_STRIDE]
-  float* opbuf = res_smem + static_cast<size_t>(RES_KS) * RES_STRIDE;   // 2 x [re|im][RES_TK][RES_TD]
-  float* mag_s = opbuf;                                     // [RES_VROWS][RES_TD], after the K loop
-
-  const int tid = threadIdx.x;
-  const int tv = tid / (RES_TD / RES_DPT);   // warp-uniform: ratio loads broadcast
-  const int tc = tid % (RES_TD / RES_DPT);
-  const int row0 = blockIdx.y * R;
-  const int col0 = blockIdx.x * RES_TD;
-  const size_t frame = static_cast<size_t>(rows) * n_in;
-
-  for (int b0 = 0; b0 < B; b0 += Bc) {
-    const int nb = min(Bc, B - b0);
-    float re[RES_VPT][RES_DPT] = {};
-    float im[RES_VPT][RES_DPT] = {};
-    for (int ks = 0; ks < n_in; ks += RES_KS) {
-      const int nch = (min(RES_KS, n_in - ks) + RES_TK - 1) / RES_TK;
-      const int kspan = nch * RES_TK;
-      __syncthreads();                 // the last slab, chunk and magnitudes are read
-      // the ratio slab: lanes walk k, so each frame row's reads coalesce;
-      // pi and inv_background are read once for all frames of the row
-      for (int i = tid; i < R * kspan; i += RES_THREADS) {
-        const int r = i / kspan, k = i % kspan;
-        const int gr = row0 + r, gk = ks + k;
-        const bool ok = gr < rows && gk < n_in;
-        const size_t rk = static_cast<size_t>(gr) * n_in + gk;
-        const float p = ok ? pi[rk] : 0.f;
-        const float inv = ok ? inv_bg[rk] : 0.f;
-        float* dst = slab + k * RES_STRIDE + r * Bc;
-        for (int b = 0; b < Bc; ++b) {
-          float v = 0.f;
-          if (ok && b < nb)
-            v = bf16_round((static_cast<float>(raw[(b0 + b) * frame + rk]) - p) * inv);
-          dst[b] = v;
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + (h ? r1 : r0);
+      if (r >= rows) continue;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = col0 + j * 8 + 2 * t + e;
+          if (d < ndisp) out[static_cast<size_t>(r) * ndisp + d] = mag[4 * j + 2 * h + e];
         }
-      }
-      OpChunk<VEC> chunk;
-      chunk.load(op_re, op_im, ks, col0, n_in, ndisp, tid);
-      chunk.store(opbuf, tid);
-      __syncthreads();
-      for (int c = 0; c < nch; ++c) {
-        const bool more = c + 1 < nch;
-        if (more) chunk.load(op_re, op_im, ks + (c + 1) * RES_TK, col0, n_in, ndisp, tid);
-        const float* a_s = slab + c * RES_TK * RES_STRIDE + tv * RES_VPT;
-        const float* br_s = opbuf + (c & 1) * RES_OPBUF + tc * RES_DPT;
-        const float* bi_s = br_s + RES_TK * RES_TD;
-#pragma unroll
-        for (int k = 0; k < RES_TK; ++k) {
-          const float4 a0 = *reinterpret_cast<const float4*>(a_s + k * RES_STRIDE);
-          const float4 a1 = *reinterpret_cast<const float4*>(a_s + k * RES_STRIDE + 4);
-          const float4 br4 = *reinterpret_cast<const float4*>(br_s + k * RES_TD);
-          const float4 bi4 = *reinterpret_cast<const float4*>(bi_s + k * RES_TD);
-          const float a[RES_VPT] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-          const float br[RES_DPT] = {br4.x, br4.y, br4.z, br4.w};
-          const float bi[RES_DPT] = {bi4.x, bi4.y, bi4.z, bi4.w};
-#pragma unroll
-          for (int i = 0; i < RES_VPT; ++i) {
-#pragma unroll
-            for (int j = 0; j < RES_DPT; ++j) {
-              re[i][j] = fmaf(a[i], br[j], re[i][j]);
-              im[i][j] = fmaf(a[i], bi[j], im[i][j]);
-            }
-          }
-        }
-        if (more) chunk.store(opbuf + ((c + 1) & 1) * RES_OPBUF, tid);
-        __syncthreads();
-      }
-    }
-    // |re + i im| of every pair, then the sum over the chunk's frames per row
-#pragma unroll
-    for (int i = 0; i < RES_VPT; ++i) {
-      float m[RES_DPT];
-#pragma unroll
-      for (int j = 0; j < RES_DPT; ++j) m[j] = sqrtf(re[i][j] * re[i][j] + im[i][j] * im[i][j]);
-      *reinterpret_cast<float4*>(mag_s + (tv * RES_VPT + i) * RES_TD + tc * RES_DPT) =
-          make_float4(m[0], m[1], m[2], m[3]);
-    }
-    __syncthreads();
-    for (int i = tid; i < R * RES_TD; i += RES_THREADS) {
-      const int r = i / RES_TD, d = i % RES_TD;
-      const int gr = row0 + r, gc = col0 + d;
-      if (gr >= rows || gc >= ndisp) continue;
-      float s = 0.f;
-      for (int b = 0; b < nb; ++b) s += mag_s[(r * Bc + b) * RES_TD + d];
-      float* o = out + static_cast<size_t>(gr) * ndisp + gc;
-      *o = b0 == 0 ? s : *o + s;       // this thread wrote it for the last chunk
     }
   }
 }
 
-template <bool VEC>
+// cuTensorMapEncodeTiled, obtained at run time through the CUDA runtime's
+// cudaGetDriverEntryPoint, so that the library does not link libcuda.
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                            cudaEnableDefault, &found);
+#else
+    const cudaError_t rc =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return rc == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A row-major tensor map: dims and box innermost first, strides (bytes) of
+// dims 1.. ; zero fill outside the tensor.
+bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+                const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn encode = encode_tiled();
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode != nullptr &&
+         encode(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Whether TMA can address the shapes and bases (else the mma.sync schedule
+// runs): 16-byte row strides of the u8 frames and of the bf16 operator, and
+// 16-byte aligned bases.
+bool resident_wgmma_applies(const void* raw, const void* pi, const void* inv_bg,
+                            const void* op_re, const void* op_im, int n_in, int ndisp) {
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  return n_in % 16 == 0 && ndisp % 8 == 0 && aligned(raw) && aligned(pi) && aligned(inv_bg) &&
+         aligned(op_re) && aligned(op_im);
+}
+
 int launch_resident(const void* raw, const void* pi, const void* inv_bg, const void* op_re,
                     const void* op_im, void* out, int B, int rows, int n_in, int ndisp,
-                    int R, int Bc, void* stream) {
-  const auto kernel = fused_recon_resident_kernel<VEC>;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(RES_SMEM));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid((ndisp + RES_TD - 1) / RES_TD, (rows + R - 1) / R);
-  kernel<<<grid, RES_THREADS, RES_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(raw), static_cast<const float*>(pi),
-      static_cast<const float*>(inv_bg), static_cast<const __nv_bfloat16*>(op_re),
-      static_cast<const __nv_bfloat16*>(op_im), static_cast<float*>(out),
-      B, rows, n_in, ndisp, R, Bc);
+                    void* stream) {
+  const int fs = tc::frames_shift(B);
+  const int R = res::BM >> fs;
+  const int gy = (rows + R - 1) / R;
+  if (gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const cuuint64_t n = static_cast<cuuint64_t>(n_in), nr = static_cast<cuuint64_t>(rows);
+  CUtensorMap maps[5];
+  // frames pair-major: dims (sample, frame, row), box 64 x F x R
+  const cuuint64_t raw_dims[3] = {n, static_cast<cuuint64_t>(B), nr};
+  const cuuint64_t raw_strides[2] = {nr * n, n};
+  const cuuint32_t raw_box[3] = {res::KT, static_cast<cuuint32_t>(1 << fs),
+                                 static_cast<cuuint32_t>(R)};
+  const cuuint64_t ratio_dims[2] = {n, nr}, ratio_strides[1] = {n * 4};
+  const cuuint32_t ratio_box[2] = {res::KT, static_cast<cuuint32_t>(R)};
+  const cuuint64_t op_dims[2] = {static_cast<cuuint64_t>(ndisp), n};
+  const cuuint64_t op_strides[1] = {static_cast<cuuint64_t>(ndisp) * 2};
+  const cuuint32_t op_box[2] = {64, res::KT};
+  if (!tensor_map(&maps[0], CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, raw, raw_dims, raw_strides,
+                  raw_box, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !tensor_map(&maps[1], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, pi, ratio_dims, ratio_strides,
+                  ratio_box, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !tensor_map(&maps[2], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, inv_bg, ratio_dims,
+                  ratio_strides, ratio_box, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !tensor_map(&maps[3], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, op_re, op_dims, op_strides,
+                  op_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&maps[4], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, op_im, op_dims, op_strides,
+                  op_box, CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nst = std::min(res::MAX_STAGES,
+                           (res::SMEM_LIMIT - res::SMEM_EXTRA) / res::stage_bytes(R));
+  const int smem = nst * res::stage_bytes(R) + res::SMEM_EXTRA;
+  const cudaError_t rc = cudaFuncSetAttribute(fused_recon_resident_kernel,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  fused_recon_resident_kernel<<<dim3((ndisp + res::BN - 1) / res::BN, gy), res::THREADS, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], static_cast<float*>(out), B, rows, n_in, ndisp,
+      fs, nst);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -692,21 +793,17 @@ int fdoct_recon_yr_f32_bf16(const void* yr, const void* op_re, const void* op_im
                                          ndisp, stream);
 }
 
-// The resident schedule; op_re, op_im are bf16.  Frames per block
-// min(B, RES_VROWS), rows per block RES_VROWS / that.
+// The resident schedule; op_re, op_im are bf16.  The wgmma + TMA schedule
+// where TMA can address the inputs (resident_wgmma_applies), else the
+// mma.sync schedule of fdoct_recon_raw_u8_bf16.
 int fdoct_recon_resident_u8_bf16(const void* raw, const void* pi, const void* inv_bg,
                                  const void* op_re, const void* op_im, void* out,
                                  int B, int rows, int n_in, int ndisp, void* stream) {
   if (B < 1 || rows < 1 || n_in < 1 || ndisp < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int Bc = B < RES_VROWS ? B : RES_VROWS;
-  const int R = RES_VROWS / Bc;
-  if ((rows + R - 1) / R > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = ndisp % 8 == 0 && reinterpret_cast<uintptr_t>(op_re) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(op_im) % 16 == 0;
-  return vec ? launch_resident<true>(raw, pi, inv_bg, op_re, op_im, out, B, rows, n_in, ndisp,
-                                     R, Bc, stream)
-             : launch_resident<false>(raw, pi, inv_bg, op_re, op_im, out, B, rows, n_in, ndisp,
-                                      R, Bc, stream);
+  if (!resident_wgmma_applies(raw, pi, inv_bg, op_re, op_im, n_in, ndisp))
+    return launch_tc<uint8_t, __nv_bfloat16>(raw, pi, inv_bg, op_re, op_im, out, B, rows, n_in,
+                                             ndisp, stream);
+  return launch_resident(raw, pi, inv_bg, op_re, op_im, out, B, rows, n_in, ndisp, stream);
 }
 
 }  // extern "C"

@@ -3,9 +3,13 @@
 Every source under ``csrc/`` (``fused_recon.cu``, ``int8_bscan.cu``) has a
 plain C interface, so each compiles in seconds without PyTorch's headers;
 both include ``hopper_mma.cuh``, the inline-PTX wrappers (``cp.async``,
-``ldmatrix``, ``mma.sync``) and the block schedule their tensor-core
-kernels share, which need the ``sm_90a`` target and no extra flag or
-library.  One ``nvcc -c`` per source
+``ldmatrix``, ``mma.sync``, ``wgmma``, ``mbarrier``, TMA tensor loads) and
+the block schedule their tensor-core kernels share, which need the
+``sm_90a`` target and no extra flag or library.  The resident kernel's TMA
+tensor maps are encoded on the host with
+``cuTensorMapEncodeTiled``, which ``fused_recon.cu`` obtains at run time
+through the runtime's ``cudaGetDriverEntryPoint`` (``...ByVersion`` from
+CUDA 12.5): the library links no ``-lcuda``.  One ``nvcc -c`` per source
 runs in parallel; the objects are linked into one library in
 ``build/fdoct_tpu_torch/`` beside the package, under a file name that
 carries a hash of every source, header and flag, so an edited file

@@ -11,10 +11,11 @@ Hopper counterparts of the four Pallas kernels of ``fdoct_tpu/ops/pallas_kernels
   against a quantized operator with the display epilogue fused.
 
 The first three are ``csrc/fused_recon.cu``, the fourth is
-``csrc/int8_bscan.cu``; :mod:`fdoct_tpu_torch.ops._build` builds both.  The
-first two and the fourth run on the tensor cores (``mma.sync``: bf16 with a
-bfloat16 operator, three TF32 products (3xTF32) with a float32 one, s8 for
-the fourth); the resident kernel on the SIMT pipes.
+``csrc/int8_bscan.cu``; :mod:`fdoct_tpu_torch.ops._build` builds both.  All
+run on the tensor cores: the first two and the fourth on ``mma.sync`` (bf16
+with a bfloat16 operator, three TF32 products (3xTF32) with a float32 one,
+s8 for the fourth), the resident kernel on ``wgmma`` fed by TMA
+(:func:`resident_schedule`).
 M = op_re + i·op_im is float32 or bfloat16; with bfloat16 the ratio is
 rounded to bfloat16 before the product and the sums stay float32; with
 float32 each operand is split into two TF32 parts and the three largest
@@ -46,9 +47,9 @@ INT8_TILE = (32, 32)
 #: operator's n_in is padded to a multiple of it
 INT8_K_TILE = 64
 
-#: one block of the resident kernel: (frame, row) pairs x depths
-#: (RES_VROWS, RES_TD of csrc/fused_recon.cu); see resident_rows_per_block
-RESIDENT_TILE = (32, 128)
+#: one block of the resident kernel's wgmma schedule: (row, frame) pairs x
+#: depths (res::BM, res::BN of csrc/fused_recon.cu)
+RESIDENT_TILE = (128, 128)
 
 #: the edges of the tensor-core schedule (B, rows, n_in, ndisp), at which
 #: the tests and chip_smoke.py hold every instance to its plain version: rows
@@ -213,11 +214,17 @@ def fused_recon_accumulate(yr: torch.Tensor, op_re: torch.Tensor,
                    [yr, op_re, op_im], (B, rows, n_in, ndisp), op_re, out)
 
 
-def resident_rows_per_block(B: int) -> int:
-    """Rows of one block of the resident kernel: RESIDENT_TILE[0] (frame,
-    row) pairs hold all frames of this many rows (frames beyond
-    RESIDENT_TILE[0] run in further chunks of one row)."""
-    return RESIDENT_TILE[0] // min(B, RESIDENT_TILE[0])
+def resident_schedule(B: int, rows: int, n_in: int, ndisp: int, ptrs) -> str:
+    """The schedule the resident kernel runs for these shapes and base
+    addresses (``ptrs``: the data pointers of raw, pi_frame, inv_background,
+    op_re and op_im), as the C entry chooses it: ``"wgmma"`` (TMA-fed
+    ``wgmma``) where TMA can address every input (n_in % 16 == 0, ndisp %
+    8 == 0, 16-byte aligned bases), else ``"mma.sync"`` (kernel 1 bf16's
+    schedule).  B and rows enter neither: ragged rows and any number of
+    frames run on both."""
+    del B, rows
+    aligned = all(int(p) % 16 == 0 for p in ptrs)
+    return "wgmma" if n_in % 16 == 0 and ndisp % 8 == 0 and aligned else "mma.sync"
 
 
 def fused_recon_resident_reference(raw, pi_frame, inv_background, op_re, op_im):
@@ -238,9 +245,12 @@ def fused_recon_resident(raw: torch.Tensor, pi_frame: torch.Tensor,
     float32; op_re, op_im: (n_in, ndisp), cast to bfloat16 whatever their
     type, as the TPU kernel casts them.  Returns (rows, ndisp) float32.
     Replaces the TPU kernel ``fused_recon_resident`` (pallas_kernels.py:90-123),
-    whose operator stays in VMEM for the whole grid; here each block keeps
-    the ratio of its (frame, row) pairs in shared memory and streams the
-    operator from L2 (``csrc/fused_recon.cu``).
+    whose operator stays in VMEM for the whole grid while each frame streams
+    through once.  On CUDA (``csrc/fused_recon.cu``) TMA brings operator,
+    frame, pi_frame and inv_background tiles into a shared-memory ring and
+    ``wgmma`` (m64n256k16, bf16, float32 sums) takes the bf16 ratio, formed
+    in registers, as its A operand; shapes TMA cannot address run kernel 1
+    bf16's ``mma.sync`` schedule (:func:`resident_schedule`).
     """
     B, rows, n_in = _check_stack(raw, "raw")
     if raw.dtype != torch.uint8:

@@ -206,6 +206,14 @@ def raw_kernel_applies(raw: torch.Tensor, cfg) -> bool:
             and cfg.donotnormalize and not cfg.rowwisenormalize)
 
 
+def group_kernel_applies(op_dtype: torch.dtype) -> bool:
+    """Whether the group kernels take an operator of this type: float32 or
+    bfloat16.  Any other (a float64 config's M) runs the plain chain on
+    every device, so the CPU takes the route the card takes; the kernels'
+    wrappers keep raising for it on CUDA."""
+    return op_dtype in (torch.float32, torch.bfloat16)
+
+
 def reconstruct_group(raw: torch.Tensor, background: torch.Tensor,
                       pi_frame: torch.Tensor, calib: Calibration, cfg,
                       method: str = "fused") -> torch.Tensor:
@@ -215,18 +223,20 @@ def reconstruct_group(raw: torch.Tensor, background: torch.Tensor,
     the JAX package) and the session's group step.  8-bit frames with an
     identity preprocess go straight to the raw-input kernel; any other
     configuration preprocesses and normalizes in torch ops, then runs the
-    ratio-input kernel.  Under 'int8' with the calibration's int8 tables the
-    plain chain runs (the JAX package has no kernel for it).
+    ratio-input kernel.  Under 'int8' with the calibration's int8 tables,
+    and with an operator the kernels do not take (:func:`group_kernel_applies`:
+    a float64 config), the plain chain runs, as the JAX package runs its
+    float64 session through ``ascan_mags``.
     """
     _check_method(method)
     precision = "highest" if method == "fused_exact" else cfg.matmul_precision
     _check_precision(precision)
     dtype = getattr(torch, cfg.dtype)
     background, pi_frame = background.to(dtype), pi_frame.to(dtype)
-    if _int8_tables_apply(precision, calib):
+    op_re, op_im = _operator(calib, use_bf16(precision, dtype, raw.device))
+    if _int8_tables_apply(precision, calib) or not group_kernel_applies(op_re.dtype):
         yr = apodize_ratio(preprocess(raw, cfg, dtype), background, pi_frame, cfg)
         return ascan_mags_fused(yr, calib, precision).sum(dim=0)
-    op_re, op_im = _operator(calib, use_bf16(precision, dtype, raw.device))
     if raw_kernel_applies(raw, cfg):
         return fused_recon_raw_accumulate(raw.contiguous(), pi_frame.contiguous(),
                                           (1.0 / background).contiguous(), op_re, op_im)

@@ -324,8 +324,8 @@ def test_tile_constants_match_the_sources():
     assert const("hopper_mma.cuh", "KT") == INT8_K_TILE           # namespace tc
     assert "using tc::KT;" in text["int8_bscan.cu"]
     assert INT8_TILE == (32, 32) and "32 x 32 tile" in text["int8_bscan.cu"]
-    assert RESIDENT_TILE == (const("fused_recon.cu", "RES_VROWS"),
-                             const("fused_recon.cu", "RES_TD"))
+    assert RESIDENT_TILE == (const("fused_recon.cu", "BM"), const("fused_recon.cu", "BN"))
+    assert "namespace res {" in text["fused_recon.cu"]          # the resident schedule's
     # the float32-operator instances stage KT / 2 samples (two blocks fit an
     # SM), rows padded to 36 and 136 floats: lane (g, t) of a fragment load
     # reads A row g, sample t and the operator at sample t, depth g, on 32
@@ -339,9 +339,32 @@ def test_tile_constants_match_the_sources():
 
 
 def test_every_entry_point_runs_the_tensor_core_kernel():
-    """No entry point of fused_recon.cu but the resident one is SIMT."""
+    """No entry point of fused_recon.cu is SIMT: the raw and yr ones run the
+    mma.sync template, the resident one the wgmma schedule or, where TMA
+    cannot address the inputs, the mma.sync template of kernel 1 bf16."""
     text = (_build.PACKAGE_ROOT / "csrc" / "fused_recon.cu").read_text()
     assert "fused_recon_kernel<" not in text and "launch<" not in text
+    assert "OpChunk" not in text and "fmaf(" not in text           # the SIMT resident form
+    body = text[text.index("int fdoct_recon_resident_u8_bf16("):]
+    body = body[:body.index("\n}\n")]
+    assert "resident_wgmma_applies(" in body and "launch_tc<uint8_t, __nv_bfloat16>" in body
+    assert body.count("launch_resident(") == 1
+    assert "wgmma_m64n256k16_rs(" in text
+
+
+def test_resident_schedule_mirrors_the_c_rule():
+    """ops.kernels.resident_schedule and resident_wgmma_applies of
+    fused_recon.cu take the wgmma schedule on the same conditions."""
+    text = (_build.PACKAGE_ROOT / "csrc" / "fused_recon.cu").read_text()
+    body = text[text.index("bool resident_wgmma_applies("):]
+    body = body[:body.index("\n}\n")]
+    assert "n_in % 16 == 0 && ndisp % 8 == 0" in body
+    for name in ("raw", "pi", "inv_bg", "op_re", "op_im"):
+        assert f"aligned({name})" in body
+    assert kernels.resident_schedule(8, 512, 2048, 512, [0] * 5) == "wgmma"
+    for n_in, ndisp, ptrs in ((2040, 512, [0] * 5), (2048, 508, [0] * 5),
+                              (2048, 512, [0, 0, 4, 0, 0])):
+        assert kernels.resident_schedule(8, 512, n_in, ndisp, ptrs) == "mma.sync"
     for name, (x, op) in {"raw_u8_f32": ("uint8_t", "float"),
                           "raw_u8_bf16": ("uint8_t", "__nv_bfloat16"),
                           "yr_f32_f32": ("float", "float"),

@@ -201,6 +201,30 @@ def test_raw_and_ratio_routes_agree():
     np.testing.assert_allclose(via_raw.numpy(), via_yr.numpy(), rtol=1e-12)
 
 
+@pytest.mark.parametrize("cfg_name", list(CONFIGS))
+def test_float64_group_takes_the_plain_chain(cfg_name, monkeypatch):
+    """A float64 config's group step calls neither kernel wrapper (the
+    kernels take a float32 or bfloat16 operator, and on CUDA their wrappers
+    raise for float64) and equals the JAX package's per-frame sum in
+    float64."""
+    jcfg, tcfg, raw, bg, pi = make_case(cfg_name, "highest64", seed=4)
+    jcal, tcal = _shared_calibs(jcfg, tcfg)
+
+    def refuse(*a, **k):
+        raise AssertionError("a kernel wrapper was called for a float64 operator")
+
+    monkeypatch.setattr(tp, "fused_recon_raw_accumulate", refuse)
+    monkeypatch.setattr(tp, "fused_recon_accumulate", refuse)
+    assert not tp.group_kernel_applies(tcal.op_re.dtype)
+    want = np.asarray(jp.reconstruct(jnp.asarray(raw), jnp.asarray(bg), jnp.asarray(pi), jcal,
+                                     jcfg, method="fused")).sum(0)
+    for method in ("fused", "fused_exact"):
+        got = tp.reconstruct_group(torch.as_tensor(raw), torch.as_tensor(bg),
+                                   torch.as_tensor(pi), tcal, tcfg, method)
+        assert got.dtype == torch.float64
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-9, atol=1e-9 * np.abs(want).max())
+
+
 @pytest.mark.parametrize("change", [
     dict(mediann=3), dict(binvalue=2), dict(binvaluex=2), dict(movavgn=1),
     dict(donotnormalize=False), dict(rowwisenormalize=True)])

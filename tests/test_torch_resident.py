@@ -3,8 +3,11 @@
 On the CPU: the plain version against the JAX Pallas kernel in interpret
 mode (as tests/test_pallas.py runs it) and against float64 numpy of the
 bf16-rounded operands, the wrapper's checks and dispatch, and
-``bench_resident`` at a small size.  On a GPU (cases marked ``cuda``): the
-CUDA kernel against its plain version and against kernel 1's bf16 instance.
+``bench_resident`` at a small size, and which schedule the C entry takes
+(:func:`resident_schedule`).  On a GPU (cases marked ``cuda``): the CUDA
+kernel against its plain version and against kernel 1's bf16 instance, in
+both schedules (``wgmma`` + TMA, and ``mma.sync`` where TMA cannot address
+the inputs), with ragged tails of every tile.
 
 Tolerance rtol 1e-5, atol 1e-5·max: the Pallas kernel, the plain version and
 the CUDA kernel round the same float32 ratio and the same operator to bf16,
@@ -18,8 +21,8 @@ import torch
 
 from fdoct_tpu_torch import bench_resident
 from fdoct_tpu_torch.ops.kernels import (
-    LAUNCHES, RESIDENT_TILE, fused_recon_raw_accumulate, fused_recon_resident,
-    fused_recon_resident_reference, resident_rows_per_block,
+    EDGE_SHAPES, LAUNCHES, RESIDENT_TILE, fused_recon_raw_accumulate, fused_recon_resident,
+    fused_recon_resident_reference, resident_schedule,
 )
 
 RTOL = 1e-5
@@ -104,10 +107,37 @@ def test_cpu_calls_count_no_launch():
     assert "fused_recon_resident" in LAUNCHES
 
 
-@pytest.mark.parametrize("B,rows", [(1, 32), (3, 10), (8, 4), (16, 2), (32, 1), (40, 1)])
-def test_rows_per_block(B, rows):
-    assert resident_rows_per_block(B) == rows
-    assert rows * min(B, RESIDENT_TILE[0]) <= RESIDENT_TILE[0]
+FLAGSHIP = (8, 512, 2048, 512)
+
+
+@pytest.mark.parametrize("shape,ptrs,want", [
+    (FLAGSHIP, (0, 256, 512, 1024, 4096), "wgmma"),
+    ((8, 512, 2048, 100), (0,) * 5, "mma.sync"),            # ndisp % 8: bf16 rows not 16 B
+    ((8, 512, 300, 512), (0,) * 5, "mma.sync"),             # n_in % 16: u8 rows not 16 B
+    (FLAGSHIP, (0, 0, 0, 2, 0), "mma.sync"),                # an operator view off 16 B
+    (FLAGSHIP, (0, 8, 0, 0, 0), "mma.sync"),                # pi_frame off 16 B
+    ((1, 512, 2048, 512), (0,) * 5, "wgmma"),               # B enters neither rule
+    ((3, 37, 208, 136), (0,) * 5, "wgmma"),
+    ((40, 9, 96, 24), (0,) * 5, "wgmma"),
+    ((8, 70, 1040, 200), (0,) * 5, "wgmma"),                # ragged tails: TMA fills zeros
+    ((1, 1, 16, 8), (0,) * 5, "wgmma"),                     # the least strides TMA takes
+    ((8, 512, 8, 512), (0,) * 5, "mma.sync"),               # n_in 8: u8 rows of 8 bytes
+    ((8, 512, 2048, 4), (0,) * 5, "mma.sync"),              # ndisp 4: bf16 rows of 8 bytes
+    (FLAGSHIP, (1, 0, 0, 0, 0), "mma.sync"),                # raw off 16 B
+    (FLAGSHIP, (0, 0, 4, 0, 0), "mma.sync"),                # inv_background off 16 B
+    (FLAGSHIP, (0, 0, 0, 0, 8), "mma.sync"),                # op_im off 16 B
+], ids=["flagship", "ndisp-100", "n_in-300", "op-unaligned", "pi-unaligned", "B1", "B3",
+        "B40", "ragged-tails", "least-strides", "n_in-8", "ndisp-4", "raw-unaligned",
+        "inv-unaligned", "op_im-unaligned"])
+def test_resident_schedule(shape, ptrs, want):
+    assert resident_schedule(*shape, ptrs) == want
+
+
+def test_resident_tile_is_two_warpgroups_by_re_and_im():
+    """128 (row, frame) pairs (two wgmma m64 warpgroups) x 128 depths (re and
+    im side by side make wgmma's N of 256)."""
+    pairs, depths = RESIDENT_TILE
+    assert pairs == 2 * 64 and 2 * depths == 256
 
 
 def _meta(t):
@@ -198,15 +228,9 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("op", ["f32", "bf16"])
-@pytest.mark.parametrize("shape", [
-    (3, 16, 64, 32), (3, 10, 30, 7), (8, 70, 300, 100), (8, 9, 1100, 256),
-    (40, 5, 200, 136), (1, 33, 520, 8)],
-    ids=["tiled", "ragged", "wide", "slabs", "frame-chunks", "one-frame"])
-def test_cuda_resident_matches_plain(cuda, shape, op):
-    p = make_problem(shape, seed=5)
-    a = args(p, op, cuda)
+def assert_resident_case(a):
+    """One launch on the card, held to the plain version and to kernel 1's
+    bf16 instance at RTOL."""
     before = LAUNCHES["fused_recon_resident"]
     got = fused_recon_resident(*a)
     torch.cuda.synchronize()
@@ -218,12 +242,51 @@ def test_cuda_resident_matches_plain(cuda, shape, op):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("op", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [
+    (3, 16, 64, 32), (3, 10, 30, 7), (8, 70, 300, 100), (8, 9, 1100, 256),
+    (40, 5, 200, 136), (1, 33, 520, 8)],
+    ids=["tiled", "ragged", "wide", "slabs", "frame-chunks", "one-frame"])
+def test_cuda_resident_matches_plain(cuda, shape, op):
+    assert_resident_case(args(make_problem(shape, seed=5), op, cuda))
+
+
+#: ragged tails inside the wgmma schedule (rows % 16, n_in % 64, ndisp % 128
+#: not 0 at strides TMA takes), and the flagship
+WGMMA_SHAPES = {"flagship": FLAGSHIP, "tails": (8, 70, 1040, 200), "tails-b3": (3, 37, 208, 136),
+                "tails-b16": (16, 33, 128, 72), "one-stage": (8, 16, 64, 128)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(EDGE_SHAPES.values()) + list(WGMMA_SHAPES.values()),
+                         ids=list(EDGE_SHAPES) + list(WGMMA_SHAPES))
+def test_cuda_resident_edges_and_tails(cuda, shape):
+    a = args(make_problem(shape, seed=11), "bf16", cuda)
+    if shape in WGMMA_SHAPES.values():
+        assert resident_schedule(*shape, [t.data_ptr() for t in a]) == "wgmma"
+    assert_resident_case(a)
+
+
+@pytest.mark.cuda
 def test_cuda_resident_misaligned_operator(cuda):
-    """An operator view that is not 16-byte aligned takes the scalar loads."""
+    """An operator view that is not 16-byte aligned takes the mma.sync
+    schedule."""
     p = make_problem((3, 12, 40, 16), seed=6)
     a = args(p, "bf16", cuda)
     flat = torch.empty(a[3].numel() + 1, dtype=torch.bfloat16, device=cuda)
     flat[1:] = a[3].flatten()
     a[3] = flat[1:].view(a[3].shape)
+    assert resident_schedule(3, 12, 40, 16, [t.data_ptr() for t in a]) == "mma.sync"
     got = fused_recon_resident(*a)
     assert_close(got.cpu().numpy(), fused_recon_resident_reference(*a).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_resident_unaligned_operator_at_a_wgmma_shape(cuda):
+    """The same at a shape the wgmma schedule takes when aligned."""
+    a = args(make_problem((8, 70, 1040, 200), seed=13), "bf16", cuda)
+    flat = torch.empty(a[4].numel() + 1, dtype=torch.bfloat16, device=cuda)
+    flat[1:] = a[4].flatten()
+    a[4] = flat[1:].view(a[4].shape)
+    assert resident_schedule(8, 70, 1040, 200, [t.data_ptr() for t in a]) == "mma.sync"
+    assert_resident_case(a)
