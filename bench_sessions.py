@@ -28,11 +28,14 @@ Flagship: 8 frames of 512 x 2048 u8 per group, 512 depths, the operator of
   a ``torch.profiler`` pass ("device_us", median of 20 calls);
 - sessions: ``base`` (the raw kernel) and ``sim`` with ``donotnormalize``
   off (the ratio kernel), each at 'default' (bf16 operator on CUDA) and at
-  'highest' (f32 operator), by ``chip_smoke.time_session``: host-clock ms
-  per group of ``process_group`` on batches of 16 frames (2 groups), then
-  per group the device's busy time, its idle share, the H2D copies and the
-  group kernel from a ``torch.profiler`` pass.  ``--kernels-only`` skips
-  them: a development aid for comparing variants of a kernel's source.
+  'highest' (f32 operator), and ``base`` at 'int8_direct' (the int8
+  kernel), by ``chip_smoke.time_session``: host-clock ms per group of
+  ``process_group`` on batches of 16 frames (2 groups), then per group the
+  device's busy time, its idle share, the H2D copies and the group kernel
+  from a ``torch.profiler`` pass; and the SHA-256 of the outputs (uint8
+  display, linear and dB B-scans) of one more batch, so that two trees'
+  outputs can be compared bit for bit.  ``--kernels-only`` skips them: a
+  development aid for comparing variants of a kernel's source.
 
 Prints one JSON object per line (the card's name and power limit in each)
 and exits non-zero without CUDA.
@@ -41,6 +44,7 @@ and exits non-zero without CUDA.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import sys
 from pathlib import Path
@@ -53,7 +57,8 @@ from chip_smoke import (
     tf32_control, time_session,
 )
 
-SESSIONS = [("base", "default"), ("base", "highest"), ("sim", "default"), ("sim", "highest")]
+SESSIONS = [("base", "default"), ("base", "highest"), ("sim", "default"), ("sim", "highest"),
+            ("base", "int8_direct")]
 
 
 def main(argv=None) -> int:
@@ -139,8 +144,12 @@ def main(argv=None) -> int:
         t = time_session(s, batches)
         calls = 2 * len(batches) + (t["groups"] // 2)       # warm-up, timed and profiled passes
         per_group = {k: v / (2 * calls) for k, v in kernels.LAUNCHES.items() if v}
+        digest = hashlib.sha256()
+        for r in s.process_group(batches[0]):
+            for part in (r.bscandisp, r.bscan.cpu().numpy(), r.bscandb.cpu().numpy()):
+                digest.update(part.tobytes())
         emit(kind="session", variant=variant, precision=precision,
-             launches_per_group=per_group, **t)
+             launches_per_group=per_group, outputs_sha256=digest.hexdigest(), **t)
     return 0
 
 

@@ -92,6 +92,36 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    bf16, kernels 1, 2 and the resident kernel), each within 5e-2 of the f32
    route, timed hot and streamed over 32 distinct groups.  Launch counts are
    reset just before and read just after; the resident kernel must launch.
+11. stream  — the streaming ingest (fdoct_tpu_torch.streaming): a flagship
+   'base' 'default' Session behind run_streaming, step = process_group, one
+   averaging group (8 frames) per batch, the seeded synthetic frames (a
+   cycle of STREAM_POOL, each copy stamped with its index so every frame
+   differs, made before the stream as a camera's ring holds them) paced at
+   500 fps, lossless, the step keeping each group's uint8 display (as a
+   live viewer does), for STREAM_GROUPS_RUN groups after
+   a stream of STREAM_WARMUP_GROUPS that pays the start-up (its first
+   group's latency is printed).  Prints groups done, dropped (must be 0),
+   sustained fps and the frame->display latency p50 / p99 (host clock: from
+   the moment the source yields a group's last frame to the moment
+   process_group has its uint8 display in host memory, both read by
+   wrapping the iterator and the step here); launch counts reset just before and read just after: exactly one
+   fused_recon_raw_accumulate launch per group; every display byte-equal to
+   a direct process_group on the same frames and captures.  Then the
+   profiler's breakdown (device busy, idle share, H2D and the part of it
+   beside kernels, group kernel; as time_session reports them) of 16 of
+   those groups streamed again, paced and unpaced (from a list, so the next
+   batch is queued when a step starts and its copy is issued before the
+   step), and fdoct_tpu_torch.bench_ingest at the flagship (phases 1-4:
+   pageable and pinned H2D bandwidth, the host copy into a pinned slot,
+   ingest-inclusive A-scans/s, the 500 fps FLIR emulation, the bandwidth
+   500 fps needs).
+12. stepwise — Session(method="gather") and Session(method="hilbert"), one
+   flagship 'base' group each on the card, in float32 and float64, with no
+   kernel launch (counts reset around each): gather against the
+   method="fused_exact" session's linear B-scan at rtol = atol/max 1e-4
+   (float32) and GATHER_F64_TOL = 1e-8 (float64); hilbert's peak depth
+   equal to gather's on every A-scan; each method's group time
+   (time_session).
 
 The line before the last is {"kernels": [...]}, one entry per instance
 (kernels 1-2 each with a bf16 and an f32 operator, kernel 3, the resident
@@ -100,7 +130,8 @@ single calls and "ms_b2b"/"plain_ms_b2b" back-to-back calls (phase 5);
 "launches" is the count from the instance's session path (for the
 resident kernel, which no session runs, the count from phase 10's
 bench_resident run, with the counts set to 0 just before it; its entry adds
-its schedule, streamed times and kernel 1 bf16's times);
+its schedule, streamed times and kernel 1 bf16's times); kernel 1 bf16's
+entry adds "streamed_session_launches", phase 11's count;
 "bound_ms" is the larger of the bytes (each input read and each output
 written once, at 3.35 TB/s) and the product's operations at the dense peak
 of the operator type (bf16 989 TFLOP/s, s8 1,979 TOPS; an f32 operator as
@@ -189,6 +220,14 @@ HBM_BYTES_PER_S = 3.35e12
 B2B = 10                           # back-to-back calls per sample of the *_b2b times
 STREAM_GROUPS = 32
 SESSION_CALLS = 20                 # timed process_group calls per session, after one pass
+STREAM_FPS = 500                   # the source rate of the streamed session (PERF.md §2)
+STREAM_GROUPS_RUN = 128            # groups of the streamed session's latency run
+STREAM_WARMUP_GROUPS = 8           # groups of the stream before it
+STREAM_GROUPS_PROFILED = 16        # groups of each profiled streamed pass
+STREAM_POOL = 64                   # distinct synthetic frames the stream cycles through
+#: rtol = atol/max of the float64 gather session against the float64
+#: fused_exact session (PARITY.md layer 3)
+GATHER_F64_TOL = 1e-8
 
 
 def check(ok: bool, what: str) -> None:
@@ -341,9 +380,10 @@ def union_us(intervals) -> float:
     return total
 
 
-def profiled(fn) -> tuple[list, float]:
+def profiled(fn) -> tuple[list, float, dict]:
     """One call of ``fn`` under ``torch.profiler``: the device events of the
-    trace and the call's host-clock ms."""
+    trace, the call's host-clock ms, and the CUDA streams that ran its H2D
+    copies ("h2d") and its other device work ("other")."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -351,15 +391,19 @@ def profiled(fn) -> tuple[list, float]:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return ([e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA],
-            wall_ms)
+    cuda = torch.autograd.DeviceType.CUDA
+    streams = {"h2d": set(), "other": set()}
+    for k in prof.profiler.kineto_results.events():
+        if k.device_type() == cuda:
+            streams["h2d" if "HtoD" in k.name() else "other"].add(k.device_resource_id())
+    return [e for e in prof.events() if e.device_type == cuda], wall_ms, streams
 
 
 def device_us(fn, calls: int = 20) -> float:
     """Median device time (us) of the kernels that ``calls`` calls of ``fn``
     launch, after one call outside the trace."""
     fn()
-    dev, _ = profiled(lambda: [fn() for _ in range(calls)])
+    dev, _, _ = profiled(lambda: [fn() for _ in range(calls)])
     return statistics.median(e.time_range.elapsed_us() for e in dev)
 
 
@@ -380,27 +424,50 @@ def time_session(session, batches, groups_per_call: int = 2) -> dict:
         ms.append((time.perf_counter() - t0) / groups_per_call * 1e3)
     out = {"group_ms": statistics.median(ms), "group_ms_min": min(ms),
            "group_ms_max": max(ms), "groups": groups_per_call * len(ms)}
-    dev, wall_ms = profiled(lambda: [session.process_group(b) for b in batches])
-    groups = groups_per_call * len(batches)
+    return {**out, **device_breakdown(lambda: [session.process_group(b) for b in batches],
+                                      groups_per_call * len(batches))}
+
+
+def device_breakdown(fn, groups: int) -> dict:
+    """One call of ``fn`` under ``torch.profiler``, per group: the host-clock
+    ms, the device's busy time (the union of its kernel and copy intervals),
+    its idle share of the host time, the H2D copies, the group kernels
+    (every fused_recon* and int8_bscan* kernel) and the part of the H2D
+    copies that ran while a kernel ran (``h2d_overlap_ms``: copy and
+    compute on two streams at once), and the streams of each."""
+    dev, wall_ms, streams = profiled(fn)
     if not dev:
-        return {**out, "profiled": "not measured: no device events in the trace"}
-    busy = union_us((e.time_range.start, e.time_range.end) for e in dev) / 1e3
-    h2d = sum(e.time_range.elapsed_us() for e in dev if "HtoD" in e.name) / 1e3
+        return {"profiled": "not measured: no device events in the trace"}
+    span = [(e.time_range.start, e.time_range.end) for e in dev]
+    busy = union_us(span) / 1e3
+    copies = [(e.time_range.start, e.time_range.end) for e in dev if "HtoD" in e.name]
+    compute = [(e.time_range.start, e.time_range.end) for e in dev if "Memcpy" not in e.name
+               and "Memset" not in e.name]
     kern = sum(e.time_range.elapsed_us() for e in dev
                if "fused_recon" in e.name or "int8_bscan" in e.name) / 1e3
-    return {**out, "profiled_group_ms": wall_ms / groups, "device_busy_ms": busy / groups,
-            "idle_share": 1.0 - busy / wall_ms, "h2d_ms": h2d / groups,
-            "group_kernel_ms": kern / groups}
+    return {"profiled_group_ms": wall_ms / groups, "device_busy_ms": busy / groups,
+            "idle_share": 1.0 - busy / wall_ms,
+            "h2d_ms": sum(e - s for s, e in copies) / 1e3 / groups,
+            "group_kernel_ms": kern / groups,
+            "h2d_overlap_ms": (union_us(copies) + union_us(compute) - union_us(copies + compute))
+            / 1e3 / groups,
+            "h2d_streams": sorted(streams["h2d"]), "other_streams": sorted(streams["other"])}
 
 
 def describe_session(t: dict) -> str:
     head = (f"median {t['group_ms']:.3f} ms (min {t['group_ms_min']:.3f}, max "
             f"{t['group_ms_max']:.3f}; {t['groups']} groups after one warm-up pass; host clock)")
+    return f"{head}; {describe_breakdown(t)}"
+
+
+def describe_breakdown(t: dict) -> str:
     if "profiled_group_ms" not in t:
-        return f"{head}; profiler {t['profiled']}"
-    return (f"{head}; profiled pass {t['profiled_group_ms']:.3f} ms/group: device busy "
+        return f"profiler {t['profiled']}"
+    return (f"profiled pass {t['profiled_group_ms']:.3f} ms/group: device busy "
             f"{t['device_busy_ms']:.3f} ms (idle share {t['idle_share']:.3f}), H2D "
-            f"{t['h2d_ms']:.3f} ms, group kernel {t['group_kernel_ms']:.3f} ms")
+            f"{t['h2d_ms']:.3f} ms ({t['h2d_overlap_ms']:.3f} ms of it beside kernels; H2D on "
+            f"streams {t['h2d_streams']}, the rest on {t['other_streams']}), group kernel "
+            f"{t['group_kernel_ms']:.3f} ms")
 
 
 def cuda_ms(fn, runs: int = 20, warmup: int = 3, per: int = 1) -> tuple[float, float, float]:
@@ -637,7 +704,8 @@ def main() -> int:
         check(ok and u8_err <= 1, f"{variant} '{precision}' slice disagrees with plain pipeline")
 
     # the float64 config: the plain chain on the card, no kernel launch
-    f64_session_phase(cfg, src, frames, batches[0][:cfg.averages], dev)
+    calib64 = Calibration.create(cfg.replace(dtype="float64"), dev)
+    f64_session_phase(cfg, calib64, src, frames, batches[0][:cfg.averages], dev)
 
     # 5. times --------------------------------------------------------------
     times = {}
@@ -673,6 +741,8 @@ def main() -> int:
 
     int8_entry = int8_phases(cfg, calib, src, frames, card_line, dev)
     resident_entry = resident_phases(flag_in, rag_in, products["bf16"], card_line, dev)
+    stream_launches = streaming_phases(cfg, calib, src, frames, card_line, dev)
+    stepwise_phase(cfg, calib, calib64, sessions[("base", "default")], frames, card_line, dev)
 
     entries = []
     for name in runners:
@@ -697,6 +767,8 @@ def main() -> int:
                              ins + list(flag_in[op]), mag),
                 "library_ms": None, "product_ms": products[op][0],
                 "product_ms_b2b": products[op][1]})
+            if (name, op) == ("fused_recon_raw_accumulate", "bf16"):
+                entries[-1]["streamed_session_launches"] = stream_launches
     print(json.dumps({"kernels": entries + [int8_entry, resident_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -704,20 +776,18 @@ def main() -> int:
     return 0
 
 
-def f64_session_phase(cfg, src, frames, group: np.ndarray, dev: torch.device) -> None:
+def f64_session_phase(cfg, calib64, src, frames, group: np.ndarray, dev: torch.device) -> None:
     """Phase 4's float64 case: a 'base' session at dtype="float64" runs one
     group on the card through the plain chain (pipeline.group_kernel_applies
     refuses a float64 operator) with no kernel launch; its B-scan is held to
     form_bscan of the float64 product written out here (rtol = atol/max
     F64_SESSION_TOL; uint8 within 1)."""
-    from fdoct_tpu_torch.calibration import Calibration
     from fdoct_tpu_torch.ops import kernels
     from fdoct_tpu_torch.ops.kernels import LAUNCHES
     from fdoct_tpu_torch.pipeline import form_bscan, group_kernel_applies
     from fdoct_tpu_torch.session import Session
 
     cfg64 = cfg.replace(dtype="float64")
-    calib64 = Calibration.create(cfg64, dev)
     check(calib64.op_re.dtype == torch.float64 and not group_kernel_applies(calib64.op_re.dtype),
           "a float64 config's operator is taken by the group kernels")
     s = captured_session(Session, cfg64, "base", src, frames, calib64, dev)
@@ -997,6 +1067,175 @@ def resident_phases(flag_in: dict, rag_in: dict, product: tuple, card_line: str,
             "kernel1_bf16_ms": list(k1_hot), "kernel1_bf16_streamed_ms": list(k1_streamed),
             **bound_keys("bf16", 2 * x16[0].numel() * out.shape[1], x16, out),
             "library_ms": None, "product_ms": product[0], "product_ms_b2b": product[1]}
+
+
+def stamped_frames(pool: np.ndarray, n: int) -> list[np.ndarray]:
+    """``n`` frames cycling through ``pool``, each a copy with its index
+    written into its first four pixels, so that every frame differs; made
+    before a stream, as a camera's ring holds them."""
+    out = []
+    for i in range(n):
+        f = pool[i % len(pool)].copy()
+        f[0, :4] = np.frombuffer(i.to_bytes(4, "little"), np.uint8)
+        out.append(f)
+    return out
+
+
+def yield_timed(frames: list, yielded: list):
+    """``frames`` one by one, keeping the host-clock moment each is yielded."""
+    for f in frames:
+        yielded.append(time.perf_counter())
+        yield f
+
+
+def streaming_phases(cfg, calib, src, frames, card_line: str, dev: torch.device) -> int:
+    """Phase 11: a flagship 'base' 'default' session behind run_streaming
+    (one averaging group per batch, lossless, the source paced at
+    STREAM_FPS) for STREAM_GROUPS_RUN groups, after a stream of
+    STREAM_WARMUP_GROUPS that pays the start-up: groups done, dropped (must be
+    0), sustained fps, frame→display latency p50/p99 (from the moment the
+    source yields a group's last frame to the moment its uint8 display is
+    in host memory), exactly one kernel 1 launch per group (counts set to 0
+    just before, read just after) and every display byte-equal to a direct
+    process_group on the same frames and captures.  Then the profiler's
+    breakdown of 16 of those groups streamed again, paced and unpaced, and
+    fdoct_tpu_torch.bench_ingest at the flagship (phases 1-4).  Returns the streamed run's launch count."""
+    from fdoct_tpu_torch import bench_ingest
+    from fdoct_tpu_torch.ops import kernels
+    from fdoct_tpu_torch.ops.kernels import LAUNCHES
+    from fdoct_tpu_torch.session import Session
+    from fdoct_tpu_torch.streaming import run_streaming
+
+    name = "fused_recon_raw_accumulate"
+    scfg = cfg.replace(matmul_precision="default", donotnormalize=True)
+    s = captured_session(Session, scfg, "base", src, frames, calib, dev)
+    pool = np.stack([next(frames) for _ in range(STREAM_POOL)])
+    made = stamped_frames(pool, STREAM_GROUPS_RUN * cfg.averages)
+    yielded, done = [], []
+
+    def step(batch):
+        # a live viewer shows each display and lets the group's device
+        # B-scans go; so does this run (holding 128 groups of them would
+        # grow the device allocator under the stream)
+        out = [r.bscandisp for r in s.process_group(batch)]
+        done.append(time.perf_counter())
+        return out
+
+    def stream(groups: int):
+        yielded.clear()
+        done.clear()
+        return run_streaming(yield_timed(made, yielded), step, cfg.averages, groups,
+                             device=dev, rate_fps=STREAM_FPS)
+
+    # a first stream pays the process's start-up (pinned host memory, the
+    # copy stream's first device buffers): its first group is the start-up
+    # latency, and the latency run that follows reads the steady state
+    stream(STREAM_WARMUP_GROUPS)
+    startup = (done[0] - yielded[cfg.averages - 1]) * 1e3
+    kernels.reset_launches()
+    results, stats = stream(STREAM_GROUPS_RUN)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    fps_stats = stats.fps
+    groups = len(results)
+    check(groups == STREAM_GROUPS_RUN and all(len(r) == 1 for r in results),
+          f"streamed session gave {groups} batches of {[len(r) for r in results][:4]} B-scans")
+    check(stats.dropped == 0, f"the lossless stream dropped {stats.dropped} frames")
+    check(launches == {name: groups}, f"streamed session: launches {launches} for {groups} groups")
+    last = [yielded[cfg.averages * (g + 1) - 1] for g in range(groups)]
+    lat = np.array(done[:groups]) - np.array(last)
+    sustained = groups * cfg.averages / (done[groups - 1] - yielded[0])
+    phase("stream", f"base 'default' behind run_streaming at {STREAM_FPS} fps, lossless, "
+          f"{cfg.averages}-frame batches: {groups} groups, dropped {stats.dropped}, launches "
+          f"{launches}; sustained {sustained:.1f} fps (first yield to last display; "
+          f"StreamStats.fps {fps_stats:.1f}); frame->display latency p50 "
+          f"{np.percentile(lat, 50) * 1e3:.3f} ms, p99 {np.percentile(lat, 99) * 1e3:.3f} ms, "
+          f"max {lat.max() * 1e3:.3f} ms (host clock, yield of a group's last frame to its "
+          f"uint8 display on the host, after a stream of {STREAM_WARMUP_GROUPS} groups whose "
+          f"first took {startup:.3f} ms) | {card_line}")
+
+    twin = Session(scfg, device=dev, calib=calib)
+    twin.data_yb, twin.data_yp = s.data_yb, s.data_yp
+    unequal = [g for g in range(groups) if not np.array_equal(
+        results[g][0],
+        twin.process_group(np.stack(made[cfg.averages * g:cfg.averages * (g + 1)]))[0].bscandisp)]
+    phase("stream", f"{groups} streamed displays against a direct process_group on the same "
+          f"frames and captures: {groups - len(unequal)} byte-equal")
+    check(not unequal, f"streamed displays differ from direct process_group: groups {unequal}")
+
+    # the same frames again, paced, then from a list as fast as the
+    # producer queues them (the next batch is then queued when a step starts,
+    # so its copy is issued before the step, on the side stream)
+    frames_run = made[:STREAM_GROUPS_PROFILED * cfg.averages]
+    for rate in (STREAM_FPS, None):
+        t = device_breakdown(lambda: run_streaming(
+            iter(frames_run), s.process_group, cfg.averages, STREAM_GROUPS_PROFILED, device=dev,
+            rate_fps=rate), STREAM_GROUPS_PROFILED)
+        phase("stream", f"{STREAM_GROUPS_PROFILED} groups streamed "
+              f"{f'at {rate} fps' if rate else 'from a list, unpaced'}: "
+              f"{describe_breakdown(t)} | {card_line}")
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    bench_ingest.run(dev, card=card_line, log=lambda line: phase("bench_ingest", line))
+    torch.cuda.synchronize()
+    phase("bench_ingest", f"phases 1-4 in {time.perf_counter() - t0:.1f} s; launches this run "
+          f"{ {k: v for k, v in LAUNCHES.items() if v} }")
+    return launches[name]
+
+
+def stepwise_phase(cfg, calib, calib64, captured, frames, card_line: str,
+                   dev: torch.device) -> None:
+    """Phase 12: one flagship 'base' group through Session(method="gather")
+    and Session(method="hilbert") on the card with zero launches (counts set
+    to 0 just before each, read just after), on the captures of ``captured``.
+    Gather is held to the method="fused_exact" session's linear B-scan in
+    float32 (rtol = atol/max TOL["f32"]) and in float64 (GATHER_F64_TOL);
+    hilbert to gather on the depth of each A-scan's peak.  Then each
+    method's group time (time_session)."""
+    from fdoct_tpu_torch.ops import kernels
+    from fdoct_tpu_torch.ops.kernels import LAUNCHES
+    from fdoct_tpu_torch.session import Session
+
+    group = np.stack([next(frames) for _ in range(cfg.averages)])
+    batches = [np.stack([next(frames) for _ in range(16)]) for _ in range(4)]
+    sessions = {}
+    for dtype, cal in (("float32", calib), ("float64", calib64)):
+        scfg = cfg.replace(dtype=dtype, donotnormalize=True)
+        out = {}
+        for method in ("fused_exact", "gather", "hilbert"):
+            s = sessions[(dtype, method)] = Session(scfg, device=dev, calib=cal, method=method)
+            s.data_yb = captured.data_yb.to(getattr(torch, dtype))
+            s.data_yp = captured.data_yp.to(getattr(torch, dtype))
+            kernels.reset_launches()
+            (out[method],) = s.process_group(group)
+            torch.cuda.synchronize()
+            ran = {k: v for k, v in LAUNCHES.items() if v}
+            check(method == "fused_exact" or ran == {},
+                  f"{method} {dtype} session launched {ran}")
+            check(out[method].bscan.dtype == getattr(torch, dtype)
+                  and bool(torch.isfinite(out[method].bscan).all()),
+                  f"{method} {dtype}: {out[method].bscan.dtype} or non-finite")
+            if method != "fused_exact":
+                phase("stepwise", f"base {dtype} method={method}: 1 B-scan "
+                      f"{out[method].bscandisp.shape} uint8, launches this path {ran}")
+        tol = TOL["f32"] if dtype == "float32" else GATHER_F64_TOL
+        want = out["fused_exact"].bscan
+        res = compare(out["gather"].bscan, want, tol, tol * float(want.abs().max()))
+        peaks = {m: out[m].bscan[2:].argmax(0) for m in ("gather", "hilbert")}
+        same = int((peaks["gather"] == peaks["hilbert"]).sum())
+        phase("stepwise", f"{dtype}: gather vs the fused_exact session, linear max_abs_err "
+              f"{res['max_abs_err']:.3e}, worst {res['worst_share_of_tol']:.3e} of tol "
+              f"(rtol=atol/max={tol}); hilbert's peak depth equals gather's on {same} of "
+              f"{peaks['gather'].numel()} A-scans")
+        check(res["finite"] and res["worst_share_of_tol"] <= 1.0,
+              f"gather {dtype} disagrees with the fused_exact session")
+        check(same == peaks["gather"].numel(), f"hilbert {dtype} peaks differ from gather's")
+    for method in ("gather", "hilbert", "fused_exact"):
+        phase("stepwise", f"Session.process_group per group, base float32 method={method} "
+              f"(8 frames 512x2048 u8 from host memory to uint8 display on host): "
+              f"{describe_session(time_session(sessions[('float32', method)], batches))} | "
+              f"{card_line}")
 
 
 if __name__ == "__main__":

@@ -185,14 +185,18 @@ class Calibration:
 
         op_re, op_im = as_dev("op_re"), as_dev("op_im")
         phase = np.asarray(arrays["phase"])
+        nearest = np.asarray(arrays["nearest_idx"]).astype(np.int64)
+        if nearest.size and (nearest.min() < 0 or nearest.max() >= cfg.opw * mult):
+            # the gather path's index_select raises (CPU) or faults (CUDA)
+            # out of range, where jnp.take fills
+            raise ValueError(f"nearest_idx outside [0, {cfg.opw * mult})")
         return cls(
             n_raw=cfg.opw, n_in=cfg.opw * mult,
             nfft=cfg.numfftpoints, ndisp=op_re.shape[1],
             mult=mult, compat=cfg.compat,
             bandpassfilter=cfg.bandpassfilter, has_phase=bool(phase.any()),
             lambdas=as_dev("lambdas"), k=as_dev("k"), klinear=as_dev("klinear"),
-            nearest_idx=torch.as_tensor(
-                np.asarray(arrays["nearest_idx"]).astype(np.int64), device=device),
+            nearest_idx=torch.as_tensor(nearest, device=device),
             frac=as_dev("frac"), window=as_dev("window"), phase=as_dev("phase"),
             op_re=op_re, op_im=op_im,
             op_re_bf16=op_re.to(torch.bfloat16), op_im_bf16=op_im.to(torch.bfloat16),

@@ -13,6 +13,12 @@ over frames in one hand-written kernel (:mod:`fdoct_tpu_torch.ops.kernels`).
 :func:`reconstruct` and :func:`ascan_mags` keep the per-frame magnitudes with
 plain ``torch.matmul``, as the JAX package leaves them to XLA.
 
+Two more ``method``s compute the magnitudes step by step, as the JAX package
+does, with no kernel: ``"gather"`` (DC removal, window, zero-pad, gather
+k-resample, then |IFFT|, the reference's loops; its parity path) and
+``"hilbert"`` (the analytic-signal estimator on the same k-linear rows).
+Their group step is the plain chain ``ascan_mags(...).sum(0)``.
+
 Precision (``cfg.matmul_precision``): 'bf16' rounds the ratio and M to
 bfloat16 and accumulates in float32; 'highest' multiplies in float32 (TF32
 must be off: ``torch.backends.cuda.matmul.allow_tf32 = False``); 'default' is
@@ -41,9 +47,12 @@ from fdoct_tpu_torch.ops import (
     bin_area, median_blur, minmax_pair, normalize_minmax, normalize_rows,
     smooth_moving_average, threshold_floor, to_db, to_uint8,
 )
+from fdoct_tpu_torch.ops.fft import ifft_mag_rows, zeropad_rowwise
+from fdoct_tpu_torch.ops.hilbert import hilbert_reconstruct
 from fdoct_tpu_torch.ops.kernels import (
     fused_recon_accumulate, fused_recon_raw_accumulate, int8_matmul,
 )
+from fdoct_tpu_torch.ops.resample import resample_klinear
 from fdoct_tpu_torch.ops.scale import clamp_pixel
 
 
@@ -54,14 +63,12 @@ class BscanOutputs(NamedTuple):
     bscandisp: torch.Tensor  # uint8 display after threshold + normalize
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to fdoct_tpu_torch yet ({item})")
+#: the methods whose magnitudes are computed step by step, with no kernel
+STEPWISE_METHODS = ("gather", "hilbert")
 
 
 def _check_method(method: str) -> None:
-    if method in ("gather", "hilbert"):
-        raise _not_ported(f"method={method!r}", "ROADMAP Queue 1 item 6")
-    if method not in ("fused", "fused_exact"):
+    if method not in ("fused", "fused_exact") + STEPWISE_METHODS:
         raise ValueError(f"unknown method {method!r}")
 
 
@@ -180,9 +187,32 @@ def ascan_complex(yr: torch.Tensor, calib: Calibration,
     return torch.complex(re, im)
 
 
+def linearize(yr: torch.Tensor, calib: Calibration) -> torch.Tensor:
+    """DC removal, window, zero-pad and λ→k resample of the ratio rows, the
+    gather path (BscanFFT.cpp:1135-1177)."""
+    y = (yr - yr.mean(dim=-1, keepdim=True)) * calib.window
+    y = zeropad_rowwise(y, calib.mult, calib.bandpassfilter)
+    return resample_klinear(y, calib.nearest_idx, calib.frac, compat=calib.compat)
+
+
+def ascan_mags_gather(yr: torch.Tensor, calib: Calibration) -> torch.Tensor:
+    """Step-by-step A-scan magnitudes truncated to the display depth
+    (BscanFFT.cpp:1181-1195), with the dispersion phase when the
+    calibration has one."""
+    mag = ifft_mag_rows(linearize(yr, calib), calib.phase if calib.has_phase else None)
+    return mag[..., :calib.ndisp]
+
+
 def ascan_mags(yr: torch.Tensor, calib: Calibration, method: str = "fused",
                precision: str = "default") -> torch.Tensor:
+    """A-scan magnitudes of ratio rows by ``method``; ``precision`` applies
+    to 'fused' only ('fused_exact' is 'highest', the stepwise methods
+    compute in the rows' type)."""
     _check_method(method)
+    if method == "gather":
+        return ascan_mags_gather(yr, calib)
+    if method == "hilbert":
+        return hilbert_reconstruct(linearize(yr, calib), calib.ndisp)
     return ascan_mags_fused(yr, calib, "highest" if method == "fused_exact" else precision)
 
 
@@ -226,13 +256,17 @@ def reconstruct_group(raw: torch.Tensor, background: torch.Tensor,
     ratio-input kernel.  Under 'int8' with the calibration's int8 tables,
     and with an operator the kernels do not take (:func:`group_kernel_applies`:
     a float64 config), the plain chain runs, as the JAX package runs its
-    float64 session through ``ascan_mags``.
+    float64 session through ``ascan_mags``.  So do the stepwise methods
+    ('gather', 'hilbert'), which have no kernel: no launch.
     """
     _check_method(method)
     precision = "highest" if method == "fused_exact" else cfg.matmul_precision
     _check_precision(precision)
     dtype = getattr(torch, cfg.dtype)
     background, pi_frame = background.to(dtype), pi_frame.to(dtype)
+    if method in STEPWISE_METHODS:
+        yr = apodize_ratio(preprocess(raw, cfg, dtype), background, pi_frame, cfg)
+        return ascan_mags(yr, calib, method).sum(dim=0)
     op_re, op_im = _operator(calib, use_bf16(precision, dtype, raw.device))
     if _int8_tables_apply(precision, calib) or not group_kernel_applies(op_re.dtype):
         yr = apodize_ratio(preprocess(raw, cfg, dtype), background, pi_frame, cfg)

@@ -3,14 +3,15 @@
 formulas), on the CPU in float64, as ``tests/test_pipeline.py`` holds the
 JAX package to it.
 
-The JAX package's oracle cases use the gather path (k-interpolation, then an
-FFT), which the port has not yet; here every case takes the fused path (one
-float64 operator M composing DC removal, window, zero-pad, resample and the
-truncated inverse DFT), at the JAX fused path's tolerance against the oracle:
-rtol 1e-7, atol 1e-7·max (tests/test_pipeline.py:52).  The port's float64 M
-is built in numpy and reaches ~5e-15 of that scale in every case here, so
-the tolerance is the contract the JAX package states, not what rounding
-needs.
+The fused path (one float64 operator M composing DC removal, window,
+zero-pad, resample and the truncated inverse DFT) is held at the JAX fused
+path's tolerance against the oracle: rtol 1e-7, atol 1e-7·max
+(tests/test_pipeline.py:52).  The port's float64 M is built in numpy and
+reaches ~5e-15 of that scale in every case here, so the tolerance is the
+contract the JAX package states, not what rounding needs.  The gather path
+(k-interpolation, then an FFT) is held at the JAX gather tolerance, 1e-9
+(tests/test_pipeline.py:42-86): a single frame, zero-pad with binning, a
+moving average.
 """
 
 import numpy as np
@@ -24,6 +25,7 @@ from fdoct_tpu_torch.pipeline import form_bscan, reconstruct, reconstruct_bscan,
 from fdoct_tpu_torch.sources.synthetic import SyntheticSource
 
 TOL = 1e-7
+GATHER_TOL = 1e-9
 
 
 @pytest.fixture(scope="module")
@@ -46,11 +48,11 @@ def sim_frames(sim_cfg):
     return [next(it) for _ in range(3)], src.background(), src.pi_frame()
 
 
-def run(raw, backg, piimg, cfg):
+def run(raw, backg, piimg, cfg, method="fused"):
     """The port's per-frame magnitudes, float64, on the CPU."""
     calib = Calibration.create(cfg, "cpu")
     return reconstruct(torch.as_tensor(raw), torch.as_tensor(backg, dtype=torch.float64),
-                       torch.as_tensor(piimg, dtype=torch.float64), calib, cfg).numpy()
+                       torch.as_tensor(piimg, dtype=torch.float64), calib, cfg, method).numpy()
 
 
 def assert_close(got, want, tol=TOL):
@@ -116,3 +118,42 @@ def test_group_matches_oracle(sim_cfg, sim_frames):
     out = reconstruct_bscan(*args)
     assert_close(out.bscan.numpy(), bscan)
     assert_close(out.bscandb.numpy(), bscandb)
+
+
+def test_gather_single_frame_matches_oracle(sim_cfg, sim_frames):
+    frames, backg, piimg = sim_frames
+    got = run(frames[0], backg, piimg, sim_cfg, "gather")
+    assert got.dtype == np.float64
+    assert_close(got, oracle_run(frames[0], backg, piimg, sim_cfg)["mag"], GATHER_TOL)
+
+
+def test_gather_with_zeropad_and_binning():
+    cfg = PipelineConfig(width=128, height=16, binvalue=2, numfftpoints=256,
+                         numdisplaypoints=80, increasefftpointsmultiplier=2,
+                         dtype="float64", compat=True)
+    rng = np.random.default_rng(21)
+    raw = rng.integers(0, 255, size=(cfg.height, cfg.width)).astype(np.uint8)
+    backg = np.full((cfg.oph, cfg.opw), 100.0)
+    piimg = np.zeros((cfg.oph, cfg.opw))
+    assert_close(run(raw, backg, piimg, cfg, "gather"),
+                 oracle_run(raw, backg, piimg, cfg, binvalue=2, mult=2)["mag"], GATHER_TOL)
+
+
+def test_gather_with_movavg():
+    cfg = PipelineConfig(width=96, height=8, numfftpoints=128, numdisplaypoints=48, movavgn=3,
+                         dtype="float64", compat=True)
+    rng = np.random.default_rng(22)
+    raw = rng.integers(0, 255, size=(8, 96)).astype(np.uint8)
+    backg = np.full((8, 96), 50.0)
+    piimg = np.zeros((8, 96))
+    assert_close(run(raw, backg, piimg, cfg, "gather"),
+                 oracle_run(raw, backg, piimg, cfg, movavgn=3)["mag"], GATHER_TOL)
+
+
+def test_gather_form_bscan_matches_oracle(sim_cfg, sim_frames):
+    frames, backg, piimg = sim_frames
+    out = form_bscan(torch.as_tensor(run(frames[0], backg, piimg, sim_cfg, "gather")), sim_cfg,
+                     averages=1)
+    want = oracle_run(frames[0], backg, piimg, sim_cfg)
+    assert_close(out.bscan.numpy(), want["bscan"], GATHER_TOL)
+    assert_close(out.bscandb.numpy(), want["bscandb"], GATHER_TOL)

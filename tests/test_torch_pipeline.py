@@ -292,8 +292,6 @@ def test_int8_precision_matches_jax(dtype):
 
 
 @pytest.mark.parametrize("method,precision,exc,match", [
-    ("gather", "highest", NotImplementedError, "item 6"),
-    ("hilbert", "highest", NotImplementedError, "item 6"),
     ("fft", "highest", ValueError, "unknown method"),
     ("fused", "int4", ValueError, "unknown matmul_precision"),
 ])

@@ -222,6 +222,13 @@ def test_port_never_imports_jax():
         "             device='cpu')\n"
         "assert len(s8.process_group(np.stack([next(it) for _ in range(2)]))) == 1\n"
         "assert s8._i8plan is not None\n"
+        "from fdoct_tpu_torch.streaming import run_streaming\n"
+        "out, _ = run_streaming(iter([np.zeros((32, 256), np.uint8)] * 4), len, batch=2,\n"
+        "                       n_batches=2, device='cpu')\n"
+        "assert out == [2, 2], out\n"
+        "for method in ('gather', 'hilbert'):\n"
+        "    g = Session(cfg.replace(donotnormalize=True), device='cpu', method=method)\n"
+        "    assert len(g.process_group(np.stack([next(it) for _ in range(2)]))) == 1\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'fdoct_tpu'))\n"
         "assert not bad, bad\n"
