@@ -122,14 +122,34 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    (float32) and GATHER_F64_TOL = 1e-8 (float64); hilbert's peak depth
    equal to gather's on every A-scan; each method's group time
    (time_session).
+13. session state — the rest of the session at the flagship, each path's
+   launch counts set to 0 just before its groups and read just after: a
+   'dark' 'default' Session ('o'/'r'/'t' captures, then process_group:
+   one kernel 1 bf16 launch per group, the dark frame folded into pi; its
+   last group against fused_recon_raw_accumulate_reference with pi = yp + yd
+   and form_bscan within phase 4's bf16 limits); a 'dark' 'int8_direct'
+   Session (one kernel 3 launch per group, on the plan that folds the dark
+   frame; held to its plain chain as in phase 7); a 'peak' 'highest' Session
+   (one kernel 1 f32 launch per group and none of kernel 3) running the
+   three vibrometry holds, still, still and vibrating at VIB_NM, to a finite
+   displacement; a 'base' 'default' Session with saveframes,
+   saveinterferograms, J-lockin and a RunWriter in a temporary directory
+   (averages launches per group, B = 1 each, for the ring's per-frame
+   magnitudes; every group's subtracted display; an 's' save writing
+   exactly the files the JAX session names, whose PNGs decode to the
+   displays, the source's raw frames and the plain chain's per-frame
+   display); a 'spinj' Session with bscanbinx = 2 (the per-frame path,
+   averages launches per group) against bscan_rebin of the plain chain.
+   Each path's group time (time_session).
 
 The line before the last is {"kernels": [...]}, one entry per instance
 (kernels 1-2 each with a bf16 and an f32 operator, kernel 3, the resident
 kernel): every time in it was measured in this run; "ms"/"plain_ms" are
 single calls and "ms_b2b"/"plain_ms_b2b" back-to-back calls (phase 5);
-"launches" is the count from the instance's session path (for the
-resident kernel, which no session runs, the count from phase 10's
-bench_resident run, with the counts set to 0 just before it; its entry adds
+"launches" is the count from the instance's session paths, phase 4's and
+phase 13's (for the resident kernel, which no session runs, the count from
+phase 10's bench_resident run, with the counts set to 0 just before it;
+its entry adds
 its schedule, streamed times and kernel 1 bf16's times); kernel 1 bf16's
 entry adds "streamed_session_launches", phase 11's count;
 "bound_ms" is the larger of the bytes (each input read and each output
@@ -141,7 +161,8 @@ three TF32 products at 495 TFLOP/s), computed from this run's inputs;
 tensor-core instruction; the float32-operator entries add their worst
 shares of F64_TOL and those of cuBLAS f32 and of the TF32 control, the
 bf16 entries theirs of BF16_F64_TOL and cuBLAS f32's (kernels 1-2 also the
-24- and 23-bit chains' at the flagship).  The last line is {"ok": true, "device": {...}}.
+24- and 23-bit chains' at the flagship).  The line before it gives the
+script's total wall time.  The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -228,6 +249,10 @@ STREAM_POOL = 64                   # distinct synthetic frames the stream cycles
 #: rtol = atol/max of the float64 gather session against the float64
 #: fused_exact session (PARITY.md layer 3)
 GATHER_F64_TOL = 1e-8
+#: displayed B-scans per vibrometry hold in phase 13, and the vibrating
+#: source's amplitude (nm) for its third hold
+PEAK_HOLD = 4
+VIB_NM = 60.0
 
 
 def check(ok: bool, what: str) -> None:
@@ -265,18 +290,18 @@ def random_problem(shape, seed: int, dev: torch.device) -> dict:
     return inp
 
 
-def captured_session(session_cls, cfg, variant: str, src, frames, calib, dev):
-    """A session with its 'b' and 'p' captures done: 'base' from 8 background
-    frames and the pi frame + 7 frames, 'sim' from its source, then one
-    group."""
+def captured_session(session_cls, cfg, variant: str, src, frames, calib, dev, **kw):
+    """A session with its 'b' and 'p' captures done: 'sim' from its source,
+    any other variant from 8 background frames and the pi frame + 7 frames,
+    then one group.  ``kw`` goes to the session (a sink)."""
     s = session_cls(cfg, device=dev, variant=variant, calib=calib,
-                    **({"source": src} if variant == "sim" else {}))
+                    **({"source": src} if variant == "sim" else {}), **kw)
     s.key("b")
-    if variant == "base":
+    if variant != "sim":
         for _ in range(cfg.averages):                 # S(k) from 8 background frames
             s.process(src.background())
     s.key("p")
-    first = [src.pi_frame()] if variant == "base" else []
+    first = [src.pi_frame()] if variant != "sim" else []
     for f in first + [next(frames) for _ in range(cfg.averages - len(first))]:
         s.process(f)
     check(s.indextemp == 0 and not s._pending, f"{variant} captures left it mid-group")
@@ -511,6 +536,7 @@ def time_keys(t: dict, prefix: str = "") -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a GPU",
               file=sys.stderr)
@@ -743,6 +769,11 @@ def main() -> int:
     resident_entry = resident_phases(flag_in, rag_in, products["bf16"], card_line, dev)
     stream_launches = streaming_phases(cfg, calib, src, frames, card_line, dev)
     stepwise_phase(cfg, calib, calib64, sessions[("base", "default")], frames, card_line, dev)
+    for key, n in session_state_phase(cfg, calib, src, frames, card_line, dev).items():
+        if key == ("int8_bscan_display_fused", "s8"):
+            int8_entry["launches"] += n
+        else:
+            launches[key] += n
 
     entries = []
     for name in runners:
@@ -769,6 +800,7 @@ def main() -> int:
                 "product_ms_b2b": products[op][1]})
             if (name, op) == ("fused_recon_raw_accumulate", "bf16"):
                 entries[-1]["streamed_session_launches"] = stream_launches
+    phase("total", f"{time.perf_counter() - t_start:.1f} s wall clock, the build included")
     print(json.dumps({"kernels": entries + [int8_entry, resident_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -1236,6 +1268,210 @@ def stepwise_phase(cfg, calib, calib64, captured, frames, card_line: str,
               f"(8 frames 512x2048 u8 from host memory to uint8 display on host): "
               f"{describe_session(time_session(sessions[('float32', method)], batches))} | "
               f"{card_line}")
+
+
+
+def session_state_phase(cfg, calib, src, frames, card_line: str, dev: torch.device) -> dict:
+    """Phase 13: the dark, peak and spinj variants and the rings, J-lockin
+    and saves of a 'base' session at the flagship, each path's launch counts
+    set to 0 just before its groups and read just after.  Returns the
+    launches of each (kernel, operator) on these paths."""
+    import tempfile
+
+    from fdoct_tpu_torch.int8direct import reconstruct_int8_direct, shift_u8_to_s8
+    from fdoct_tpu_torch.ops import kernels, normalize_minmax, to_db, to_uint8
+    from fdoct_tpu_torch.ops.filters import bscan_rebin
+    from fdoct_tpu_torch.ops.kernels import LAUNCHES, fused_recon_raw_accumulate_reference
+    from fdoct_tpu_torch.pipeline import form_bscan
+    from fdoct_tpu_torch.session import Session
+    from fdoct_tpu_torch.sinks import RunWriter
+    from fdoct_tpu_torch.sources.synthetic import SyntheticSource
+    from fdoct_tpu_torch.utils.imageio import read_png
+
+    avg = cfg.averages
+    counts: dict = {}
+    k1 = "fused_recon_raw_accumulate"
+    bf16_ops = (calib.op_re_bf16, calib.op_im_bf16)
+
+    def batches(n: int = 2) -> list:
+        return [np.stack([next(frames) for _ in range(2 * avg)]) for _ in range(n)]
+
+    def drive(s, what: str, bs: list, expect: dict, op: str) -> list:
+        kernels.reset_launches()
+        results = [r for b in bs for r in s.process_group(b)]
+        torch.cuda.synchronize()
+        ran = {k: v for k, v in LAUNCHES.items() if v}
+        groups = sum(len(b) for b in bs) // avg
+        check(len(results) == groups, f"{what}: {len(results)} B-scans for {groups} groups")
+        for r in results:
+            check(r.bscandisp.dtype == np.uint8 and r.bscandisp.shape == (calib.ndisp, cfg.oph)
+                  and bool(torch.isfinite(r.bscandb).all()), f"{what}: a bad B-scan")
+        check(ran == expect, f"{what}: launches {ran}, not {expect}")
+        for name, n in ran.items():
+            counts[(name, op)] = counts.get((name, op), 0) + n
+        phase("session state", f"{what}: {groups} B-scans {results[0].bscandisp.shape} uint8; "
+              f"launches this path {ran} ({ {k: v / groups for k, v in ran.items()} } per group)")
+        return results
+
+    def bf16_check(what: str, got, want) -> None:
+        near = want.bscandb >= want.bscandb.max() - 40.0
+        db_err = float((got.bscandb - want.bscandb).abs()[near].max())
+        u8_err = int(np.abs(got.bscandisp.astype(int)
+                            - want.bscandisp.cpu().numpy().astype(int)).max())
+        phase("session state", f"{what}: last group vs its plain chain: max |dB err| "
+              f"{db_err:.3e} on {int(near.sum())} px within 40 dB of peak (limit "
+              f"{TOL['bf16']}); max uint8 diff {u8_err} (limit 1)")
+        check(db_err <= TOL["bf16"] and u8_err <= 1, f"{what} disagrees with its plain chain")
+
+    def timed(what: str, s, bs: list) -> None:
+        phase("session state", f"Session.process_group per group, {what} (8 frames 512x2048 "
+              f"u8 from host memory to uint8 display on host): "
+              f"{describe_session(time_session(s, bs))} | {card_line}")
+
+    def dark_session(precision: str):
+        s = Session(cfg.replace(matmul_precision=precision, donotnormalize=True), device=dev,
+                    variant="dark", calib=calib)
+        # a dark frame of 1/16 of the source spectrum, the two arms the spectrum
+        arms = (("o", lambda: src.background() // 16), ("r", src.background),
+                ("t", src.background))
+        for key, make in arms:
+            s.key(key)
+            for _ in range(avg):
+                s.process(make())
+        check(not s._pending and s.indextemp == 0 and float(s.data_yd.max()) > 0,
+              f"dark '{precision}': the o/r/t captures did not complete")
+        return s
+
+    # 'dark' 'default': kernel 1 with pi = yp + yd -----------------------------
+    s = dark_session("default")
+    bs = batches()
+    res = drive(s, "dark 'default' (kernel 1 bf16, dark frame folded into pi)", bs,
+                {k1: 2 * len(bs)}, "bf16")
+    last = torch.as_tensor(bs[-1][-avg:]).to(dev)
+    mag = fused_recon_raw_accumulate_reference(last, (s.data_yp + s.data_yd).contiguous(),
+                                               (1.0 / s.data_yb).contiguous(), *bf16_ops)
+    bf16_check("dark 'default'", res[-1], form_bscan(mag, s.cfg, avg,
+                                                     bscanthreshold=s.bscanthreshold))
+    timed("dark 'default'", s, bs)
+
+    # 'dark' 'int8_direct': kernel 3 on the plan that folds the dark frame ----
+    s = dark_session("int8_direct")
+    bs = batches()
+    res = drive(s, "dark 'int8_direct' (kernel 3)", bs,
+                {"int8_bscan_display_fused": 2 * len(bs)}, "s8")
+    plan = s._i8plan
+    plain = form_bscan(reconstruct_int8_direct(shift_u8_to_s8(torch.as_tensor(
+        bs[-1][-avg:]).to(dev)), plan).sum(0), s.cfg, avg, bscanthreshold=s.bscanthreshold)
+    rtol, atol = INT8_TOL
+    db_res = compare(res[-1].bscandb, plain.bscandb, rtol, atol)
+    u8_err = int(np.abs(res[-1].bscandisp.astype(int)
+                        - plain.bscandisp.cpu().numpy().astype(int)).max())
+    phase("session state", f"dark 'int8_direct': plan rank-1 residual "
+          f"{float(plan.bg_rank1_resid):.3e}; last group vs "
+          f"form_bscan(reconstruct_int8_direct(...).sum(0)): dB worst "
+          f"{db_res['worst_share_of_tol']:.3e} of rtol {rtol} + atol {atol}; max uint8 diff "
+          f"{u8_err} (limit 1)")
+    check(db_res["worst_share_of_tol"] <= 1.0 and u8_err <= 1,
+          "dark int8_direct disagrees with its plain chain")
+    timed("dark 'int8_direct'", s, bs)
+
+    # 'peak' 'highest': kernel 1 f32, three vibrometry holds -------------------
+    pcfg = cfg.replace(matmul_precision="highest", donotnormalize=True,
+                       peakholdnumframes=PEAK_HOLD)
+    s = captured_session(Session, pcfg, "peak", src, frames, calib, dev)
+    s.set_roi(cfg.oph * 3 // 16, 8, 16, calib.ndisp)          # lateral 96-111, depths from 8
+    s.ascanat = cfg.oph * 3 // 16 + 4
+    vib = SyntheticSource(height=cfg.height, width=cfg.width, lambda0=cfg.lambda0,
+                          dlambda=cfg.lambdabw * 2.3548 / 4.0, noise=0.02, seed=SEED + 5,
+                          vibration_amp_nm=VIB_NM).frames()
+    plugin = s.plugins[0]
+    kernels.reset_launches()
+    groups = 0
+    for key, it in (("1", frames), ("2", frames), ("3", vib)):
+        s.key(key)
+        while plugin.active_hold is not None:
+            groups += len(s.process_group(np.stack([next(it) for _ in range(avg)])))
+    torch.cuda.synchronize()
+    ran = {k: v for k, v in LAUNCHES.items() if v}
+    check(ran == {k1: groups}, f"peak 'highest': launches {ran} for {groups} groups")
+    counts[(k1, "f32")] = counts.get((k1, "f32"), 0) + groups
+    finite = (plugin.dispnm is not None and np.isfinite(plugin.dispnm)
+              and bool(np.isfinite(plugin.profile).all()))
+    phase("session state", f"peak 'highest' (kernel 1 f32): three holds of {PEAK_HOLD} "
+          f"B-scans, {groups} groups, launches this path {ran}, none of kernel 3; displacement "
+          f"{plugin.dispnm} +- {plugin.errnm} nm (source {VIB_NM} nm), profile "
+          f"{np.round(plugin.profile, 2).tolist()} nm")
+    check(finite, "peak: the three holds gave no finite displacement")
+    timed("peak 'highest'", s, batches())
+
+    # 'base' 'default' with the rings, J-lockin and a sink ---------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        fcfg = cfg.replace(matmul_precision="default", donotnormalize=True, saveframes=True,
+                           saveinterferograms=True)
+        sink = RunWriter(tmp, "chip_smoke", fmt="npz")
+        s = captured_session(Session, fcfg, "base", src, frames, calib, dev, sink=sink)
+        s.key("j")
+        s.process_group(np.stack([next(frames) for _ in range(avg)]))
+        check(s.jlockin and s.jscansave is not None, "'j' did not start J-lockin")
+        bs = batches()
+        res = drive(s, "base 'default' + saveframes + saveinterferograms + J-lockin + RunWriter "
+                    "(kernel 1 bf16, B = 1 per frame)", bs, {k1: avg * 2 * len(bs)}, "bf16")
+        check(all(r.sub_disp is not None and r.sub_disp.dtype == np.uint8 for r in res),
+              "a J-lockin group without its subtracted display")
+        held = bs[-1][-avg:]                     # the group the inactive ring holds
+        s.key("s")
+        (saved,) = s.process_group(np.stack([next(frames) for _ in range(avg)]))
+        s.close()
+        d = sink.dir
+        names = {p.name for p in d.iterdir()}
+        want = ({"bscan001.png", "bscanc001.png", "BscanFFT.npz"}
+                | {f"{p}-{i:03d}.png" for p in ("rawframe001", "bscan001", "rawframeb000")
+                   for i in range(avg)}
+                | {f"bscansub{c}{m:03d}.png" for c in ("", "c")
+                   for m in range(1, s.manualindexi + 1)})
+        check(names == want, f"the 's' save wrote {sorted(names ^ want)} beyond or short of "
+              "what the JAX session names")
+        with np.load(d / "BscanFFT.npz") as npz:
+            keys = set(npz.files)
+        check(keys == {"bscan001", "jscan001"} | {f"bscansub{m:03d}"
+                                                  for m in range(1, s.manualindexi + 1)},
+              f"BscanFFT.npz holds {sorted(keys)}")
+        check(np.array_equal(read_png(d / "bscan001.png"), saved.bscandisp)
+              and np.array_equal(read_png(d / f"bscansub{s.manualindexi:03d}.png"),
+                                 saved.sub_disp), "saved PNGs differ from the displays")
+        check(all(np.array_equal(read_png(d / f"rawframe001-{i:03d}.png"), held[i])
+                  for i in range(avg)), "saved raw frames differ from the source's")
+        one = fused_recon_raw_accumulate_reference(
+            torch.as_tensor(held[:1]).to(dev), s.data_yp, (1.0 / s.data_yb).contiguous(),
+            *bf16_ops)
+        frame_disp = to_uint8(normalize_minmax(to_db(one.T + 1e-6, eps=0.0, compat=cfg.compat),
+                                               0.0, 1.0)).cpu().numpy()
+        u8_err = int(np.abs(read_png(d / "bscan001-000.png").astype(int)
+                            - frame_disp.astype(int)).max())
+        phase("session state", f"'s' save: {len(names)} files as the JAX session names them "
+              f"(bscan001, JET, {avg} rawframe001-*, {avg} bscan001-*, {avg} rawframeb000-* "
+              f"of the 'b' capture from the ring, {s.manualindexi} "
+              f"bscansub* + JET, BscanFFT.npz); bscan001.png and the last bscansub PNG equal the "
+              f"displays, rawframe001-* the source's frames; bscan001-000.png vs the plain "
+              f"chain's per-frame display: max uint8 diff {u8_err} (limit 1)")
+        check(u8_err <= 1, "the saved per-frame B-scan differs from its plain chain")
+        timed("base 'default' + saveframes + saveinterferograms + J-lockin + RunWriter", s, bs)
+
+    # 'spinj' with bscanbinx = 2: the per-frame path ---------------------------
+    scfg = cfg.replace(matmul_precision="default", donotnormalize=True, bscanbinx=2)
+    s = captured_session(Session, scfg, "spinj", src, frames, calib, dev)
+    bs = batches(1)
+    res = drive(s, "spinj 'default' bscanbinx=2 (per-frame: kernel 1 bf16, B = 1 per frame)",
+                bs, {k1: 2 * avg}, "bf16")
+    check(any("output B-scan rebinning" in m for m in s.status), "spinj rebinning batched")
+    mag = fused_recon_raw_accumulate_reference(torch.as_tensor(bs[-1][-avg:]).to(dev), s.data_yp,
+                                               (1.0 / s.data_yb).contiguous(), *bf16_ops)
+    mult = scfg.bscanbinx * scfg.bscanbiny * scfg.binvaluex * scfg.binvaluey
+    lin = bscan_rebin(mag.T / avg, scfg.bscanbinx, scfg.bscanbiny, mult)
+    bf16_check("spinj bscanbinx=2", res[-1], form_bscan(lin.T * avg, scfg, avg,
+                                                         bscanthreshold=s.bscanthreshold))
+    timed("spinj 'default' bscanbinx=2", s, bs)
+    return counts
 
 
 if __name__ == "__main__":

@@ -4,8 +4,8 @@ A port of ``fdoct_tpu`` (JAX) that runs the frame→B-scan main path on an
 NVIDIA GPU, with the fused group reconstruction as hand-written Hopper
 kernels (``csrc/fused_recon.cu``).  It imports ``torch`` and never ``jax``,
 and nothing of ``fdoct_tpu``: where it needs one of that package's pure host
-modules (configuration, synthetic source, profiling meters) it keeps its own
-copy.
+modules (configuration, sources, sinks, plugins, image and data files,
+profiling meters) it keeps its own copy.
 """
 
 from fdoct_tpu_torch.calibration import Calibration
@@ -13,11 +13,14 @@ from fdoct_tpu_torch.config import PipelineConfig
 from fdoct_tpu_torch.pipeline import (
     BscanOutputs, form_bscan, reconstruct, reconstruct_bscan, reconstruct_group,
 )
+from fdoct_tpu_torch.plugins import JMaskPlugin, ROIPlugin, VibrometryPlugin
 from fdoct_tpu_torch.session import BscanResult, Session
+from fdoct_tpu_torch.sinks import RunWriter
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "BscanOutputs", "BscanResult", "Calibration", "PipelineConfig", "Session",
-    "form_bscan", "reconstruct", "reconstruct_bscan", "reconstruct_group",
+    "BscanOutputs", "BscanResult", "Calibration", "JMaskPlugin", "PipelineConfig", "ROIPlugin",
+    "RunWriter", "Session", "VibrometryPlugin", "form_bscan", "reconstruct", "reconstruct_bscan",
+    "reconstruct_group",
 ]

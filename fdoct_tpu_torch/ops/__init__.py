@@ -3,7 +3,7 @@
 import."""
 
 from fdoct_tpu_torch.ops.filters import (
-    bin_area, channel_select, median_blur, smooth_moving_average,
+    bin_area, bscan_rebin, channel_select, median_blur, resize_bicubic, smooth_moving_average,
 )
 from fdoct_tpu_torch.ops.scale import (
     clamp_pixel, make_only_positive, mask_dc_rows, minmax_pair,
@@ -11,8 +11,8 @@ from fdoct_tpu_torch.ops.scale import (
 )
 
 __all__ = [
-    "bin_area", "channel_select", "clamp_pixel", "make_only_positive",
+    "bin_area", "bscan_rebin", "channel_select", "clamp_pixel", "make_only_positive",
     "mask_dc_rows", "median_blur", "minmax_pair", "normalize_minmax",
-    "normalize_rows", "smooth_moving_average", "threshold_floor", "to_db",
+    "normalize_rows", "resize_bicubic", "smooth_moving_average", "threshold_floor", "to_db",
     "to_uint8",
 ]

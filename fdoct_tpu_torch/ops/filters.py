@@ -2,12 +2,16 @@
 
 The reference's OpenCV preprocessing as in ``fdoct_tpu/ops/filters.py``:
 medianBlur (BscanFFT.cpp:952-956), software binning by INTER_AREA resize
-(958), the weighted moving average (smoothmovavg, 247-304) and the webcam
-channel selection (BscanFFTwebcam.cpp:1015-1039).
+(958), the weighted moving average (smoothmovavg, 247-304), the webcam
+channel selection (BscanFFTwebcam.cpp:1015-1039) and the spinjnt output
+B-scan rebinning (BscanFFTspinjnt.cpp:1856-1861).
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -69,3 +73,55 @@ def channel_select(frame: torch.Tensor, channelnum: int) -> torch.Tensor:
     if channelnum == 3:
         return frame.float().sum(dim=-1) / (255.0 * 3.0)
     return frame[..., 2 - channelnum]
+
+
+@functools.lru_cache(maxsize=64)
+def _cv_cubic_matrix(n_in: int, n_out: int, a: float = -0.75) -> np.ndarray:
+    """(n_out, n_in) float64 interpolation matrix reproducing OpenCV
+    INTER_CUBIC: the a = -0.75 cubic kernel, half-pixel-centred source
+    coordinates, clamped (replicate) borders.  Built once per shape, as in
+    the JAX package."""
+    scale = n_in / n_out
+    d = np.arange(n_out)
+    src = (d + 0.5) * scale - 0.5
+    i0 = np.floor(src).astype(int)
+    t = src - i0
+
+    def kern(x):
+        x = np.abs(x)
+        return np.where(
+            x <= 1, (a + 2) * x**3 - (a + 3) * x**2 + 1,
+            np.where(x < 2, a * x**3 - 5 * a * x**2 + 8 * a * x - 4 * a, 0.0))
+
+    W = np.zeros((n_out, n_in))
+    for o in (-1, 0, 1, 2):
+        idx = np.clip(i0 + o, 0, n_in - 1)
+        np.add.at(W, (d, idx), kern(t - o))
+    return W
+
+
+@functools.lru_cache(maxsize=64)
+def _cubic_tensor(n_in: int, n_out: int, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_cv_cubic_matrix(n_in, n_out), dtype=dtype, device=device)
+
+
+def resize_bicubic(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bicubic resize over the last two axes, OpenCV INTER_CUBIC semantics,
+    as two matmuls on the input's device: Wr @ img @ Wc^T."""
+    h, w = img.shape[-2], img.shape[-1]
+    Wr = _cubic_tensor(h, out_h, img.dtype, img.device)
+    Wc = _cubic_tensor(w, out_w, img.dtype, img.device)
+    return torch.matmul(torch.matmul(Wr, img), Wc.T)
+
+
+def bscan_rebin(bscan: torch.Tensor, binx: int, biny: int,
+                multiplyfactor: float = 1.0) -> torch.Tensor:
+    """spinjnt output B-scan binning: INTER_AREA downscale by (binx, biny),
+    scale by ``multiplyfactor``, then bicubic upscale back to the original
+    size (reference: BscanFFTspinjnt.cpp:1856-1861)."""
+    if binx == 1 and biny == 1:
+        return bscan
+    h, w = bscan.shape[-2], bscan.shape[-1]
+    down = bin_area(bscan, binx, biny)
+    return resize_bicubic(down * multiplyfactor, h, w)

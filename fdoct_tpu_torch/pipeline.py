@@ -246,16 +246,21 @@ def group_kernel_applies(op_dtype: torch.dtype) -> bool:
 
 def reconstruct_group(raw: torch.Tensor, background: torch.Tensor,
                       pi_frame: torch.Tensor, calib: Calibration, cfg,
-                      method: str = "fused") -> torch.Tensor:
-    """Σ over the group of |apodize_ratio(preprocess(raw[b])) @ M|, (oph, ndisp).
+                      method: str = "fused", dark: torch.Tensor | None = None) -> torch.Tensor:
+    """Σ over the group of |apodize_ratio(preprocess(raw[b]) − dark) @ M|,
+    (oph, ndisp); ``dark`` (the dark variant's frame, BscanDark.cpp:1269)
+    may be None.
 
     The counterpart of ``reconstruct_group_pallas`` (pipeline.py:253-275 of
     the JAX package) and the session's group step.  8-bit frames with an
-    identity preprocess go straight to the raw-input kernel; any other
-    configuration preprocesses and normalizes in torch ops, then runs the
-    ratio-input kernel.  Under 'int8' with the calibration's int8 tables,
-    and with an operator the kernels do not take (:func:`group_kernel_applies`:
-    a float64 config), the plain chain runs, as the JAX package runs its
+    identity preprocess go straight to the raw-input kernel, the dark frame
+    folded into its π: (y − dark − π)/bg = (raw − (π + dark))·(1/bg), one
+    launch per group (the session forms π + dark once per capture and
+    passes it as ``pi_frame`` with no ``dark``).  Any other configuration preprocesses, subtracts the
+    dark frame and normalizes in torch ops, then runs the ratio-input
+    kernel.  Under 'int8' with the calibration's int8 tables, and with an
+    operator the kernels do not take (:func:`group_kernel_applies`: a
+    float64 config), the plain chain runs, as the JAX package runs its
     float64 session through ``ascan_mags``.  So do the stepwise methods
     ('gather', 'hilbert'), which have no kernel: no launch.
     """
@@ -264,18 +269,40 @@ def reconstruct_group(raw: torch.Tensor, background: torch.Tensor,
     _check_precision(precision)
     dtype = getattr(torch, cfg.dtype)
     background, pi_frame = background.to(dtype), pi_frame.to(dtype)
+
+    def ratio() -> torch.Tensor:
+        y = preprocess(raw, cfg, dtype)
+        if dark is not None:
+            y = y - dark.to(dtype)
+        return apodize_ratio(y, background, pi_frame, cfg)
+
     if method in STEPWISE_METHODS:
-        yr = apodize_ratio(preprocess(raw, cfg, dtype), background, pi_frame, cfg)
-        return ascan_mags(yr, calib, method).sum(dim=0)
+        return ascan_mags(ratio(), calib, method).sum(dim=0)
     op_re, op_im = _operator(calib, use_bf16(precision, dtype, raw.device))
     if _int8_tables_apply(precision, calib) or not group_kernel_applies(op_re.dtype):
-        yr = apodize_ratio(preprocess(raw, cfg, dtype), background, pi_frame, cfg)
-        return ascan_mags_fused(yr, calib, precision).sum(dim=0)
+        return ascan_mags_fused(ratio(), calib, precision).sum(dim=0)
     if raw_kernel_applies(raw, cfg):
-        return fused_recon_raw_accumulate(raw.contiguous(), pi_frame.contiguous(),
+        pi = pi_frame if dark is None else pi_frame + dark.to(dtype)
+        return fused_recon_raw_accumulate(raw.contiguous(), pi.contiguous(),
                                           (1.0 / background).contiguous(), op_re, op_im)
-    yr = apodize_ratio(preprocess(raw, cfg, dtype), background, pi_frame, cfg)
-    return fused_recon_accumulate(yr.contiguous(), op_re, op_im)
+    return fused_recon_accumulate(ratio().contiguous(), op_re, op_im)
+
+
+def reconstruct_group_frames(raw: torch.Tensor, background: torch.Tensor,
+                             pi_frame: torch.Tensor, calib: Calibration, cfg,
+                             method: str = "fused", dark: torch.Tensor | None = None
+                             ) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """(Σ, [each frame's magnitudes]) of a group, for the session's
+    ``saveframes`` ring: :func:`reconstruct_group` once per frame (B = 1, so
+    a group of N frames costs N kernel launches), the sum taken in frame
+    order as per-frame ``Session.process`` accumulates it, so the display
+    equals that path's."""
+    mags = [reconstruct_group(raw[b:b + 1], background, pi_frame, calib, cfg, method, dark)
+            for b in range(raw.shape[0])]
+    total = mags[0]
+    for m in mags[1:]:
+        total = total + m
+    return total, mags
 
 
 def form_bscan(mag_sum: torch.Tensor, cfg, averages: int = 1,

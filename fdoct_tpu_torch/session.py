@@ -1,25 +1,36 @@
 """Interactive session: the reference's keystroke state machine, on tensors.
 
-The port of ``fdoct_tpu/session.py`` for the live main path: background 'b'
-and π 'p' captures (BscanFFT.cpp:1000-1099), the threshold and averaging
-keys, per-frame :meth:`Session.process` (one reference loop iteration) and
-the batched :meth:`Session.process_group`, whose steady state runs one
-:func:`fdoct_tpu_torch.pipeline.reconstruct_group` kernel launch and one
-display chain per averaging group.  With ``matmul_precision='int8_direct'``
-and a config the folding supports, the session folds its captures into an
-:class:`~fdoct_tpu_torch.int8direct.Int8DirectPlan` and each group is one
-launch of the int8 B-scan kernel plus a small tail.
+The port of ``fdoct_tpu/session.py``.  The reference's acquisition loop
+mixes compute with a single-key command dispatch (BscanFFT.cpp:1584-1917)
+and capture logic scattered through the hot loop (background 'b'
+1000-1075, π/J0 'p' 1077-1099, J-lockin 'j'/'c' 1292-1304, save 's'
+1307-1397, manual averaging 1399-1477, double ring buffers 1482-1488;
+BscanDark adds the dark, reference-arm and sample-arm captures 'o'/'r'/'t',
+BscanDark.cpp:1005-1221).  Here all of that is a :class:`Session`: device
+state is tensors on ``device``, control state plain fields, and one
+:meth:`Session.process` call per raw frame is one reference loop iteration.
+Keys arrive through :meth:`Session.key` with the reference's bindings.
 
-Device state (the reference's Mats) is tensors on ``device``; control state
-is plain fields.  Variants 'base' and 'sim'.  Saves, ring buffers, J-lockin,
-manual averaging, output rebinning, plugins, the other variants and meshes
-are not ported yet and raise ``NotImplementedError``.
+:meth:`Session.process_group` runs whole averaging groups: in the steady
+state one :func:`fdoct_tpu_torch.pipeline.reconstruct_group` kernel launch
+and one display chain per group, and only the uint8 displays leave the
+device.  The ``saveframes`` ring costs a launch per frame instead
+(:func:`~fdoct_tpu_torch.pipeline.reconstruct_group_frames`).  With
+``matmul_precision='int8_direct'`` and a config the folding supports, the
+captures fold into an :class:`~fdoct_tpu_torch.int8direct.Int8DirectPlan`
+and each group is one launch of the int8 B-scan kernel plus a small tail.
+
+Variants 'base', 'sim', 'dark', 'peak' and 'spinj'.  The ring buffers keep
+their frames and magnitudes on the device; a save ('s'), a plugin or
+J-lockin moves to the host only what it writes or reads.  A device mesh is
+not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import subprocess
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -29,73 +40,119 @@ from fdoct_tpu_torch.int8direct import (
     Int8DirectPlan, int8_bscan_outputs, int8_direct_supported, reconstruct_int8_direct,
     shift_u8_to_s8,
 )
-from fdoct_tpu_torch.ops import channel_select, normalize_minmax, normalize_rows
-from fdoct_tpu_torch.pipeline import form_bscan, preprocess, reconstruct_group
+from fdoct_tpu_torch.ops import (
+    bscan_rebin, channel_select, make_only_positive, normalize_minmax, normalize_rows,
+    threshold_floor, to_db, to_uint8,
+)
+from fdoct_tpu_torch.ops.fft import lowpass_rowwise
+from fdoct_tpu_torch.pipeline import (
+    form_bscan, preprocess, raw_kernel_applies, reconstruct_group, reconstruct_group_frames,
+)
+from fdoct_tpu_torch.plugins import ROIPlugin, VibrometryPlugin
+from fdoct_tpu_torch.sinks import RunWriter
+from fdoct_tpu_torch.utils import to_host
+from fdoct_tpu_torch.utils.imageio import write_png
 from fdoct_tpu_torch.utils.profiling import FpsMeter
 
-
-def _not_ported(what: str, item: str = "ROADMAP Queue 1 item 8") -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to fdoct_tpu_torch yet ({item})")
+#: the session variants (SURVEY.md §2.1)
+VARIANTS = ("base", "sim", "dark", "peak", "spinj")
 
 
 @dataclasses.dataclass
 class BscanResult:
-    """One completed averaging group.  ``bscandisp`` is a host uint8 array;
-    ``bscan`` and ``bscandb`` stay on the session's device."""
+    """One completed averaging group.  ``bscandisp``, ``sub_disp`` and
+    ``manual_disp`` are host uint8 arrays; ``bscan`` and ``bscandb`` stay on
+    the session's device."""
     bscan: torch.Tensor       # linear, (ndisp, oph)
     bscandb: torch.Tensor     # dB with DC rows masked
     bscandisp: np.ndarray     # uint8 display
     index: int                # save counter at completion
+    sub_disp: np.ndarray | None = None      # J-lockin subtracted display
+    manual_disp: np.ndarray | None = None   # manual-average display
+    status: list[str] = dataclasses.field(default_factory=list)
 
 
 class Session:
     """One live or replay reconstruction session on one device.
 
     cfg: pipeline configuration.  device: where the tensors live, e.g.
-    ``"cuda"`` or ``"cpu"``.  variant: 'base' or 'sim'.  source: with the
-    'sim' variant, the source whose ``background()``/``pi_frame()`` the 'b'
-    and 'p' captures read (BscanFFTsim.cpp:806-825).  method: the
-    reconstruction of :func:`fdoct_tpu_torch.pipeline.ascan_mags` ('fused',
-    'fused_exact', or 'gather'/'hilbert', which launch no kernel).
+    ``"cuda"`` or ``"cpu"``.  variant: one of :data:`VARIANTS`.  sink: a
+    :class:`~fdoct_tpu_torch.sinks.RunWriter` for saves.  camera: a control
+    callback ``camera(param, value)`` for exposure and gain changes.
+    source: with the 'sim' variant, the source whose
+    ``background()``/``pi_frame()`` the 'b' and 'p' captures read
+    (BscanFFTsim.cpp:806-825); a ``trigger(n)`` method, when it has one,
+    fires the triggered captures.  method: the reconstruction of
+    :func:`fdoct_tpu_torch.pipeline.ascan_mags` ('fused', 'fused_exact', or
+    'gather'/'hilbert', which launch no kernel).
     """
 
     def __init__(self, cfg, device: torch.device | str, variant: str = "base",
+                 sink: RunWriter | None = None,
+                 camera: Callable[[str, Any], None] | None = None,
                  source: Any = None, method: str = "fused",
                  calib: Calibration | None = None, mesh: Any = None):
-        if variant not in ("base", "sim"):
-            raise _not_ported(f"variant {variant!r}")
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
         if mesh is not None:
-            raise _not_ported("a device mesh", "ROADMAP Queue 1 item 12")
-        for flag in ("saveframes", "saveinterferograms", "manualaveraging"):
-            if getattr(cfg, flag):
-                raise _not_ported(flag)
-        if cfg.bscanbinx > 1 or cfg.bscanbiny > 1:
-            raise _not_ported("bscanbinx/bscanbiny > 1")
+            raise NotImplementedError("a device mesh is not ported to fdoct_tpu_torch yet "
+                                      "(ROADMAP Queue 1 item 12)")
         self.cfg = cfg
         self.device = torch.device(device)
         self.variant = variant
+        self.sink = sink
+        self.camera = camera
         self.source = source
         self.method = method
         self.calib = calib or Calibration.create(cfg, self.device)
         dt = getattr(torch, cfg.dtype)
         oph, opw, ndisp = cfg.oph, cfg.opw, self.calib.ndisp
 
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=dt, device=self.device)
+
         # device state (the reference's Mats)
         self.data_yb = torch.ones((oph, opw), dtype=dt, device=self.device)   # S(k)
-        self.data_yp = torch.zeros((oph, opw), dtype=dt, device=self.device)  # π / J0
-        self.accum = torch.zeros((oph, ndisp), dtype=dt, device=self.device)
-        self.baccum = torch.zeros((oph, opw), dtype=dt, device=self.device)
+        self.data_yp = zeros(oph, opw)                      # π / J0 spectrum
+        self.data_yd = zeros(oph, opw)                      # dark (BscanDark)
+        self.data_yr = zeros(oph, opw)                      # reference arm
+        self.data_ys = zeros(oph, opw)                      # sample arm
+        self.accum = zeros(oph, ndisp)
+        self.baccum = zeros(oph, opw)
+        self.manualaccum = zeros(ndisp, oph)
+        self.jscansave: torch.Tensor | None = None
 
         # control state (the reference's flags and counters)
         self.averages = cfg.averages
         self.averagestoggle = cfg.averages                  # BscanFFT.cpp:481
         # the simulator display has no threshold floor (BscanFFTsim.cpp:1131)
         self.bscanthreshold = -np.inf if variant == "sim" else cfg.bscanthreshold
+        self.exposure_us = cfg.exposure_us
+        self.gain = cfg.gain
+        self.ascanat = 20                                   # BscanFFT.cpp:362
+        self.vertposROI = 10
+        self.widthROI = 10
+        self.ROIreport = False
+        self.jlockin = False
+        self.done = False
         self.indextemp = 0
-        self.indexi = 0
+        self.indexi = 0                                     # save counter
+        self.manualindexi = 0
         self.baccumcount = 0
+        self.manualaccumcount = 0
         self.zeroisactive = True                            # ring toggle
         self._pending: set[str] = set()
+        self._dark_counts = {"dark": 0, "ref": 0, "sample": 0}
+        self._dark_accum: dict[str, torch.Tensor] = {}
+        # double ring buffers (BscanFFT.cpp:569-583), on the device: per-frame
+        # magnitudes and raw frames of the active group and of the one
+        # before, for the save-after-the-fact story.  The reference's third
+        # ring, the preprocessed frames, is preprocess of the raw one: the
+        # 'b' capture that reads it forms it then
+        self._rings = {0: {"bscan": [], "raw": []}, 1: {"bscan": [], "raw": []}}
+        self._trig: dict | None = None
+        self._trig_set = 0
+        self._offline_proc = None
         self._said_once: set[str] = set()
         self.status: list[str] = []
         self.fpsmeter = FpsMeter(window_s=5.0)              # BscanFFT.cpp:1100-1119
@@ -103,32 +160,179 @@ class Session:
         self.max_intensity = 0
         self._i8plan: Int8DirectPlan | None = None
         self._i8key: tuple | None = None
+        self._pi_fold: torch.Tensor | None = None
+        self._pi_fold_key: tuple | None = None
         # (shape, dtype) of host frames → (pinned staging buffer, event of
         # its last copy to the card); CUDA sessions only
         self._staging: dict[tuple, tuple[torch.Tensor, torch.cuda.Event]] = {}
+        # the vibrometry key set is the peak variant's; every other variant
+        # carries the flagship app's ROI analytics (printAvgROI,
+        # BscanFFT.cpp:99-171), toggled by 'e'
+        self.plugins: list[Any] = [VibrometryPlugin(cfg.lambda0, cfg.peakholdnumframes)
+                                   if variant == "peak" else ROIPlugin()]
+
+    @property
+    def clampupper(self) -> bool:
+        """Absolute-scale display mode (the 'q' key, BscanFFT.cpp:1248-53);
+        it lives in cfg because form_bscan reads ``cfg.clampupper``."""
+        return self.cfg.clampupper
+
+    @clampupper.setter
+    def clampupper(self, value: bool) -> None:
+        self.cfg = self.cfg.replace(clampupper=bool(value))
 
     # ------------------------------------------------------------------
-    # keys (BscanFFT.cpp:1584-1917)
+    # keys (BscanFFT.cpp:1584-1917, keyboardshortcuts.txt)
     # ------------------------------------------------------------------
+
+    _EXPOSURE_KEYS = {"+": 100, "=": 100, "-": -100, "_": -100,
+                      "u": 1000, "d": -1000, "U": 10000, "D": -10000}
+    _PENDING_KEYS = {"s": "s", "S": "s", " ": "s", "b": "b", "B": "b", "p": "p", "P": "p",
+                     "j": "j", "J": "j", "c": "c", "C": "c"}
+    _DARK_KEYS = {"o": "dark", "O": "dark", "r": "ref", "R": "ref", "t": "sample",
+                  "T": "sample"}                           # BscanDark.cpp 'o'/'r'/'t'
+    _TRIG_KEYS = {"t": "Trig", "T": "Trig", "k": "KTrig", "K": "KTrig", "|": "Alt",
+                  "\\": "Alt"}                             # BscanFFTspinj.cpp:2332-2345
 
     def key(self, ch: str) -> None:
-        """Apply one keypress: 'b'/'p' capture, ']'/'[' threshold ±1 dB,
-        'a' toggles averaging.  Any other key raises NotImplementedError."""
-        if ch in ("b", "B"):
-            self._pending.add("b")
-        elif ch in ("p", "P"):
-            self._pending.add("p")
+        """Apply one keypress.  A key no branch and no plugin takes is
+        ignored, as the reference's ``default: break``."""
+        cfg = self.cfg
+        spinj = self.variant == "spinj"
+        if ch in ("\x1b", "x", "X"):
+            self.done = True
+        elif ch in self._EXPOSURE_KEYS:
+            # Spinnaker has an 8 µs exposure floor (BscanFFTspinjnt '-' key);
+            # QHY clamps at 0 (BscanFFT.cpp:1623-1624)
+            floor = 8 if spinj else 0
+            self.exposure_us = max(floor, self.exposure_us + self._EXPOSURE_KEYS[ch])
+            if self.camera:
+                self.camera("exposure", self.exposure_us)
+            self._say(f"Exp time = {self.exposure_us} ")
+        elif ch in self._PENDING_KEYS:
+            self._pending.add(self._PENDING_KEYS[ch])
         elif ch == "]":
             self.bscanthreshold += 1.0
             self._say(f"bscanthreshold = {self.bscanthreshold:f}")
         elif ch == "[":
             self.bscanthreshold -= 1.0
             self._say(f"bscanthreshold = {self.bscanthreshold:f}")
+        elif ch in ("(", "9", ")", "0"):
+            if ch == "(" and self.ascanat > 10:
+                self.ascanat -= 10
+            elif ch == "9" and self.ascanat > 0:
+                self.ascanat -= 1
+            elif ch == ")" and self.ascanat < cfg.oph - 11:
+                self.ascanat += 10
+            elif ch == "0" and self.ascanat < cfg.oph - 1:
+                self.ascanat += 1
+            self._say(f"ascanat = {self.ascanat}")
+        elif ch in ("W", "w"):
+            if ch == "W" and self.ascanat + self.widthROI < cfg.oph - 1:
+                self.widthROI += 1
+            elif ch == "w" and self.widthROI > 2:
+                self.widthROI -= 1
+            self._say(f"ROI width = {self.widthROI}")
+        elif ch in ("h", "H"):
+            if ch == "h" and self.vertposROI < self.calib.ndisp - 1:
+                self.vertposROI += 1
+            elif ch == "H" and self.vertposROI > 2:
+                self.vertposROI -= 1
+            self._say(f"ROI vertical position = {self.vertposROI}")
         elif ch in ("a", "A"):
             self.averagestoggle = self.averages if self.averagestoggle == 1 else 1
             self._say(f"Now averaging {self.averagestoggle} bscans.")
+        elif ch in ("e", "E"):
+            self.ROIreport = not self.ROIreport
+        elif ch in ("q", "Q"):
+            self.clampupper = not self.clampupper
+        elif self.variant == "dark" and ch in self._DARK_KEYS:
+            self._pending.add(self._DARK_KEYS[ch])
+        elif spinj and ch in self._TRIG_KEYS:
+            self._start_trig(self._TRIG_KEYS[ch])
+        elif spinj and ch in ("y", "Y"):
+            self._spawn_offline_tool()                    # BscanFFTspinj.cpp:2356-2412
+        elif spinj and ch in ("1", "!", "2", "@"):
+            # BscanFFTspinjnt.cpp:2188
+            self.gain = self.gain + 1 if ch in ("1", "!") else max(0, self.gain - 1)
+            if self.camera:
+                self.camera("gain", self.gain)
+            self._say(f"Gain = {self.gain}")
+        elif spinj and ch in ("3", "#", "4", "$"):
+            # BscanFFTspinj.cpp:2541
+            t = self.averagestoggle
+            self.averagestoggle = {"3": t + 1, "#": t + 10, "4": t - 1 if t > 1 else t,
+                                   "$": t - 10 if t > 10 else 1}[ch]
+            self._say(f"Now averaging {self.averagestoggle} bscans.")
         else:
-            raise _not_ported(f"key {ch!r}")
+            for plugin in self.plugins:
+                if plugin.key(self, ch):
+                    return
+
+    # ------------------------------------------------------------------
+    # live config editing (GET/POST /config of the JAX package's viewer;
+    # the live-safe knobs apply at the next loop boundary)
+    # ------------------------------------------------------------------
+
+    #: knobs applying live, with parse functions
+    _LIVE_CONFIG = {
+        "bscanthreshold": float, "averages": int, "exposure_us": int,
+        "gain": int, "clampupper": lambda v: bool(int(v)),
+        "clampupperdb": float, "manualaverages": int,
+    }
+
+    def config_snapshot(self) -> dict:
+        """Current knobs: ``live`` fields apply through :meth:`apply_config`;
+        ``static`` config needs a session restart."""
+        live = {"bscanthreshold": self.bscanthreshold,
+                "averages": self.averagestoggle,
+                "exposure_us": self.exposure_us, "gain": self.gain,
+                "clampupper": int(self.clampupper),
+                "clampupperdb": self.cfg.clampupperdb,
+                "manualaverages": self.cfg.manualaverages}
+        static = {k: v for k, v in dataclasses.asdict(self.cfg).items() if k not in live}
+        return {"live": {k: (None if v in (np.inf, -np.inf) else v) for k, v in live.items()},
+                "static": static}
+
+    def apply_config(self, updates: dict) -> list[str]:
+        """Apply an update dict; returns one message per field (the applied
+        value, or why it was rejected or needs a restart)."""
+        msgs = []
+        for name, raw in updates.items():
+            if name not in self._LIVE_CONFIG:
+                msgs.append(f"{name}: restart required (not a live knob)")
+                continue
+            try:
+                value = self._LIVE_CONFIG[name](raw)
+            except (TypeError, ValueError):
+                msgs.append(f"{name}: bad value {raw!r}")
+                continue
+            if name in ("averages", "manualaverages") and value < 1:
+                msgs.append(f"{name}: must be >= 1")
+                continue
+            if name == "bscanthreshold":
+                self.bscanthreshold = value
+            elif name == "averages":
+                # like the 'a' toggle: a new group size, and the current
+                # accumulation restarts
+                self.averages = self.averagestoggle = value
+                self.accum = torch.zeros_like(self.accum)
+                self.indextemp = 0
+            elif name == "exposure_us":
+                self.exposure_us = max(value, 0)
+                if self.camera is not None:
+                    self.camera("exposure", self.exposure_us)
+            elif name == "gain":
+                self.gain = max(value, 0)
+                if self.camera is not None:
+                    self.camera("gain", self.gain)
+            elif name == "clampupper":
+                self.clampupper = value
+            else:                                   # clampupperdb, manualaverages
+                self.cfg = self.cfg.replace(**{name: value})
+            msgs.append(f"{name} = {value}")
+            self._say(f"config: {name} = {value}")
+        return msgs
 
     def _say(self, text: str) -> None:
         self.status.append(text)
@@ -139,6 +343,80 @@ class Session:
         if key not in self._said_once:
             self._said_once.add(key)
             self._say(text)
+
+    def set_roi(self, x: int, y: int, w: int, h: int) -> None:
+        """Apply a drag-selected rectangle (B-scan pixel coordinates: x the
+        lateral A-scan position, y the depth row), clamped to the image: the
+        vibrometry ROI of the peak variant (BscanFFTpeak.cpp:112-181), else
+        the ROI-analytics window the (/9/0/)/w/W/h/H keys step."""
+        ndisp, oph = self.calib.ndisp, self.cfg.oph
+        x = max(0, min(int(x), oph - 1))
+        y = max(0, min(int(y), ndisp - 1))
+        w = max(1, min(int(w), oph - x))
+        h = max(1, min(int(h), ndisp - y))
+        for plugin in self.plugins:
+            if hasattr(plugin, "set_roi"):
+                plugin.set_roi(x, y, w, h)
+                self._say(f"ROI = ({x}, {y}) {w}x{h}")
+                return
+        self.ascanat = min(x, oph - 2)
+        self.widthROI = max(2, min(w, oph - 1 - self.ascanat))
+        self.vertposROI = min(y, ndisp - 1)
+        self._say(f"ROI at ascan {self.ascanat}, depth {self.vertposROI}, "
+                  f"width {self.widthROI}")
+
+    # ------------------------------------------------------------------
+    # spinj triggered batch capture and offline hand-off
+    # ------------------------------------------------------------------
+
+    def _start_trig(self, mode: str) -> None:
+        """Begin a triggered batch capture: the next ``manualaverages`` raw
+        frames are written as 16-bit Trig/KTrig PNGs ('Alt' alternates
+        signal/J0 per frame, BscanFFTspinj.cpp:349-450)."""
+        if self.sink is None:
+            self._say("no sink; trig capture ignored")
+            return
+        n = max(self.cfg.manualaverages, 1)
+        self._trig = {"mode": mode, "count": 0, "n": n, "set": self._trig_set}
+        # a trigger-capable source fires one pulse per frame
+        # (BscanFFTspinj.cpp:1695-1720); a free-running one has no trigger()
+        trig_fn = getattr(self.source, "trigger", None)
+        if callable(trig_fn):
+            trig_fn(n * (2 if mode == "Alt" else 1))
+
+    def _spawn_offline_tool(self) -> None:
+        """Start the offline reconstruction tool with argv {dirname,
+        manualaverages} (BscanFFTspinj.cpp:2389-2412).  Without
+        ``cfg.offline_tool_path`` the JAX package runs its own offline CLI;
+        the port has none yet."""
+        if not self.cfg.offline_tool_path:
+            raise NotImplementedError("the offline tool needs cfg.offline_tool_path: "
+                                      "fdoct_tpu_torch has no offline CLI yet (ROADMAP "
+                                      "Queue 1 item 10)")
+        dirname = str(self.sink.dir) if self.sink is not None else "."
+        self._offline_proc = subprocess.Popen([self.cfg.offline_tool_path, dirname,
+                                               str(self.cfg.manualaverages)])
+        self._say(f"spawned offline tool for {dirname}")
+
+    def _handle_trig(self, raw: torch.Tensor) -> None:
+        trig = self._trig
+        if not trig or self.sink is None:
+            return
+        frame = to_host(raw)
+        if frame.dtype == np.uint8:
+            frame = frame.astype(np.uint16) << 8            # Mono16 convert
+        i = trig["count"]
+        if trig["mode"] == "Alt":
+            prefix = "Trig" if i % 2 == 0 else "KTrig"
+            name = f"{prefix}{trig['set']:03d}-{i // 2:03d}"
+        else:
+            name = f"{trig['mode']}{trig['set']:03d}-{i:03d}"
+        write_png(self.sink.dir / f"{name}.png", frame)
+        trig["count"] += 1
+        if trig["count"] >= trig["n"] * (2 if trig["mode"] == "Alt" else 1):
+            self._trig_set = trig["set"] + 1
+            self._say(f"{trig['mode']} capture {trig['set']:03d} done.")
+            self._trig = None
 
     # ------------------------------------------------------------------
     # per-frame processing (one reference hot-loop iteration)
@@ -174,9 +452,39 @@ class Session:
         copied.record(torch.cuda.current_stream(self.device))
         return dev
 
-    # ------------------------------------------------------------------
-    # int8-direct display mode (fdoct_tpu_torch.int8direct)
-    # ------------------------------------------------------------------
+    def _dark(self) -> torch.Tensor | None:
+        """The dark frame the dark variant subtracts (BscanDark.cpp:1269)."""
+        return self.data_yd if self.variant == "dark" else None
+
+    def _group_pi_dark(self, raw: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """(π, dark) for :func:`reconstruct_group` on frames ``raw`` (B, H, W).
+        Where the raw kernel applies (identity preprocess and normalization),
+        (y − yd − yp)/yb = (raw − (yp + yd))/yb, so the dark variant's frame
+        folds into π: formed once per capture, keyed like the int8 plan on
+        the tensors ``data_yp`` and ``data_yd`` (compared with ``is``), not
+        once per group."""
+        dark = self._dark()
+        if dark is None or not raw_kernel_applies(raw, self.cfg):
+            return self.data_yp, dark
+        dtype = getattr(torch, self.cfg.dtype)
+        key = (self.data_yp, dark, dtype)
+        if self._pi_fold_key is None or any(a is not b for a, b in zip(key, self._pi_fold_key)):
+            self._pi_fold = self.data_yp.to(dtype) + dark.to(dtype)
+            self._pi_fold_key = key
+        return self._pi_fold, None
+
+    def _active_ring(self) -> dict:
+        return self._rings[0 if self.zeroisactive else 1]
+
+    def _inactive_ring(self) -> dict:
+        return self._rings[1 if self.zeroisactive else 0]
+
+    def _toggle_rings(self) -> None:
+        """Per completed group (BscanFFT.cpp:1482-1488): the other ring
+        becomes active and is cleared."""
+        self.zeroisactive = not self.zeroisactive
+        for part in self._active_ring().values():
+            part.clear()
 
     #: rank-1 fold residual above which the int8 display is no longer
     #: display-grade; above it the session refuses the plan and runs the
@@ -186,7 +494,8 @@ class Session:
     def _use_int8_direct(self, raw: torch.Tensor) -> bool:
         """Whether this frame rides the int8-direct path: the frame →
         magnitudes map must be affine in exact 8-bit counts, and the
-        background's rank-1 residual low enough."""
+        background's rank-1 residual low enough.  J-lockin subtracts on the
+        f32 chain, so it takes that."""
         if self.cfg.matmul_precision != "int8_direct" or self.method != "fused":
             return False
         if self.variant == "peak":
@@ -195,7 +504,7 @@ class Session:
             self._say_once("int8_direct", "int8_direct is a display mode; the peak/"
                            "vibrometry variant is metrology — staying on the f32 chain")
             return False
-        if raw.dtype != torch.uint8 or raw.ndim != 2:
+        if raw.dtype != torch.uint8 or raw.ndim != 2 or self.jlockin:
             return False
         if not int8_direct_supported(self.cfg)[0]:
             return False
@@ -203,15 +512,16 @@ class Session:
 
     def _int8_plan(self) -> Int8DirectPlan | None:
         """The plan for the current calibration frames, rebuilt only when a
-        capture rebinds ``data_yb`` or ``data_yp``.  The key holds strong
+        capture rebinds ``data_yb``, ``data_yp`` or ``data_yd`` (the dark
+        variant folds its dark frame into the plan).  The key holds strong
         references and compares with ``is``: an ``id()`` key could match a
         new tensor at a freed one's address.  A plan whose rank-1 residual
         is above :attr:`INT8_RESID_ACT` is refused (None), and the session
         says so."""
-        key = (self.data_yb, self.data_yp)
+        key = (self.data_yb, self.data_yp, self.data_yd)
         if self._i8key is None or any(a is not b for a, b in zip(key, self._i8key)):
             plan = Int8DirectPlan.create(self.calib, self.cfg, self.data_yb, self.data_yp,
-                                         device=self.device)
+                                         self._dark(), device=self.device)
             resid = float(plan.bg_rank1_resid)
             if resid > self.INT8_RESID_ACT:
                 plan = None
@@ -230,42 +540,89 @@ class Session:
         raw = self._to_device(raw)
         if raw.ndim == 3:
             raw = channel_select(raw, cfg.channelnum)     # BscanFFTwebcam.cpp:1015-1039
+        if cfg.saveinterferograms:
+            raw = raw.clone()              # the ring keeps its own copy, not the caller's
         use_i8 = self._use_int8_direct(raw)
+        # the int8 and group-kernel paths need no preprocessed frame; a
+        # capture does
+        y = preprocess(raw, cfg) if self._pending else None
+
+        # the active ring fills during this group; the inactive one holds the
+        # group before, for saves after the fact (BscanFFT.cpp:961-984)
+        ring = self._active_ring()
+        if cfg.saveinterferograms:
+            ring["raw"].append(raw)
+        self._handle_trig(raw)
         if self._pending:
-            # the int8 path needs no preprocessed frame, only a capture does
-            self._handle_captures(preprocess(raw, cfg))
+            self._handle_captures(y)
         plan = self._int8_plan() if use_i8 else None     # a capture may refuse it
         if plan is not None:
             mags = reconstruct_int8_direct(shift_u8_to_s8(raw.contiguous()), plan)
         else:
-            mags = reconstruct_group(raw[None], self.data_yb, self.data_yp,
-                                     self.calib, cfg, self.method)
+            pi, dark = self._group_pi_dark(raw[None])
+            mags = reconstruct_group(raw[None], self.data_yb, pi, self.calib, cfg,
+                                     self.method, dark)
 
         if self.variant == "sim" and cfg.simcopyto:
             # strict simulator (BscanFFTsim.cpp:935-947): copyTo replaces the
             # accumulator and the group-completing frame is dropped
             if self.indextemp < self.averagestoggle:
                 self.accum = mags
+                if cfg.saveframes:
+                    ring["bscan"].append(mags)
                 self.indextemp += 1
                 return None
             return self._finish_group()
         self.accum = self.accum + mags                    # BscanFFT.cpp:1193-1209
+        if cfg.saveframes:
+            ring["bscan"].append(mags)
         self.indextemp += 1
         if self.indextemp < self.averagestoggle:
             return None
         return self._finish_group()
 
     def _finish_group(self) -> BscanResult:
-        """Group-complete block (BscanFFT.cpp:1211-1255, 1482-1488)."""
+        """Group-complete block (BscanFFT.cpp:1211-1488)."""
+        cfg = self.cfg
         self.indextemp = 0
-        strict_sim = self.variant == "sim" and self.cfg.simcopyto
-        out = form_bscan(self.accum, self.cfg, 1 if strict_sim else self.averagestoggle,
-                         bscanthreshold=self.bscanthreshold,
-                         eps=1e-6 if strict_sim else 1e-5)
+        mag_sum = self.accum
+        if cfg.bscanbinx > 1 or cfg.bscanbiny > 1:
+            # spinjnt output rebinning acts on the linear B-scan; the factor
+            # is derived (BscanFFTspinjnt.cpp:835)
+            mult = cfg.bscanbinx * cfg.bscanbiny * cfg.binvaluex * cfg.binvaluey
+            bscan_lin = bscan_rebin(mag_sum.T / self.averagestoggle, cfg.bscanbinx,
+                                    cfg.bscanbiny, mult)
+            mag_sum = bscan_lin.T * self.averagestoggle
+        strict_sim = self.variant == "sim" and cfg.simcopyto
+        out = form_bscan(mag_sum, cfg, 1 if strict_sim else self.averagestoggle,
+                         bscanthreshold=self.bscanthreshold, eps=1e-6 if strict_sim else 1e-5)
         result = BscanResult(bscan=out.bscan, bscandb=out.bscandb,
                              bscandisp=out.bscandisp.cpu().numpy(), index=self.indexi)
+
+        # J-lockin subtraction (BscanFFT.cpp:1225-1232, 1257-1282); the sim
+        # variant masks instead (JMaskPlugin, BscanFFTsim.cpp:959-975)
+        if self.jlockin and self.jscansave is not None and self.variant != "sim":
+            sub_db, sub_disp = jlockin_batch(out.bscan[None], self.jscansave,
+                                             self.bscanthreshold, cfg)
+            result.sub_disp = sub_disp[0].cpu().numpy()
+            if self.sink is not None:
+                self._save_sub(to_host(sub_db[0]), result.sub_disp)
+
+        # 'j' / 'c' at the group boundary (BscanFFT.cpp:1292-1304)
+        if "j" in self._pending:
+            self.jscansave = out.bscan
+            self.jlockin = True
+            self._pending.discard("j")
+        if "c" in self._pending:
+            self.jlockin = False
+            self._pending.discard("c")
+        if "s" in self._pending:
+            self._save_group(result)
+            self._pending.discard("s")
+        for plugin in self.plugins:
+            plugin.on_bscan(self, result)
         self.accum = torch.zeros_like(self.accum)
-        self.zeroisactive = not self.zeroisactive
+        self._toggle_rings()
         return result
 
     # ------------------------------------------------------------------
@@ -273,30 +630,41 @@ class Session:
     # ------------------------------------------------------------------
 
     def _fast_path_blocker(self, n: int, avg: int) -> str | None:
-        """Why this batch cannot ride the batched path, or None."""
+        """Why this batch cannot ride the batched path, or None.  The rings
+        and J-lockin ride it: their device work batches, and their
+        bookkeeping runs per group on the host."""
+        cfg = self.cfg
         if self.indextemp != 0:
             return "mid-group entry"
         if self._pending:
             return "pending key capture"
-        if self.variant == "sim" and self.cfg.simcopyto:
+        if self._trig is not None:
+            return "triggered batch capture in progress"
+        if self.variant == "sim" and cfg.simcopyto:
             return "strict-sim copyTo accumulator"
+        if cfg.manualaveraging:
+            return "manual averaging"
+        if cfg.bscanbinx > 1 or cfg.bscanbiny > 1:
+            return "output B-scan rebinning"
         if avg < 1 or n % avg != 0:
             return f"batch of {n} not divisible by averages {avg}"
         return None
 
     def process_group(self, frames) -> list[BscanResult]:
         """``len(frames)`` reference loop iterations.  In the steady state
-        each averaging group is one group-kernel launch plus the display
-        chain, and only the uint8 displays leave the device; otherwise (a
-        pending capture, mid-group entry, a batch not divisible by the
-        averaging count, strict-sim) it falls back to :meth:`process` frame
-        by frame, and says why once."""
+        each averaging group is one group-kernel launch (``averages``
+        launches with ``saveframes``, whose ring keeps each frame's
+        magnitudes) plus the display chain, and only the uint8 displays leave
+        the device; otherwise (a pending capture, a triggered capture,
+        mid-group entry, manual averaging, output rebinning, a batch not
+        divisible by the averaging count, strict-sim) it runs :meth:`process`
+        frame by frame, and says why once."""
+        cfg = self.cfg
         n = len(frames)
         avg = self.averagestoggle
         why = self._fast_path_blocker(n, avg)
         if why is not None:
-            self._say_once(f"slow:{why}",
-                           f"fast path disengaged ({why}) — per-frame dispatches")
+            self._say_once(f"slow:{why}", f"fast path disengaged ({why}) — per-frame dispatches")
             return [r for f in frames if (r := self.process(f)) is not None]
 
         self._tick_fps(frames[-1], n=n)
@@ -304,18 +672,32 @@ class Session:
         if farr.ndim == 4:
             # a single-plane select keeps exact uint8 counts, so colour
             # frames ride int8-direct too; a channel sum is float
-            farr = channel_select(farr, self.cfg.channelnum)
+            farr = channel_select(farr, cfg.channelnum)
+        if cfg.saveinterferograms:
+            farr = farr.clone()            # the ring keeps its own copy, not the caller's
         groups = n // avg
+        frame_mags = None
         if self._use_int8_direct(farr[0]):
-            outs = self._int8_groups(shift_u8_to_s8(farr.contiguous()), groups, avg)
+            s8 = shift_u8_to_s8(farr.contiguous())
+            outs = self._int8_groups(s8, groups, avg)
+            if cfg.saveframes:
+                frame_mags = reconstruct_int8_direct(s8, self._int8_plan())
         else:
-            outs = [form_bscan(reconstruct_group(farr[g * avg:(g + 1) * avg], self.data_yb,
-                                                 self.data_yp, self.calib, self.cfg,
-                                                 self.method),
-                               self.cfg, avg, bscanthreshold=self.bscanthreshold, eps=1e-5)
-                    for g in range(groups)]
+            outs = []
+            frame_mags = [] if cfg.saveframes else None
+            pi, dark = self._group_pi_dark(farr)
+            for g in range(groups):
+                args = (farr[g * avg:(g + 1) * avg], self.data_yb, pi, self.calib,
+                        cfg, self.method, dark)
+                if cfg.saveframes:
+                    total, mags = reconstruct_group_frames(*args)
+                    frame_mags.extend(mags)
+                else:
+                    total = reconstruct_group(*args)
+                outs.append(form_bscan(total, cfg, avg, bscanthreshold=self.bscanthreshold,
+                                       eps=1e-5))
         disp = torch.stack([o.bscandisp for o in outs]).cpu().numpy()
-        return self._emit_group_results(outs, disp)
+        return self._emit_group_results(outs, disp, avg, farr, frame_mags)
 
     def _int8_groups(self, s8: torch.Tensor, groups: int, avg: int) -> list:
         """The int8-direct group step: one ``int8_bscan_display_fused``
@@ -331,14 +713,37 @@ class Session:
                            self.cfg, avg, bscanthreshold=self.bscanthreshold, eps=1e-5)
                 for g in range(groups)]
 
-    def _emit_group_results(self, outs, disp: np.ndarray) -> list[BscanResult]:
-        """Per-group host bookkeeping: state advances exactly as that many
-        per-frame group completions would."""
+    def _emit_group_results(self, outs, disp: np.ndarray, avg: int, farr: torch.Tensor,
+                            frame_mags) -> list[BscanResult]:
+        """Per-group host bookkeeping, state advancing exactly as that many
+        per-frame group completions would: the ring fills (saveframes,
+        saveinterferograms; BscanFFT.cpp:961-984), the J-lockin subtraction
+        and its saves (1257-1282), the plugins, the ring toggle (1482-1488).
+        Only the uint8 displays (and the subtracted ones) come to the host."""
+        sub_db = sub_disp = None
+        if self.jlockin and self.jscansave is not None and self.variant != "sim":
+            sub_db, sub_disp = jlockin_batch(torch.stack([o.bscan for o in outs]),
+                                             self.jscansave, self.bscanthreshold, self.cfg)
+            sub_disp = sub_disp.cpu().numpy()
+            sub_db = to_host(sub_db) if self.sink is not None else None
         results = []
         for g, out in enumerate(outs):
-            results.append(BscanResult(bscan=out.bscan, bscandb=out.bscandb,
-                                       bscandisp=disp[g], index=self.indexi))
-            self.zeroisactive = not self.zeroisactive   # BscanFFT.cpp:1487
+            ring = self._active_ring()
+            sl = slice(g * avg, (g + 1) * avg)
+            if self.cfg.saveinterferograms:
+                ring["raw"][:] = list(farr[sl])
+            if frame_mags is not None:
+                ring["bscan"][:] = list(frame_mags[sl])
+            result = BscanResult(bscan=out.bscan, bscandb=out.bscandb, bscandisp=disp[g],
+                                 index=self.indexi)
+            if sub_disp is not None:
+                result.sub_disp = sub_disp[g]
+                if self.sink is not None:
+                    self._save_sub(sub_db[g], result.sub_disp)
+            for plugin in self.plugins:
+                plugin.on_bscan(self, result)
+            self._toggle_rings()
+            results.append(result)
         return results
 
     # ------------------------------------------------------------------
@@ -368,24 +773,156 @@ class Session:
                     yp = normalize_minmax(yp, 0.0, 1.0)
                 self.data_yp = yp
             self._pending.discard("p")
+        for arm in ("dark", "ref", "sample"):
+            if arm in self._pending:
+                self._capture_arm(arm, y)
+
+    def _set_background(self, acc: torch.Tensor) -> None:
+        """S(k) from the sum of ``averagestoggle`` frames, normalized as the
+        reference does (BscanFFT.cpp:1040-1073)."""
+        cfg = self.cfg
+        yb = acc
+        if cfg.rowwisenormalize:
+            yb = normalize_rows(yb, 0.0001, 1.0)
+        if not cfg.donotnormalize:
+            yb = normalize_minmax(yb, 0.0001, 1.0)
+        else:
+            yb = yb / self.averagestoggle
+        self.data_yb = yb
+        self._pending.discard("b")
+        self._say("S(k) saved.")
 
     def _capture_background(self, y: torch.Tensor) -> None:
         """'b': average ``averagestoggle`` frames into S(k)
-        (BscanFFT.cpp:1000-1075)."""
+        (BscanFFT.cpp:1000-1075).  With saveinterferograms on, the reference
+        averages the inactive ring's binned frames instead and saves its raw
+        ones as rawframeb PNGs (BscanFFT.cpp:1003-1037); the binned frames
+        are preprocess of the raw ring's, taken before any dark subtraction
+        as the reference's per-frame loop stores them."""
         cfg = self.cfg
+        if cfg.saveinterferograms:
+            raws = self._inactive_ring()["raw"][:self.averagestoggle]
+            if len(raws) >= self.averagestoggle:
+                if self.sink is not None:
+                    for ii, raw in enumerate(raws):
+                        self.sink.save_image(f"rawframeb{self.indexi:03d}-{ii:03d}",
+                                             to_host(raw))
+                self._set_background(preprocess(torch.stack(raws), cfg).to(y.dtype).sum(0))
+                if cfg.manualaveraging:
+                    self.averagestoggle = 1
+            return
         if self.baccumcount < self.averagestoggle:
             self.baccum = self.baccum + y
             self.baccumcount += 1
         if self.baccumcount >= self.averagestoggle:
-            yb = self.baccum
-            if cfg.rowwisenormalize:
-                yb = normalize_rows(yb, 0.0001, 1.0)
-            if not cfg.donotnormalize:
-                yb = normalize_minmax(yb, 0.0001, 1.0)
-            else:
-                yb = yb / self.averagestoggle
-            self.data_yb = yb
-            self._pending.discard("b")
+            self._set_background(self.baccum)
             self.baccumcount = 0
             self.baccum = torch.zeros_like(self.baccum)
-            self._say("S(k) saved.")
+            if self.variant == "spinj" and self.sink is not None:
+                # raw dump for the offline tool (BscanFFTspinjnt.cpp:1684)
+                self.sink.save_bin("spectrum", to_host(self.data_yb))
+            if cfg.manualaveraging:
+                self.averagestoggle = 1                     # BscanFFT.cpp:1070-1073
+
+    def _capture_arm(self, arm: str, y: torch.Tensor) -> None:
+        """BscanDark 'o'/'r'/'t': each arm averaged over ``averagestoggle``
+        frames, optionally low-passed, then the background composed as
+        (data_yr − data_yd) + (data_ys − data_yd) with zeros guarded to 1
+        (BscanDark.cpp:996, 1005-1221)."""
+        acc = self._dark_accum.get(arm)
+        self._dark_accum[arm] = y if acc is None else acc + y
+        self._dark_counts[arm] += 1
+        if self._dark_counts[arm] < self.averagestoggle:
+            return
+        avg = self._dark_accum.pop(arm) / self.averagestoggle
+        if self.cfg.lowpassfilter:
+            avg = lowpass_rowwise(avg)
+        setattr(self, {"dark": "data_yd", "ref": "data_yr", "sample": "data_ys"}[arm], avg)
+        self._pending.discard(arm)
+        self._dark_counts[arm] = 0
+        self._say(f"{arm} arm saved.")
+        yb = (self.data_yr - self.data_yd) + (self.data_ys - self.data_yd)
+        self.data_yb = torch.where(yb == 0, torch.ones_like(yb), yb)
+
+    # ------------------------------------------------------------------
+    # saves
+    # ------------------------------------------------------------------
+
+    def _save_sub(self, sub_db: np.ndarray, sub_disp: np.ndarray) -> None:
+        """The J-lockin subtraction's bscansub saves (BscanFFT.cpp:1257-1282)."""
+        self.manualindexi += 1
+        mi = self.manualindexi
+        self.sink.save_data(f"bscansub{mi:03d}", sub_db)
+        self.sink.save_image(f"bscansub{mi:03d}", sub_disp)
+        self.sink.save_colormapped(f"bscansubc{mi:03d}", sub_disp)
+
+    def _save_group(self, result: BscanResult) -> None:
+        """'s': the displayed B-scan and the per-frame and raw extras of the
+        inactive ring (BscanFFT.cpp:1307-1397), and manual averaging
+        (1399-1477).  Only what is written comes to the host."""
+        cfg = self.cfg
+        if self.sink is None:
+            return
+        self.indexi += 1
+        i = self.indexi
+        bscandb = to_host(result.bscandb)
+        self.sink.save_data(f"bscan{i:03d}", bscandb)
+        self.sink.save_image(f"bscan{i:03d}", result.bscandisp)
+        self.sink.save_colormapped(f"bscanc{i:03d}", result.bscandisp)
+        self._say(f"bscan{i:03d} saved.")
+        result.index = i
+        if self.variant == "spinj":
+            # raw dumps for offline computing (BscanFFTspinjnt.cpp:1957-1971)
+            self.sink.save_bin(f"bscandb{i:03d}", bscandb)
+        if self.jlockin and self.jscansave is not None:
+            jscan = to_host(self.jscansave)
+            self.sink.save_data(f"jscan{i:03d}", jscan)
+            if self.variant == "spinj":
+                self.sink.save_bin(f"jscan{i:03d}", jscan)
+
+        inactive = self._inactive_ring()
+        if cfg.saveinterferograms:
+            for ii, frame in enumerate(inactive["raw"]):
+                self.sink.save_image(f"rawframe{i:03d}-{ii:03d}", to_host(frame))
+        if cfg.saveframes:
+            for ii, mags in enumerate(inactive["bscan"]):
+                # per-frame B-scans: transpose, +eps, dB, normalize, uint8
+                db = to_db(mags.T + 1e-6, eps=0.0, compat=cfg.compat)
+                self.sink.save_image(f"bscan{i:03d}-{ii:03d}",
+                                     to_host(to_uint8(normalize_minmax(db, 0.0, 1.0))))
+
+        if cfg.manualaveraging:
+            if self.manualaccumcount < cfg.manualaverages:
+                self.manualaccum = self.manualaccum + result.bscan
+                self.manualaccumcount += 1
+            else:
+                self.manualaccumcount = 0
+                acc = self.manualaccum / cfg.manualaverages
+                db = to_db(acc, eps=0.0, compat=cfg.compat)
+                disp = normalize_minmax(threshold_floor(db, self.bscanthreshold), 0.0, 1.0)
+                u8 = to_host(to_uint8(disp))
+                result.manual_disp = u8
+                self.manualindexi += 1
+                mi = self.manualindexi
+                self.sink.save_data(f"bscanman{mi:03d}", to_host(acc))
+                self.sink.save_image(f"bscanman{mi:03d}", u8)
+                self.sink.save_colormapped(f"bscanmanc{mi:03d}", u8)
+                self.manualaccum = torch.zeros_like(self.manualaccum)
+
+    def close(self) -> None:
+        """The sink's parameter footer, then the sink's data file."""
+        if self.sink is not None:
+            self.sink.parameter_footer(self.cfg, self.bscanthreshold)
+            self.sink.close()
+
+
+def jlockin_batch(bscan_stack: torch.Tensor, jscansave: torch.Tensor, threshold: float,
+                  cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    """J-lockin subtraction of a stack of linear B-scans (BscanFFT.cpp:
+    1257-1282), as ``_jlockin_batch`` of the JAX package: the dB of
+    max(bscan − jscansave, 0) + 1e-3, floored and min-max normalized per
+    B-scan.  Returns (sub_db, uint8 display), on the stack's device."""
+    positive = make_only_positive(bscan_stack - jscansave[None]) + 0.001
+    sub_db = to_db(positive, eps=0.0, compat=cfg.compat)
+    disp = normalize_minmax(threshold_floor(sub_db, threshold), 0.0, 1.0, axis=(-2, -1))
+    return sub_db, to_uint8(disp)

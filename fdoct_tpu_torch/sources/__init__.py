@@ -1,5 +1,6 @@
 """Frame sources."""
 
+from fdoct_tpu_torch.sources.replay import DirectorySource, ReplaySource
 from fdoct_tpu_torch.sources.synthetic import SyntheticSource
 
-__all__ = ["SyntheticSource"]
+__all__ = ["DirectorySource", "ReplaySource", "SyntheticSource"]

@@ -154,31 +154,35 @@ def test_fast_path_reason_is_said_once(source):
     assert s.indextemp == 1
 
 
-@pytest.mark.parametrize("kwargs,extra,match", [
-    (dict(variant="dark"), {}, "variant 'dark'"),
-    (dict(variant="peak"), {}, "variant 'peak'"),
-    (dict(mesh=object()), {}, "mesh"),
-    ({}, dict(saveframes=True), "saveframes"),
-    ({}, dict(saveinterferograms=True), "saveinterferograms"),
-    ({}, dict(manualaveraging=True), "manualaveraging"),
-    ({}, dict(bscanbinx=2), "bscanbinx"),
-    (dict(variant="dark"), dict(matmul_precision="int8_direct"), "variant 'dark'"),
-], ids=["dark", "peak", "mesh", "saveframes", "saveinterferograms", "manualaveraging",
-        "bscanbin", "int8_direct"])
-def test_unported_session_features_raise(source, kwargs, extra, match):
+@pytest.mark.parametrize("what", ["mesh", "offline_tool"])
+def test_unported_session_features_raise(source, what):
+    """A device mesh (ROADMAP Queue 1 item 12), and the spinj 'y' key with no
+    offline_tool_path, which in the JAX package runs its own offline CLI
+    (item 10), are not ported."""
     src, frames = source
     _, tcfg = configs("base", "highest64")
-    with pytest.raises(NotImplementedError, match=match):
-        s = Session(tcfg.replace(**extra), device="cpu", **kwargs)
-        s.process_group(frames[:AVG])
+    if what == "mesh":
+        with pytest.raises(NotImplementedError, match="mesh.*item 12"):
+            Session(tcfg, device="cpu", mesh=object())
+        return
+    s = Session(tcfg, device="cpu", variant="spinj")
+    with pytest.raises(NotImplementedError, match="offline_tool_path.*item 10"):
+        s.key("y")
 
 
-@pytest.mark.parametrize("key", ["s", "j", "c", "x", "\x1b", "q", "e", "+", "o"])
-def test_unported_keys_raise(key):
-    _, tcfg = configs("base", "highest64")
-    s = Session(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="key"):
-        s.key(key)
+@pytest.mark.parametrize("variant", ["base", "spinj"])
+def test_unknown_keys_are_ignored(source, variant):
+    """A key no branch and no plugin takes changes nothing, in both
+    packages (the reference's ``default: break``)."""
+    src, frames = source
+    jcfg, tcfg = configs("base", "highest64")
+    js, ts = JaxSession(jcfg, variant=variant), Session(tcfg, device="cpu", variant=variant)
+    for s in (js, ts):
+        for ch in ("`", "~", "Z", "%", "o", "g"):
+            s.key(ch)
+    snap = ts.config_snapshot()
+    assert snap == js.config_snapshot()
+    assert not ts._pending and not ts.done and ts.status == js.status == []
 
 
 def test_results_stay_on_device_but_display(source):
@@ -193,9 +197,11 @@ def test_results_stay_on_device_but_display(source):
 
 
 def test_port_never_imports_jax():
-    """A fresh interpreter imports every module of the port and runs a small
-    sim session on the CPU; neither jax nor the JAX package may be loaded,
-    under any module name: no loaded module's file lies under fdoct_tpu/."""
+    """A fresh interpreter imports every module of the port and runs small
+    sessions of every variant on the CPU, some saving into run directories;
+    neither jax nor the JAX package may be loaded, under any module name (no
+    loaded module's file lies under fdoct_tpu/), nor PIL: the port writes its
+    PNGs itself."""
     prog = (
         "import sys, importlib, pkgutil\n"
         "from pathlib import Path\n"
@@ -229,8 +235,22 @@ def test_port_never_imports_jax():
         "for method in ('gather', 'hilbert'):\n"
         "    g = Session(cfg.replace(donotnormalize=True), device='cpu', method=method)\n"
         "    assert len(g.process_group(np.stack([next(it) for _ in range(2)]))) == 1\n"
+        "import tempfile\n"
+        "from fdoct_tpu_torch import RunWriter\n"
+        "from fdoct_tpu_torch.sources import DirectorySource\n"
+        "with tempfile.TemporaryDirectory() as tmp:\n"
+        "    for v in ('base', 'dark', 'peak', 'spinj'):\n"
+        "        sink = RunWriter(tmp, v)\n"
+        "        vs = Session(cfg.replace(saveframes=True, saveinterferograms=True),\n"
+        "                     device='cpu', variant=v, sink=sink)\n"
+        "        vs.key('t' if v == 'spinj' else 'o' if v == 'dark' else 'j')\n"
+        "        vs.key('s')\n"
+        "        vs.process_group(np.stack([next(it) for _ in range(4)]))\n"
+        "        vs.close()\n"
+        "        assert (sink.dir / 'bscan001.png').exists(), v\n"
+        "    assert len(list(DirectorySource(sink.dir).frames())) == 1\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'fdoct_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'fdoct_tpu', 'PIL'))\n"
         "assert not bad, bad\n"
         f"ref = Path({str(ROOT / 'fdoct_tpu')!r})\n"
         "files = [Path(f).resolve() for f in (getattr(m, '__file__', None)\n"
@@ -247,12 +267,13 @@ def test_port_never_imports_jax():
 
 
 @pytest.mark.parametrize("pattern", [r"\b_shared\b", r"spec_from_file_location",
-                                     r"load_reference_module", r"^\s*(import|from) fdoct_tpu\b(?!_)"],
+                                     r"load_reference_module", r"^\s*(import|from) fdoct_tpu\b(?!_)",
+                                     r"^\s*(import|from) (PIL|jax)\b"],
                          ids=["_shared", "spec_from_file_location", "load_reference_module",
-                              "import fdoct_tpu"])
+                              "import fdoct_tpu", "import PIL or jax"])
 def test_port_sources_load_nothing_of_the_jax_package(pattern):
     """No source of the port (nor chip_smoke.py) loads a module of fdoct_tpu/
-    by any route: it keeps its own copies."""
+    by any route (it keeps its own copies), nor imports jax or PIL."""
     import re
     pkg = ROOT / "fdoct_tpu_torch"
     assert not (pkg / "_shared.py").exists()
