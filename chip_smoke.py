@@ -111,10 +111,10 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    beside kernels, group kernel; as time_session reports them) of 16 of
    those groups streamed again, paced and unpaced (from a list, so the next
    batch is queued when a step starts and its copy is issued before the
-   step), and fdoct_tpu_torch.bench_ingest at the flagship (phases 1-4:
+   step), and fdoct_tpu_torch.bench_ingest at the flagship (phases 1-5:
    pageable and pinned H2D bandwidth, the host copy into a pinned slot,
    ingest-inclusive A-scans/s, the 500 fps FLIR emulation, the bandwidth
-   500 fps needs).
+   500 fps needs, the camera ring's frames to the device per frame).
 12. stepwise — Session(method="gather") and Session(method="hilbert"), one
    flagship 'base' group each on the card, in float32 and float64, with no
    kernel launch (counts reset around each): gather against the
@@ -141,13 +141,33 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    display); a 'spinj' Session with bscanbinx = 2 (the per-frame path,
    averages launches per group) against bscan_rebin of the plain chain.
    Each path's group time (time_session).
+14. cli     — the command line (fdoct_tpu_torch.cli.main, in process, on the
+   default device cuda) at the flagship config (a JSON --config), each command's
+   launch counts set to 0 just before it and read just after, and its exit
+   status, files and stdout checked: selftest; sim --frames 8 (kernel 2,
+   one launch per frame: 64) and live --frames 64 --batch 8 (one launch per
+   group: 8 of kernel 1, or of kernel 3 under int8_direct) at 'default',
+   'highest' and 'int8_direct'; live --checkpoint then --resume (kernel 1);
+   cscan --frames 512 --dispersion-sweep at 'default' and 'int8_direct' and
+   sweep --joint (no launch: the volume is torch.matmul / _int_mm products,
+   as the JAX volume is XLA products). Then the C-scan's numbers at F = 512
+   (CSCAN_FRAMES): the cscan command's wall seconds (frames from the
+   synthetic source in host memory to cscan.npz) beside the host seconds
+   of that source's 512 frames alone; the volume reconstruction's device ms
+   (CUDA events, frames on the card), frames/s and peak device memory
+   (max_memory_allocated) beside its bound (2 x F x 512 x 2048 x 512
+   multiply-adds at the bf16, f32 and s8 peaks, and the bytes); the
+   dispersion sweep's ms (33 candidates on 32 rows) and the joint sweep's
+   (33 x 16). The card's volume of 16 seeded noisy frames is held to the
+   port's float64 volume of the same frames on the card: 'default' and
+   'int8_direct' at atol CSCAN_TOL of the float64 peak.
 
 The line before the last is {"kernels": [...]}, one entry per instance
 (kernels 1-2 each with a bf16 and an f32 operator, kernel 3, the resident
 kernel): every time in it was measured in this run; "ms"/"plain_ms" are
 single calls and "ms_b2b"/"plain_ms_b2b" back-to-back calls (phase 5);
-"launches" is the count from the instance's session paths, phase 4's and
-phase 13's (for the resident kernel, which no session runs, the count from
+"launches" is the count from the instance's session paths, phases 4, 13
+and 14 (for the resident kernel, which no session runs, the count from
 phase 10's bench_resident run, with the counts set to 0 just before it;
 its entry adds
 its schedule, streamed times and kernel 1 bf16's times); kernel 1 bf16's
@@ -249,6 +269,15 @@ STREAM_POOL = 64                   # distinct synthetic frames the stream cycles
 #: rtol = atol/max of the float64 gather session against the float64
 #: fused_exact session (PARITY.md layer 3)
 GATHER_F64_TOL = 1e-8
+#: frames of the phase-14 C-scan (the volume users acquire, autofocus.py:4-5)
+#: and the atol, as a share of the float64 volume's peak, of the card's
+#: 'default' (bf16 operands) and 'int8_direct' volumes of 16 frames against
+#: it (NVIDIA H100 80GB HBM3, 700 W: 1.5e-3 and 2.2e-3 of the peak)
+CSCAN_FRAMES = 512
+CSCAN_TOL = 5e-3
+#: f32 products outside the tensor cores (TF32 off), as 'default' runs the
+#: C-scan's products on bf16-rounded operands
+F32_SIMT_PEAK = 67e12
 #: displayed B-scans per vibrometry hold in phase 13, and the vibrating
 #: source's amplitude (nm) for its third hold
 PEAK_HOLD = 4
@@ -769,7 +798,8 @@ def main() -> int:
     resident_entry = resident_phases(flag_in, rag_in, products["bf16"], card_line, dev)
     stream_launches = streaming_phases(cfg, calib, src, frames, card_line, dev)
     stepwise_phase(cfg, calib, calib64, sessions[("base", "default")], frames, card_line, dev)
-    for key, n in session_state_phase(cfg, calib, src, frames, card_line, dev).items():
+    for key, n in [*session_state_phase(cfg, calib, src, frames, card_line, dev).items(),
+                   *cli_phase(cfg, calib, card_line, dev).items()]:
         if key == ("int8_bscan_display_fused", "s8"):
             int8_entry["launches"] += n
         else:
@@ -1131,7 +1161,7 @@ def streaming_phases(cfg, calib, src, frames, card_line: str, dev: torch.device)
     just before, read just after) and every display byte-equal to a direct
     process_group on the same frames and captures.  Then the profiler's
     breakdown of 16 of those groups streamed again, paced and unpaced, and
-    fdoct_tpu_torch.bench_ingest at the flagship (phases 1-4).  Returns the streamed run's launch count."""
+    fdoct_tpu_torch.bench_ingest at the flagship (phases 1-5).  Returns the streamed run's launch count."""
     from fdoct_tpu_torch import bench_ingest
     from fdoct_tpu_torch.ops import kernels
     from fdoct_tpu_torch.ops.kernels import LAUNCHES
@@ -1211,7 +1241,7 @@ def streaming_phases(cfg, calib, src, frames, card_line: str, dev: torch.device)
     t0 = time.perf_counter()
     bench_ingest.run(dev, card=card_line, log=lambda line: phase("bench_ingest", line))
     torch.cuda.synchronize()
-    phase("bench_ingest", f"phases 1-4 in {time.perf_counter() - t0:.1f} s; launches this run "
+    phase("bench_ingest", f"phases 1-5 in {time.perf_counter() - t0:.1f} s; launches this run "
           f"{ {k: v for k, v in LAUNCHES.items() if v} }")
     return launches[name]
 
@@ -1268,7 +1298,6 @@ def stepwise_phase(cfg, calib, calib64, captured, frames, card_line: str,
               f"(8 frames 512x2048 u8 from host memory to uint8 display on host): "
               f"{describe_session(time_session(sessions[('float32', method)], batches))} | "
               f"{card_line}")
-
 
 
 def session_state_phase(cfg, calib, src, frames, card_line: str, dev: torch.device) -> dict:
@@ -1471,6 +1500,200 @@ def session_state_phase(cfg, calib, src, frames, card_line: str, dev: torch.devi
     bf16_check("spinj bscanbinx=2", res[-1], form_bscan(lin.T * avg, scfg, avg,
                                                          bscanthreshold=s.bscanthreshold))
     timed("spinj 'default' bscanbinx=2", s, bs)
+    return counts
+
+
+def run_cli(argv: list[str], expect: dict, what: str) -> tuple[str, float]:
+    """``fdoct_tpu_torch.cli.main(argv)`` with the launch counts set to 0
+    just before and read just after: exit status 0 and exactly the launches
+    ``expect``.  Returns its stdout and wall seconds."""
+    import contextlib
+    import io
+
+    from fdoct_tpu_torch.cli import main as cli_main
+    from fdoct_tpu_torch.ops import kernels
+    from fdoct_tpu_torch.ops.kernels import LAUNCHES
+
+    out = io.StringIO()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ran = {k: v for k, v in LAUNCHES.items() if v}
+    text = out.getvalue()
+    phase("cli", f"{what}: exit {rc} in {secs:.2f} s (host clock), launches {ran}; stdout: "
+          + " | ".join(ln for ln in text.splitlines() if ln.strip())[:600])
+    check(rc == 0, f"{what} exited {rc}")
+    check(ran == expect, f"{what}: launches {ran}, not {expect}")
+    return text, secs
+
+
+def cli_phase(cfg, calib, card_line: str, dev: torch.device) -> dict:
+    """Phase 14: the command line on the card, then the C-scan's numbers.
+    Returns the launches of each (kernel, operator) on its paths."""
+    import shutil
+    import tempfile
+
+    from fdoct_tpu_torch.autofocus import sweep_volume, sweep_volume_2d
+    from fdoct_tpu_torch.calibration import Calibration
+    from fdoct_tpu_torch.int8direct import Int8DirectPlan
+    from fdoct_tpu_torch.parallel import sharded_cscan_volume, sharded_cscan_volume_int8
+    from fdoct_tpu_torch.pipeline import preprocess
+    from fdoct_tpu_torch.sources.synthetic import SyntheticSource
+    from fdoct_tpu_torch.utils.imageio import read_png
+
+    k1, k2, k3 = "fused_recon_raw_accumulate", "fused_recon_accumulate", "int8_bscan_display_fused"
+    counts: dict = {}
+
+    def add(key, n):
+        counts[key] = counts.get(key, 0) + n
+
+    text, _ = run_cli(["selftest"], {}, "selftest")
+    check("selftest PASSED" in text and "[--] single device" in text, "selftest did not pass")
+    groups = 8
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg_path = tmp / "flagship.json"
+        cfg_path.write_text(cfg.replace(dirdescr="chip_smoke").to_json())
+        base = ["--config", str(cfg_path)]
+        for precision, op in (("default", "bf16"), ("highest", "f32"), ("int8_direct", "bf16")):
+            out = tmp / f"sim_{precision}"
+            frames = groups * cfg.averages
+            run_cli(["sim", *base, "--outdir", str(out), "--frames", str(groups), "--format",
+                     "npz", "--precision", precision], {k2: frames},
+                    f"sim --frames {groups} --precision {precision} (kernel 2 op={op}, per frame)")
+            add((k2, op), frames)
+            (run,) = out.iterdir()
+            with np.load(run / "BscanFFT.npz") as npz:
+                keys = set(npz.files)
+                db = npz["bscan008"]
+            check(keys == {f"bscan{i:03d}" for i in range(1, groups + 1)}
+                  and db.shape == (calib.ndisp, cfg.oph) and bool(np.isfinite(db).all()),
+                  f"sim {precision}: BscanFFT.npz holds {sorted(keys)}")
+            png = read_png(run / "bscan008.png")
+            check(png.shape == (calib.ndisp, cfg.oph) and png.max() > 128,
+                  f"sim {precision}: bscan008.png {png.shape}, max {png.max()}")
+        for precision, name, op in (("default", k1, "bf16"), ("highest", k1, "f32"),
+                                    ("int8_direct", k3, "s8")):
+            text, _ = run_cli(["live", *base, "--outdir", str(tmp / "live"), "--frames", "64",
+                               "--batch", "8", "--precision", precision], {name: groups},
+                              f"live --frames 64 --batch 8 --precision {precision} "
+                              f"({name} op={op}, one launch per group)")
+            check("processed 64 frames" in text, f"live {precision}: {text}")
+            add((name, op), groups)
+        ck = tmp / "sess.npz"
+        run_cli(["live", *base, "--outdir", str(tmp / "live"), "--frames", "16", "--batch", "8",
+                 "--checkpoint", str(ck)], {k1: 2}, "live --checkpoint (kernel 1 bf16)")
+        check(ck.exists(), "live --checkpoint wrote no checkpoint")
+        text, _ = run_cli(["live", *base, "--outdir", str(tmp / "live"), "--frames", "16",
+                           "--batch", "8", "--resume", str(ck)], {k1: 2},
+                          "live --resume (kernel 1 bf16)")
+        add((k1, "bf16"), 4)
+        check("processed 16 frames" in text, f"live --resume: {text}")
+        walls = {}
+        for precision in ("default", "int8_direct"):
+            out = tmp / f"cscan_{precision}"
+            torch.cuda.reset_peak_memory_stats()
+            text, walls[precision] = run_cli(
+                ["cscan", *base, "--outdir", str(out), "--frames", str(CSCAN_FRAMES),
+                 "--dispersion-sweep", "--precision", precision], {},
+                f"cscan --frames {CSCAN_FRAMES} --dispersion-sweep --precision {precision}")
+            peak_cli = torch.cuda.max_memory_allocated()
+            (run,) = out.iterdir()
+            with np.load(run / "BscanFFT.npz") as npz:
+                vol_shape, surf_shape = npz["cscan"].shape, npz["surface"].shape
+                finite = bool(np.isfinite(npz["cscan"][::64]).all())
+            check(vol_shape == (CSCAN_FRAMES, calib.ndisp, cfg.oph)
+                  and surf_shape == (CSCAN_FRAMES, cfg.oph) and finite
+                  and "dispersion sweep: a2 = " in text
+                  and all((run / n).exists() for n in ("enface_mip.png", "surface_map.png",
+                                                        "cscan_frame000.png")),
+                  f"cscan {precision}: volume {vol_shape}, surface {surf_shape}")
+            phase("cli", f"cscan {precision}: volume {vol_shape} float32 in cscan.npz, surface "
+                  f"{surf_shape}; peak device memory of the whole command "
+                  f"{peak_cli / 2**30:.3f} GiB | {card_line}")
+            shutil.rmtree(run)                        # 512 MiB of volume on the disk
+        text, _ = run_cli(["sweep", *base, "--joint", "--out", str(tmp / "focused.png")], {},
+                          "sweep --joint")
+        check("best a2 = " in text and (tmp / "focused.png").exists(), "sweep --joint")
+
+    # the C-scan's numbers: the CLI's source alone, the volume on the card
+    clean = SyntheticSource(height=cfg.height, width=cfg.width, lambda0=cfg.lambda0,
+                            dlambda=cfg.lambdabw * 2.3548 / 4.0)
+    it = clean.frames()
+    t0 = time.perf_counter()
+    volume_raw = np.stack([next(it) for _ in range(CSCAN_FRAMES)])
+    source_s = time.perf_counter() - t0
+    phase("cli", f"cscan wall seconds (frames from the synthetic source in host memory to "
+          f"cscan.npz, host clock): default {walls['default']:.2f}, int8_direct "
+          f"{walls['int8_direct']:.2f}; of which the synthetic source's {CSCAN_FRAMES} frames "
+          f"alone take {source_s:.2f} s | {card_line}")
+    fr = torch.as_tensor(volume_raw).to(dev)
+    bg = torch.clamp_min(preprocess(torch.as_tensor(clean.background()).to(dev), cfg), 1.0)
+    pi = torch.zeros_like(bg)
+    c8 = cfg.replace(matmul_precision="int8_direct")
+    plan = Int8DirectPlan.create(calib, c8, bg, pi, device=dev)
+    macs = 2 * CSCAN_FRAMES * cfg.oph * cfg.opw * calib.ndisp
+    nbytes = fr.numel() + 4 * CSCAN_FRAMES * calib.ndisp * cfg.oph     # u8 in, f32 volume out
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    routes = {"default": (lambda: sharded_cscan_volume(fr, bg, pi, calib, cfg), "bf16"),
+              "int8_direct": (lambda: sharded_cscan_volume_int8(fr, plan, c8), "s8")}
+    for precision, (fn, op) in routes.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        vol = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        check(tuple(vol.shape) == (CSCAN_FRAMES, calib.ndisp, cfg.oph)
+              and bool(torch.isfinite(vol).all()), f"volume {precision}")
+        del vol
+        med, lo, hi = cuda_ms(fn, runs=5, warmup=1)
+        bound = {o: 2 * macs / peak_ops * 1e3
+                 for o, peak_ops in (("bf16", PEAK["bf16"]), ("s8", PEAK["s8"]),
+                                     ("f32", F32_SIMT_PEAK))}
+        phase("cli", f"volume {precision} F={CSCAN_FRAMES} ({'torch.matmul f32 on bf16-rounded '
+              'operands' if op == 'bf16' else 'two _int_mm s8 products'}): device median "
+              f"{med:.3f} ms (min {lo:.3f}, max {hi:.3f}; 5 calls, CUDA events, frames on the "
+              f"card), {CSCAN_FRAMES / med * 1e3:.1f} frames/s, peak device memory "
+              f"{peak / 2**30:.3f} GiB above the frames; bound {macs / 1e12:.3f} T multiply-adds: "
+              f"{bound['bf16']:.3f} ms at the bf16 peak, {bound['s8']:.3f} ms at the s8 peak, "
+              f"{bound['f32']:.3f} ms as f32 outside the tensor cores ({F32_SIMT_PEAK / 1e12:.0f} "
+              f"TFLOP/s); bytes {bytes_ms:.3f} ms | {card_line}")
+
+    # the card's volume of 16 noisy frames against the port's float64 volume
+    noisy = SyntheticSource(height=cfg.height, width=cfg.width, lambda0=cfg.lambda0,
+                            dlambda=cfg.lambdabw * 2.3548 / 4.0, noise=0.02, seed=SEED + 7)
+    it = noisy.frames()
+    f16 = torch.as_tensor(np.stack([next(it) for _ in range(16)])).to(dev)
+    bgn = torch.clamp_min(preprocess(torch.as_tensor(noisy.background()).to(dev), cfg), 1.0)
+    cfg64 = cfg.replace(dtype="float64")
+    want = sharded_cscan_volume(f16, bgn.double(), torch.zeros_like(bgn).double(),
+                                Calibration.create(cfg64, dev), cfg64)
+    atol = CSCAN_TOL * float(want.abs().max())
+    got = {"default": sharded_cscan_volume(f16, bgn, torch.zeros_like(bgn), calib, cfg),
+           "int8_direct": sharded_cscan_volume_int8(
+               f16, Int8DirectPlan.create(calib, c8, bgn, torch.zeros_like(bgn), device=dev), c8)}
+    for precision, vol in got.items():
+        res = compare(vol, want, 0.0, atol)
+        phase("cli", f"volume {precision} of 16 noisy frames vs the float64 volume on the card: "
+              f"max_abs_err {res['max_abs_err']:.3e} = {res['max_abs_err'] / atol * CSCAN_TOL:.3e} "
+              f"of the peak, worst {res['worst_share_of_tol']:.3e} of tol (atol {CSCAN_TOL} of "
+              f"the peak)")
+        check(res["finite"] and res["worst_share_of_tol"] <= 1.0,
+              f"the {precision} volume disagrees with float64")
+
+    # the dispersion sweeps
+    grid = torch.linspace(-8.0, 8.0, 33, dtype=torch.float64)
+    a3 = torch.linspace(-3.0, 3.0, 16, dtype=torch.float64)
+    one = fr[:1]
+    sweep = cuda_ms(lambda: sweep_volume(one, bg, pi, calib, cfg, grid), runs=10, warmup=2)
+    joint = cuda_ms(lambda: sweep_volume_2d(one, bg, pi, calib, cfg, grid, a3), runs=10, warmup=2)
+    phase("cli", f"dispersion sweep, 33 candidates on 32 rows (one batched IFFT, scores and "
+          f"winner to the host): median {sweep[0]:.3f} ms (min {sweep[1]:.3f}); joint 33 x 16: "
+          f"median {joint[0]:.3f} ms (min {joint[1]:.3f}); 10 calls, CUDA events | {card_line}")
     return counts
 
 

@@ -5,7 +5,8 @@ NVIDIA GPU, with the fused group reconstruction as hand-written Hopper
 kernels (``csrc/fused_recon.cu``).  It imports ``torch`` and never ``jax``,
 and nothing of ``fdoct_tpu``: where it needs one of that package's pure host
 modules (configuration, sources, sinks, plugins, image and data files,
-profiling meters) it keeps its own copy.
+profiling meters, the camera ring) it keeps its own copy.  Its command line
+is ``fdoct-torch`` (``python -m fdoct_tpu_torch``, :mod:`fdoct_tpu_torch.cli`).
 """
 
 from fdoct_tpu_torch.calibration import Calibration

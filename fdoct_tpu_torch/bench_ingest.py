@@ -1,6 +1,5 @@
 """Host→device ingest benchmark of the port, the counterpart of
-``scripts/bench_ingest.py`` (phases 1-4; its phase 5, the ring→device copy,
-needs the camera ring reader, which is not ported yet).
+``scripts/bench_ingest.py`` (its phases 1-5).
 
 1. H2D bandwidth of flagship batches (8 frames of 512 × 2048 u8, 8 MiB):
    a copy from pageable memory (``torch.as_tensor(...).to(dev)``, what the
@@ -16,12 +15,22 @@ needs the camera ring reader, which is not ported yet).
    ``numfftpoints`` 720, 360 depths; BscanFFTspinjnt.ini) through the same
    pipeline: sustained fps against the 500 fps target, with the bandwidth
    500 fps needs and the rate the measured pinned link allows;
-4. the bandwidth the flagship workload needs at 500 fps, beside the link.
+4. the bandwidth the flagship workload needs at 500 fps, beside the link;
+5. the camera ring to the device: a batch of flagship frames pushed into a
+   native shared-memory ring (``sources.camera.RingWriter``, as the capture
+   daemon writes it) and read by a :class:`~fdoct_tpu_torch.sources.camera.
+   CameraSource` attached to it, each frame as it arrives, then the batch's
+   H2D copy: through ``RingReader.latest_into`` straight into a pinned slot
+   of ``streaming._PinnedRing`` and a ``non_blocking`` copy on a side stream
+   (the route ``run_streaming`` takes), against ``RingReader.latest`` (a
+   fresh array per frame), ``np.stack`` and a pageable copy.  Every device
+   batch is checked to equal the pushed frames.
 
 Every streamed display is checked against a direct ``reconstruct_bscan`` of
 the same frames, byte for byte (a pinned slot refilled too early would show
 here).  Times (CUDA only) are CUDA-event medians and minima of 20 copies, and
-host-clock spans of whole streamed runs; on the CPU everything is computed
+host-clock spans of whole streamed runs and of phase 5's batches (20 after 3
+warm-up, each ending in a synchronise); on the CPU everything is computed
 and checked, and no time is taken.  Prints one JSON object per phase.
 
     python -m fdoct_tpu_torch.bench_ingest [--device cuda]
@@ -34,8 +43,10 @@ import argparse
 import json
 import statistics
 import sys
+import tempfile
 import time
 from collections.abc import Callable
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -44,7 +55,8 @@ from fdoct_tpu_torch.bench_resident import card_line
 from fdoct_tpu_torch.calibration import Calibration
 from fdoct_tpu_torch.config import PipelineConfig
 from fdoct_tpu_torch.pipeline import reconstruct_bscan
-from fdoct_tpu_torch.streaming import run_streaming
+from fdoct_tpu_torch.sources.camera import CameraSource, RingWriter
+from fdoct_tpu_torch.streaming import _PinnedRing, run_streaming
 
 FLAGSHIP = dict(height=512, width=2048, numfftpoints=2048, numdisplaypoints=512)
 FLIR = dict(height=480, width=720, numfftpoints=720, numdisplaypoints=360)
@@ -151,10 +163,79 @@ def streamed(device: torch.device, shape: dict) -> dict:
     return {**out, "seconds": dt, "fps": frames / dt, "ascans_per_s": frames * rows / dt}
 
 
+def ring_to_device(device: torch.device, shape: dict) -> dict:
+    """Phase 5: a batch from the camera ring to the device, per frame."""
+    rows, cols = shape["height"], shape["width"]
+    pool = np.random.default_rng(SEED + 2).integers(0, 255, (BATCH, rows, cols),
+                                                    dtype=np.uint8)
+    timed = device.type == "cuda"
+    out = {"metric": "ring_to_device_ms_per_frame", "batch": BATCH, "shape": [rows, cols]}
+    with tempfile.TemporaryDirectory() as td:
+        ring_path = Path(td) / "bench.ring"
+        writer = RingWriter(ring_path, cols, rows, bpp=8, nslots=BATCH + 2)
+        cam = CameraSource(ring_path)                 # attaches; no daemon
+        try:
+            def fill(buf: np.ndarray) -> None:
+                # push/read interleaved: latest_into takes the NEWEST unseen
+                # frame, so the reader keeps up with the writer, as live does
+                for k, frame in enumerate(pool):
+                    writer.push(frame)
+                    if not cam.reader.latest_into(buf[k], timeout_s=2.0):
+                        raise RuntimeError("the ring yielded no frame")
+
+            if not timed:
+                buf = np.empty_like(pool)
+                fill(buf)
+                if not torch.equal(torch.from_numpy(buf).to(device), torch.from_numpy(pool)):
+                    raise RuntimeError("the ring's frames differ from the pushed ones")
+                return {**out, "frames_equal": True, "pinned_slot": "not measured",
+                        "copying": "not measured"}
+            ring = _PinnedRing(BATCH)
+            copy_stream = torch.cuda.Stream(device)
+
+            def pinned_slot() -> torch.Tensor:
+                ring.advance()
+                fill(ring.take(pool[0]))
+                dev, copied = ring.copy(BATCH, device, copy_stream)
+                copied.synchronize()
+                return dev
+
+            def copying() -> torch.Tensor:
+                frames = []
+                for frame in pool:
+                    writer.push(frame)
+                    got = cam.reader.latest(timeout_s=2.0)
+                    if got is None:
+                        raise RuntimeError("the ring yielded no frame")
+                    frames.append(got)
+                dev = torch.as_tensor(np.stack(frames)).to(device)
+                torch.cuda.synchronize(device)
+                return dev
+
+            want = torch.from_numpy(pool).to(device)
+            for name, route in (("pinned_slot", pinned_slot), ("copying", copying)):
+                times = []
+                for k in range(3 + COPIES):
+                    t0 = time.perf_counter()
+                    got = route()
+                    times.append((time.perf_counter() - t0) * 1e3 / BATCH)
+                    if not torch.equal(got, want):
+                        raise RuntimeError(f"{name}: the device batch differs from the pushed "
+                                           "frames")
+                out[name] = {"median_ms": statistics.median(times[3:]), "min_ms": min(times[3:]),
+                             "clock": "host, per frame, each batch ending in a synchronise"}
+            return {**out, "frames_equal": True,
+                    "speedup_at_median": out["copying"]["median_ms"]
+                    / out["pinned_slot"]["median_ms"]}
+        finally:
+            cam.close()
+            writer.close()
+
+
 def run(device: torch.device | str = "cuda", *, small: bool = False, card: str | None = None,
         log: Callable[[str], None] = print) -> None:
-    """Phases 1-4 on ``device``, one JSON object each to ``log``.  Raises if
-    a streamed display differs from its direct twin."""
+    """Phases 1-5 on ``device``, one JSON object each to ``log``.  Raises if
+    a streamed display or a ring batch differs from its direct twin."""
     device = torch.device(device)
     timed = device.type == "cuda"
     if timed:
@@ -181,6 +262,7 @@ def run(device: torch.device | str = "cuda", *, small: bool = False, card: str |
           "share_of_pinned_link": need / link if timed else "not measured",
           "share_of_pageable_link": need / bw["pageable"]["MBps_best"] if timed
           else "not measured"})
+    emit(ring_to_device(device, flag))
 
 
 def main(argv: list[str] | None = None) -> int:

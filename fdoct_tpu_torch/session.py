@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import subprocess
+import sys
 from typing import Any, Callable
 
 import numpy as np
@@ -386,16 +387,16 @@ class Session:
 
     def _spawn_offline_tool(self) -> None:
         """Start the offline reconstruction tool with argv {dirname,
-        manualaverages} (BscanFFTspinj.cpp:2389-2412).  Without
-        ``cfg.offline_tool_path`` the JAX package runs its own offline CLI;
-        the port has none yet."""
-        if not self.cfg.offline_tool_path:
-            raise NotImplementedError("the offline tool needs cfg.offline_tool_path: "
-                                      "fdoct_tpu_torch has no offline CLI yet (ROADMAP "
-                                      "Queue 1 item 10)")
+        manualaverages} (BscanFFTspinj.cpp:2389-2412): ``cfg.offline_tool_path``,
+        or without one the port's own ``offline`` command on this session's
+        device type."""
         dirname = str(self.sink.dir) if self.sink is not None else "."
-        self._offline_proc = subprocess.Popen([self.cfg.offline_tool_path, dirname,
-                                               str(self.cfg.manualaverages)])
+        if self.cfg.offline_tool_path:
+            cmd = [self.cfg.offline_tool_path, dirname, str(self.cfg.manualaverages)]
+        else:
+            cmd = [sys.executable, "-m", "fdoct_tpu_torch.cli", "offline", dirname,
+                   str(self.cfg.manualaverages), "--device", self.device.type]
+        self._offline_proc = subprocess.Popen(cmd)
         self._say(f"spawned offline tool for {dirname}")
 
     def _handle_trig(self, raw: torch.Tensor) -> None:

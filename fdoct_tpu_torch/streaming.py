@@ -188,6 +188,21 @@ class _PinnedRing:
             self.events[self.i].synchronize()    # never refill a slot under copy
         return self.views[self.i]
 
+    def advance(self) -> None:
+        """Move to the next slot; :meth:`take` then returns it."""
+        self.i = (self.i + 1) % PINNED_SLOTS
+
+    def copy(self, k: int, device: torch.device,
+             stream: torch.cuda.Stream) -> tuple[torch.Tensor, torch.cuda.Event]:
+        """The first ``k`` frames of the current slot on ``device``: the copy
+        issued on ``stream`` (``non_blocking``) and the event recorded after
+        it, which :meth:`take` waits on before the slot is refilled."""
+        with torch.cuda.stream(stream):
+            dev = self.slots[self.i][:k].to(device, non_blocking=True)
+            self.events[self.i].record(stream)
+        self.used[self.i] = True
+        return dev, self.events[self.i]
+
 
 class _Feed:
     """Host batches → device batches for :func:`run_streaming`."""
@@ -213,17 +228,11 @@ class _Feed:
             if self.put is not None:
                 return self.put(host), None
             return torch.as_tensor(host).to(self.device), None
-        ring = self.ring
-        ring.i = (ring.i + 1) % PINNED_SLOTS
-        host = self.streamer.get_batch(self.batch, out=ring.take)
+        self.ring.advance()
+        host = self.streamer.get_batch(self.batch, out=self.ring.take)
         if host is None:
             return None
-        i, k = ring.i, len(host)
-        with torch.cuda.stream(self.copy_stream):
-            dev = ring.slots[i][:k].to(self.device, non_blocking=True)
-            ring.events[i].record(self.copy_stream)
-        ring.used[i] = True
-        return dev, ring.events[i]
+        return self.ring.copy(len(host), self.device, self.copy_stream)
 
     def ready(self, item: tuple[torch.Tensor, torch.cuda.Event | None]) -> torch.Tensor:
         """The batch, once the compute stream waits on its copy."""

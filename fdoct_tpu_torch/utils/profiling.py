@@ -2,16 +2,19 @@
 
 The reference's tracing is a 5-second FPS counter and a max-intensity
 readout drawn into its Status window (BscanFFT.cpp:1100-1119); here the
-same meter is a small object.  The port's own copy of ``FpsMeter`` and
-``StageTimer`` from ``fdoct_tpu/utils/profiling.py`` (standard library
-only); that module's ``device_trace`` wraps ``jax.profiler`` and has no
-counterpart here yet.
+same meter is a small object, plus ``torch.profiler`` for real traces.  The
+port's own copy of ``FpsMeter`` and ``StageTimer`` from
+``fdoct_tpu/utils/profiling.py`` (standard library only); its
+``device_trace`` is that module's ``jax.profiler`` wrapper on
+``torch.profiler``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
+from pathlib import Path
 
 
 class FpsMeter:
@@ -60,3 +63,27 @@ class StageTimer:
             n = self.counts[name]
             lines.append(f"{name:24s} {tot:8.3f}s total {tot / n * 1e3:8.2f}ms avg x{n}")
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str | Path):
+    """``torch.profiler`` over the enclosed work, the host's activity and,
+    where PyTorch sees a card, the device's; written into ``logdir`` (made if
+    missing) as a Chrome trace, ``trace_<pid>_<unix ms>.json``, when the block
+    ends, on an exception too (open with Perfetto or chrome://tracing).
+    Yields the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    out = Path(logdir)
+    out.mkdir(parents=True, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(str(out / f"trace_{os.getpid()}_{int(time.time() * 1e3)}.json"))

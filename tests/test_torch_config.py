@@ -142,6 +142,21 @@ def test_stage_timer_behaves_the_same():
     assert all(len(tm.report().splitlines()) == 3 for tm in timers)
 
 
-def test_port_profiling_has_no_device_trace():
-    assert not hasattr(tprofiling, "device_trace")
+def test_port_profiling_has_no_device_trace(tmp_path):
+    """The port's ``device_trace`` is on ``torch.profiler``, not on
+    ``jax.profiler`` as the JAX package's: it writes one Chrome trace into
+    its directory that holds the traced work, on an exception as well."""
+    import json
+
+    import torch
     assert hasattr(jprofiling, "device_trace")
+    with tprofiling.device_trace(tmp_path / "ok"):
+        torch.ones(64).sum()
+    with pytest.raises(KeyError):
+        with tprofiling.device_trace(tmp_path / "raised"):
+            torch.zeros(8).add_(1)
+            raise KeyError("x")
+    for sub in ("ok", "raised"):
+        (trace,) = (tmp_path / sub).glob("trace_*.json")
+        events = json.loads(trace.read_text())["traceEvents"]
+        assert any(e.get("name", "").startswith("aten::") for e in events), sub

@@ -155,19 +155,24 @@ def test_fast_path_reason_is_said_once(source):
 
 
 @pytest.mark.parametrize("what", ["mesh", "offline_tool"])
-def test_unported_session_features_raise(source, what):
-    """A device mesh (ROADMAP Queue 1 item 12), and the spinj 'y' key with no
-    offline_tool_path, which in the JAX package runs its own offline CLI
-    (item 10), are not ported."""
+def test_unported_session_features_raise(source, what, monkeypatch):
+    """A device mesh (ROADMAP Queue 1 item 12) is not ported.  The spinj 'y'
+    key with no offline_tool_path, which raised until the port had a CLI,
+    now starts the port's own ``offline`` command on the session's device
+    type, as the JAX session starts the JAX CLI's (tests/test_torch_cli.py
+    runs that command)."""
     src, frames = source
     _, tcfg = configs("base", "highest64")
     if what == "mesh":
         with pytest.raises(NotImplementedError, match="mesh.*item 12"):
             Session(tcfg, device="cpu", mesh=object())
         return
-    s = Session(tcfg, device="cpu", variant="spinj")
-    with pytest.raises(NotImplementedError, match="offline_tool_path.*item 10"):
-        s.key("y")
+    cmds = []
+    monkeypatch.setattr(subprocess, "Popen", lambda cmd: cmds.append(cmd))
+    s = Session(tcfg.replace(manualaverages=3), device="cpu", variant="spinj")
+    s.key("y")
+    assert cmds == [[sys.executable, "-m", "fdoct_tpu_torch.cli", "offline", ".", "3",
+                     "--device", "cpu"]]
 
 
 @pytest.mark.parametrize("variant", ["base", "spinj"])

@@ -376,7 +376,9 @@ def test_streamer_threads_end():
 
 def test_bench_ingest_checks_on_the_cpu(capsys):
     """python -m fdoct_tpu_torch.bench_ingest --device cpu --small: phases
-    1-4, every streamed display equal to its direct twin, no times."""
+    1-5, every streamed display equal to its direct twin, the camera ring's
+    frames (phase 5, through the native ring of native/) equal to the pushed
+    ones, no times."""
     import json
 
     from fdoct_tpu_torch import bench_ingest
@@ -385,11 +387,13 @@ def test_bench_ingest_checks_on_the_cpu(capsys):
     lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert [line["metric"] for line in lines] == [
         "h2d_bandwidth", "ingest_inclusive_ascans_per_sec", "triggered_capture_emulation_fps",
-        "flagship_500fps_bandwidth_needed"]
+        "flagship_500fps_bandwidth_needed", "ring_to_device_ms_per_frame"]
     for line in lines[1:3]:
         assert line["displays_equal_direct"] and line["dropped"] == 0
         assert line["batches"] == bench_ingest.N_BATCHES and line["seconds"] == "not measured"
     assert lines[3]["value"] == 500 * 32 * 256 / 1e6
+    assert lines[4]["frames_equal"] and lines[4]["shape"] == [32, 256]
+    assert lines[4]["pinned_slot"] == lines[4]["copying"] == "not measured"
 
 
 def test_bench_ingest_fails_on_a_wrong_display(monkeypatch):
