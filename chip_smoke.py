@@ -161,13 +161,33 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    (33 x 16). The card's volume of 16 seeded noisy frames is held to the
    port's float64 volume of the same frames on the card: 'default' and
    'int8_direct' at atol CSCAN_TOL of the float64 peak.
+15. viewer and analysis — the live viewer (fdoct_tpu_torch.viewer,
+   viewer_server) and the analysis modules at the flagship config: a 'base'
+   'default' Session drives Viewer(mode="http", port=0) as `live` does for
+   VIEWER_GROUPS groups (counts reset around the loop: one kernel 1 bf16
+   launch per group); a POSTed ']' key, config edit and ROI drag reach the
+   session; GET /frame/bscan.png decodes to render_bscan of the last group
+   byte for byte; /status.json lists show, status and bscan.  Then `live
+   --frames 64 --batch 8` with --viewer DIR, with --viewer-mode http
+   --viewer-port 0 (its URL on stderr) and with --viewer DIR --precision
+   int8_direct (8 launches of kernel 1 or kernel 3; the windows decode),
+   the host-clock time per group of process_group + show_session_frame with
+   no viewer, files and http (turns N F H H F N), and each window's PNG
+   encode.  Doppler and OCT-A on 8 flagship frames (a scatterer moving
+   DOPPLER_STEP_NM a frame; a jittering and a static one) at 'default' and
+   'highest' against the float64 Doppler on the card (DOPPLER_TOL_NM,
+   OCTA_TOL, the step within DOPPLER_STEP_TOL), the spectrometer (512
+   A-scans of 3648 px, measured lambda, nfft 3 x 3648) and the three Wang
+   estimators (512 rows, n = 1024) in float32 against float64 numpy at
+   ANALYSIS_RTOL, each launching no kernel, with device ms (CUDA events)
+   and Doppler's bound (2 x 8 x 512 x 2048 x 512 multiply-adds).
 
 The line before the last is {"kernels": [...]}, one entry per instance
 (kernels 1-2 each with a bf16 and an f32 operator, kernel 3, the resident
 kernel): every time in it was measured in this run; "ms"/"plain_ms" are
 single calls and "ms_b2b"/"plain_ms_b2b" back-to-back calls (phase 5);
-"launches" is the count from the instance's session paths, phases 4, 13
-and 14 (for the resident kernel, which no session runs, the count from
+"launches" is the count from the instance's session paths, phases 4, 13,
+14 and 15 (for the resident kernel, which no session runs, the count from
 phase 10's bench_resident run, with the counts set to 0 just before it;
 its entry adds
 its schedule, streamed times and kernel 1 bf16's times); kernel 1 bf16's
@@ -282,6 +302,27 @@ F32_SIMT_PEAK = 67e12
 #: source's amplitude (nm) for its third hold
 PEAK_HOLD = 4
 VIB_NM = 60.0
+#: phase 15: groups of the http viewer loop and of each timed turn
+VIEWER_GROUPS = 8
+VIEWER_TIMED_GROUPS = 16
+#: phase 15's Doppler frames: a scatterer moving DOPPLER_STEP_NM a frame, its
+#: velocity at the scatterer within DOPPLER_STEP_TOL of the step; the worst
+#: velocity error (nm) against the float64 Doppler on the card where the
+#: magnitude is above twice the floor, and OCT-A's worst speckle-variance error
+#: there as a share of its peak, at 'default' (bf16 operands) and 'highest'
+#: (an emulation on the CPU read 0.0053 nm and 1.8e-3 for 'default', 3.4e-6 nm
+#: and 1.2e-6 for 'highest')
+DOPPLER_FRAMES = 8
+DOPPLER_STEP_NM = 30.0
+DOPPLER_STEP_TOL = 0.02
+DOPPLER_TOL_NM = {"default": 0.1, "highest": 1e-3}
+OCTA_TOL = {"default": 2e-2, "highest": 1e-4}
+#: phase 15's spectrometer (the reference's Ocean Optics width) and Wang
+#: estimators, float32 on the card against float64 numpy at rtol = atol/max
+#: ANALYSIS_RTOL
+SPEC_ASCANS, SPEC_PIXELS = 512, 3648
+WANG_ROWS, WANG_N = 512, 1024
+ANALYSIS_RTOL = 1e-5
 
 
 def check(ok: bool, what: str) -> None:
@@ -799,11 +840,13 @@ def main() -> int:
     stream_launches = streaming_phases(cfg, calib, src, frames, card_line, dev)
     stepwise_phase(cfg, calib, calib64, sessions[("base", "default")], frames, card_line, dev)
     for key, n in [*session_state_phase(cfg, calib, src, frames, card_line, dev).items(),
-                   *cli_phase(cfg, calib, card_line, dev).items()]:
+                   *cli_phase(cfg, calib, card_line, dev).items(),
+                   *viewer_phase(cfg, calib, src, frames, card_line, dev).items()]:
         if key == ("int8_bscan_display_fused", "s8"):
             int8_entry["launches"] += n
         else:
             launches[key] += n
+    analysis_phase(cfg, calib, calib64, card_line, dev)
 
     entries = []
     for name in runners:
@@ -1695,6 +1738,337 @@ def cli_phase(cfg, calib, card_line: str, dev: torch.device) -> dict:
           f"winner to the host): median {sweep[0]:.3f} ms (min {sweep[1]:.3f}); joint 33 x 16: "
           f"median {joint[0]:.3f} ms (min {joint[1]:.3f}); 10 calls, CUDA events | {card_line}")
     return counts
+
+
+def http_request(port: int, path: str, body: bytes | None = None) -> tuple[int, bytes]:
+    """(status, body) of GET ``path`` (or POST ``body``) on the local viewer."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=5) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def host_ms(fn, runs: int = 20) -> tuple[float, float]:
+    """Median and min host-clock ms of ``runs`` calls of ``fn``, after one."""
+    fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), min(times)
+
+
+def viewer_phase(cfg, calib, src, frames, card_line: str, dev: torch.device) -> dict:
+    """Phase 15, the live viewer: an http Viewer driven by a 'base' 'default'
+    session as the live loop drives it, then `live --viewer` on the command
+    line, then the group time with and without a viewer and the PNG encode
+    of each window.  Returns the launches of each (kernel, operator)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from fdoct_tpu_torch.ops import kernels
+    from fdoct_tpu_torch.ops.kernels import LAUNCHES
+    from fdoct_tpu_torch.session import Session
+    from fdoct_tpu_torch.utils.imageio import decode_png, encode_png, read_png
+    from fdoct_tpu_torch.viewer import Viewer, render_bscan, render_status
+
+    k1, k3 = "fused_recon_raw_accumulate", "int8_bscan_display_fused"
+    scfg = cfg.replace(matmul_precision="default", donotnormalize=True)
+    s = captured_session(Session, scfg, "base", src, frames, calib, dev)
+    groups = [np.stack([next(frames) for _ in range(cfg.averages)]) for _ in range(VIEWER_GROUPS)]
+    v = Viewer(mode="http", port=0)
+    try:
+        v.set_config_provider(s.config_snapshot)
+        port = v.server.port
+        # remote input posted before these groups, drained where the live
+        # loop drains it (cli.cmd_live), and what each must have changed
+        threshold = s.bscanthreshold
+        posts = {2: ("/key", b"]", lambda: s.bscanthreshold == threshold + 1.0),
+                 4: ("/config", json.dumps({"bscanthreshold": "-42.5"}).encode(),
+                     lambda: s.bscanthreshold == -42.5),
+                 6: ("/roi", json.dumps({"window": "bscan", "x": 10, "y": 20, "w": 30,
+                                         "h": 8}).encode(),
+                     lambda: (s.ascanat, s.vertposROI, s.widthROI) == (10, 20, 30))}
+        kernels.reset_launches()
+        for g, raws in enumerate(groups):
+            if g in posts:
+                code, body = http_request(port, *posts[g][:2])
+                check(code == 200, f"POST {posts[g][0]}: {code} {body!r}")
+            for ch in v.pop_keys():
+                s.key(ch)
+            for roi in v.pop_rois():
+                s.set_roi(roi["x"], roi["y"], roi["w"], roi["h"])
+            for upd in v.pop_config():
+                s.apply_config(upd)
+            if g in posts:
+                check(posts[g][2](), f"POST {posts[g][0]} did not reach the session")
+            r = s.process_group(raws)[-1]
+            v.show_session_frame(s, raws[-1], r)
+        torch.cuda.synchronize()
+        ran = {k: n for k, n in LAUNCHES.items() if n}
+        check(ran == {k1: VIEWER_GROUPS}, f"viewer loop: launches {ran}")
+        # the server publishes a window at most every 1/max_fps s and drops
+        # the rest: publish the last group once more after that period
+        time.sleep(0.05)
+        v.show_session_frame(s, groups[-1][-1], r)
+        code, png = http_request(port, "/frame/bscan.png")
+        served = decode_png(png)
+        check(code == 200 and np.array_equal(served, render_bscan(r.bscandisp, s.ascanat)),
+              "GET /frame/bscan.png is not the session's B-scan")
+        windows = json.loads(http_request(port, "/status.json")[1])["windows"]
+        check({"show", "status", "bscan"} <= set(windows), f"/status.json windows {windows}")
+        live = json.loads(http_request(port, "/config")[1])["live"]
+        check(live["bscanthreshold"] == -42.5, f"GET /config {live}")
+    finally:
+        v.close()
+    phase("viewer", f"http Viewer behind a base 'default' session, {VIEWER_GROUPS} groups: "
+          f"launches {ran}; GET /frame/bscan.png {served.shape} equals render_bscan of the last "
+          f"group byte for byte; windows {windows}; POST /key ']' moved bscanthreshold "
+          f"{threshold} -> {threshold + 1.0}, POST /config set -42.5, POST /roi set ascanat 10")
+    counts = {(k1, "bf16"): VIEWER_GROUPS}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg_path = tmp / "flagship.json"
+        cfg_path.write_text(cfg.replace(dirdescr="chip_smoke").to_json())
+        base = ["live", "--config", str(cfg_path), "--outdir", str(tmp / "live"), "--frames",
+                "64", "--batch", "8"]
+        for what, extra, name, op in (
+                ("files", ["--viewer", str(tmp / "view_default")], k1, "bf16"),
+                ("http", ["--viewer-mode", "http", "--viewer-port", "0"], k1, "bf16"),
+                ("files int8_direct", ["--viewer", str(tmp / "view_int8"), "--precision",
+                                       "int8_direct"], k3, "s8")):
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                text, _ = run_cli(base + extra, {name: 8},
+                                  f"live --frames 64 --batch 8 {' '.join(extra[:2])} "
+                                  f"({what}: {name}, one launch per group)")
+            check("processed 64 frames" in text, f"live {what}: {text}")
+            counts[(name, op)] = counts.get((name, op), 0) + 8
+            if what == "http":
+                check("live viewer at http://127.0.0.1:" in err.getvalue(),
+                      f"live --viewer-mode http printed no URL: {err.getvalue()[-300:]}")
+                continue
+            shapes = {n: read_png(Path(extra[1]) / f"{n}.png").shape
+                      for n in ("show", "status", "bscan")}
+            check(shapes == {"show": (cfg.oph, cfg.opw), "status": (300, 600),
+                             "bscan": (calib.ndisp, cfg.oph, 3)}, f"live {what}: {shapes}")
+            phase("viewer", f"live {what}: windows decode as {shapes}")
+
+        # the group time with each viewer: process_group + show_session_frame
+        # in one call, one group a call, turns N F H H F N
+        ms = {"none": [], "files": [], "http": []}
+        for mode in ("none", "files", "http", "http", "files", "none"):
+            view = (None if mode == "none" else
+                    Viewer(mode=mode, outdir=tmp / "timed", port=0))
+            try:
+                def step(i):
+                    r = s.process_group(groups[i % len(groups)])[-1]
+                    if view is not None:
+                        view.show_session_frame(s, groups[i % len(groups)][-1], r)
+                step(0)
+                for i in range(VIEWER_TIMED_GROUPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step(i)
+                    ms[mode].append((time.perf_counter() - t0) * 1e3)
+            finally:
+                if view is not None:
+                    view.close()
+        phase("viewer", "Session.process_group + show_session_frame per group (base 'default', "
+              f"8 frames 512x2048 u8; host clock, {VIEWER_TIMED_GROUPS} groups a turn, turns N F H "
+              "H F N): " + "; ".join(
+                  f"{mode} median {statistics.median(t):.3f} ms (min {min(t):.3f}, max "
+                  f"{max(t):.3f})" for mode, t in ms.items()) + f" | {card_line}")
+
+    images = {"show": groups[-1][-1], "bscan": render_bscan(r.bscandisp, s.ascanat),
+              "status": render_status(s.status[-6:])}
+    enc = {n: host_ms(lambda img=img: encode_png(img)) for n, img in images.items()}
+    rend = {"bscan": host_ms(lambda: render_bscan(r.bscandisp, s.ascanat)),
+            "status": host_ms(lambda: render_status(s.status[-6:]))}
+    phase("viewer", "encode_png per window (zlib level 1; host clock, median of 20): " + "; ".join(
+        f"{n} {images[n].shape} {t[0]:.3f} ms (min {t[1]:.3f}), {len(encode_png(images[n]))} "
+        f"bytes" for n, t in enc.items()) + "; render_bscan " + f"{rend['bscan'][0]:.3f} ms, "
+        f"render_status {rend['status'][0]:.3f} ms | {card_line}")
+    return counts
+
+
+def synthetic_frames(cfg, depths_of_frame, reflectivities) -> tuple[np.ndarray, np.ndarray]:
+    """One flagship frame per entry of ``depths_of_frame`` (µm), built as
+    tests/test_doppler.py builds them, and the background S(k) floored at 1."""
+    from fdoct_tpu_torch.sources.synthetic import SyntheticSource
+
+    frames, bg = [], None
+    for depths in depths_of_frame:
+        src = SyntheticSource(height=cfg.height, width=cfg.width, lambda0=cfg.lambda0,
+                    dlambda=cfg.lambdabw * 2.3548 / 4.0, depths_um=depths,
+                    reflectivities=reflectivities)
+        frames.append(next(iter(src.frames())))
+        bg = np.maximum(src.background(), 1)
+    return np.stack(frames), bg
+
+
+def no_launch(fn, what: str):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after: it must launch no kernel."""
+    from fdoct_tpu_torch.ops import kernels
+    from fdoct_tpu_torch.ops.kernels import LAUNCHES
+
+    kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    ran = {k: n for k, n in LAUNCHES.items() if n}
+    check(ran == {}, f"{what} launched {ran}")
+    return out
+
+
+def analysis_phase(cfg, calib, calib64, card_line: str, dev: torch.device) -> None:
+    """Phase 15, the analysis modules on the card, each launching no kernel:
+    Doppler and OCT-A on flagship frames at 'default' and 'highest' against
+    the float64 Doppler on the card, the spectrometer and the Wang
+    estimators in float32 against float64 numpy."""
+    from fdoct_tpu_torch.doppler import doppler_bscan, octa_bscan
+    from fdoct_tpu_torch.ops.fft import ifft_mag_rows
+    from fdoct_tpu_torch.ops.resample import resample_klinear
+    from fdoct_tpu_torch.ops.wang import (
+        deconvolved_ift, differential_deconvolved_ift, ift_reflectivity, wang_interferogram_pair,
+    )
+    from fdoct_tpu_torch.sources.spectrometer import (
+        calibration_from_lambdas, reconstruct_spectrometer_ascans,
+    )
+
+    cfg = cfg.replace(donotnormalize=True)
+    cfg64 = cfg.replace(dtype="float64")
+    step = DOPPLER_STEP_NM
+    raw, bg = synthetic_frames(cfg, [(50.0 + t * step * 1e-3,) for t in range(DOPPLER_FRAMES)],
+                               (0.5,))
+    rng = np.random.default_rng(11)
+    jraw, jbg = synthetic_frames(cfg, [(50.0 + rng.uniform(-2, 2), 90.0)
+                                       for _ in range(DOPPLER_FRAMES)], (0.5, 0.5))
+    runs = {}
+    for name, frames_np, bg_np in (("doppler", raw, bg), ("octa", jraw, jbg)):
+        fr = torch.as_tensor(frames_np).to(dev)
+        b32 = torch.as_tensor(bg_np).to(dev, torch.float32)
+        fn = doppler_bscan if name == "doppler" else octa_bscan
+        runs[name] = {p: (lambda fn=fn, fr=fr, b=b32, p=p:
+                          fn(fr, b, torch.zeros_like(b), calib, cfg, precision=p))
+                      for p in ("default", "highest")}
+        runs[name]["float64"] = (lambda fn=fn, fr=fr, b=b32.double():
+                                 fn(fr, b, torch.zeros_like(b), calib64, cfg64))
+    out = {(name, p): tuple(t.cpu().numpy() for t in no_launch(fn, f"{name} {p}"))
+           for name, rs in runs.items() for p, fn in rs.items()}
+    mag64, vel64 = out[("doppler", "float64")]
+    strong = mag64 > 0.2 * mag64.max()
+    peak = int(np.argmax(mag64[5:].mean(axis=1))) + 5
+    macs = 2 * DOPPLER_FRAMES * cfg.oph * cfg.opw * calib.ndisp
+    bound = {"bf16": 2 * macs / PEAK["bf16"] * 1e3, "f32": 2 * macs / F32_SIMT_PEAK * 1e3}
+    for p in ("default", "highest", "float64"):
+        mag, vel = out[("doppler", p)]
+        at_peak = float(np.median(vel[peak])) * 1e9
+        err_nm = float(np.abs(vel[strong] - vel64[strong]).max()) * 1e9
+        med, lo, _ = cuda_ms(runs["doppler"][p], runs=10, warmup=2)
+        limit = f"limit {DOPPLER_TOL_NM[p]}" if p in DOPPLER_TOL_NM else "the reference itself"
+        phase("analysis", f"doppler_bscan {p}: {mag.shape} {vel.dtype}, no launch; velocity "
+              f"at the scatterer (depth bin {peak}, median of {vel.shape[1]} A-scans) "
+              f"{at_peak:.4f} nm/frame for a {step} nm step (limit {DOPPLER_STEP_TOL:.0%}); "
+              f"worst velocity error vs float64 on {int(strong.sum())} voxels above twice the "
+              f"floor {err_nm:.3e} nm ({limit}); device median "
+              f"{med:.3f} ms (min {lo:.3f}; 10 calls, CUDA events) against a bound of "
+              f"{macs / 1e9:.2f} G multiply-adds: {bound['bf16']:.4f} ms at the bf16 peak, "
+              f"{bound['f32']:.3f} ms as f32 outside the tensor cores | {card_line}")
+        check(abs(at_peak - step) <= DOPPLER_STEP_TOL * step,
+              f"doppler {p}: {at_peak} nm/frame for a {step} nm step")
+        check(err_nm <= DOPPLER_TOL_NM.get(p, 0.0), f"doppler {p}: {err_nm} nm")
+    mag64, sv64 = out[("octa", "float64")]
+    strong = mag64 > 0.2 * mag64.max()
+    flow = float(sv64[peak - 2:peak + 3].max())
+    static = float(sv64[round(peak * 90 / 50) - 2:round(peak * 90 / 50) + 3].max())
+    check(flow > 10 * static, f"octa float64: flow {flow} vs static {static}")
+    for p in ("default", "highest"):
+        _, sv = out[("octa", p)]
+        err = float(np.abs(sv[strong] - sv64[strong]).max() / np.abs(sv64[strong]).max())
+        med, lo, _ = cuda_ms(runs["octa"][p], runs=10, warmup=2)
+        phase("analysis", f"octa_bscan {p}: no launch; speckle variance at the jittering "
+              f"scatterer {float(sv[peak - 2:peak + 3].max()):.4f} vs the static one "
+              f"{float(sv[round(peak * 90 / 50) - 2:round(peak * 90 / 50) + 3].max()):.4f} "
+              f"(float64: {flow:.4f} vs {static:.4f}); worst error vs float64 above twice the "
+              f"floor {err:.3e} of its peak (limit {OCTA_TOL[p]}); device median {med:.3f} ms "
+              f"(min {lo:.3f}) | {card_line}")
+        check(err <= OCTA_TOL[p], f"octa {p}: {err} of the peak against float64")
+
+    # the spectrometer: measured-λ A-scans of the reference's width, nfft 3x
+    rng = np.random.default_rng(SEED + 15)
+    n = SPEC_PIXELS
+    lam = np.linspace(816e-9, 884e-9, n) + 1e-11 * np.sin(np.linspace(0, 6, n))
+    k = 2 * np.pi / lam
+    S = np.exp(-0.5 * ((lam - 850e-9) / 17e-9) ** 2)
+    z = rng.uniform(30e-6, 300e-6, (SPEC_ASCANS, 1))
+    dark = 5.0 + rng.uniform(0, 0.5, n)
+    data = dict(ascans=1000 * S * (1.25 + np.cos(2 * k * z)) + dark
+                + rng.normal(0, 0.5, (SPEC_ASCANS, n)),
+                lambdas_m=lam, dark=dark, ref_arm=500 * S + dark, sample_arm=250 * S + dark,
+                pi_frames=1000 * S * (1.25 - np.cos(2 * k * z)) + dark)
+    nfft, ndisp = 3 * n, n
+    got = no_launch(lambda: reconstruct_spectrometer_ascans(**data, nfft=nfft, ndisp=ndisp,
+                                                            device=dev), "spectrometer")
+    tab = calibration_from_lambdas(lam, nfft, ndisp)
+    d = data["dark"]
+    a = ((data["ascans"] - d) - (data["pi_frames"] - d)) / (
+        (data["ref_arm"] - d) + (data["sample_arm"] - d))
+    a = (a - a.mean(axis=-1, keepdims=True)) * tab["window"]
+    slope = np.diff(a, axis=-1)
+    slope = np.concatenate([slope[:, :1], slope], axis=-1)
+    i = tab["nearest_idx"]
+    want = (np.abs(np.fft.ifft(a[:, i] - tab["frac"] * slope[:, i], axis=-1)) * nfft)[:, :ndisp]
+    res = compare(torch.as_tensor(got), torch.as_tensor(want), ANALYSIS_RTOL,
+                  ANALYSIS_RTOL * float(np.abs(want).max()))
+    call_ms = host_ms(lambda: reconstruct_spectrometer_ascans(**data, nfft=nfft, ndisp=ndisp,
+                                                              device=dev), runs=5)
+    ad = torch.as_tensor(a, dtype=torch.float32).to(dev)
+    idx = torch.as_tensor(i, dtype=torch.long).to(dev)
+    frac = torch.as_tensor(tab["frac"], dtype=torch.float32).to(dev)
+    dev_ms = cuda_ms(lambda: ifft_mag_rows(resample_klinear(ad, idx, frac, compat=False)),
+                     runs=10, warmup=2)
+    phase("analysis", f"reconstruct_spectrometer_ascans {SPEC_ASCANS} x {n} px, measured "
+          f"lambda, nfft {nfft}: {got.shape} {got.dtype}, no launch; vs float64 numpy max_abs_err "
+          f"{res['max_abs_err']:.3e}, worst {res['worst_share_of_tol']:.3e} of tol "
+          f"(rtol=atol/max={ANALYSIS_RTOL}); whole call (host stage, H2D, D2H) median "
+          f"{call_ms[0]:.3f} ms host clock, resample + |IFFT| on the card {dev_ms[0]:.3f} ms "
+          f"(CUDA events) | {card_line}")
+    check(res["finite"] and res["worst_share_of_tol"] <= 1.0,
+          "the spectrometer disagrees with float64 numpy")
+
+    # the Wang estimators: rows of the n = 1024 pair, the first depth varied
+    rows = [wang_interferogram_pair(depths_m=(90e-6 + r * 0.1e-6, 150e-6),
+                                    reflectivities=(0.5, 0.25), n=WANG_N)
+            for r in range(WANG_ROWS)]
+    I1, I2 = (np.stack([row[j] for row in rows]) for j in (0, 1))
+    S = rows[0][2]
+    t1, t2, ts = (torch.as_tensor(x, dtype=torch.float32).to(dev) for x in (I1, I2, S))
+    ests = {"ift_reflectivity": (lambda: ift_reflectivity(t1), I1),
+            "deconvolved_ift": (lambda: deconvolved_ift(t1, ts), I1 / S),
+            "differential_deconvolved_ift": (lambda: differential_deconvolved_ift(t1, t2, ts),
+                                             (I1 - I2) / S)}
+    for name, (fn, x) in ests.items():
+        got = no_launch(fn, name)
+        want = np.abs(np.fft.fftshift(np.fft.ifft(x, axis=-1), axes=-1)) / np.sqrt(WANG_N)
+        res = compare(got, torch.as_tensor(want).to(dev), ANALYSIS_RTOL,
+                      ANALYSIS_RTOL * float(np.abs(want).max()))
+        med, lo, _ = cuda_ms(fn, runs=10, warmup=2)
+        phase("analysis", f"{name} float32 {tuple(got.shape)}: no launch; vs float64 numpy "
+              f"max_abs_err {res['max_abs_err']:.3e}, worst {res['worst_share_of_tol']:.3e} of "
+              f"tol (rtol=atol/max={ANALYSIS_RTOL}); device median {med:.4f} ms (min {lo:.4f}) "
+              f"| {card_line}")
+        check(res["finite"] and res["worst_share_of_tol"] <= 1.0,
+              f"{name} disagrees with float64 numpy")
 
 
 if __name__ == "__main__":

@@ -23,9 +23,12 @@ outputs, on the port's session, sources and sinks:
 
 Every command that computes runs on ``--device`` (default ``cuda``); where
 PyTorch sees no card, that is an error, never a silent move to the CPU.
-Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: ``bench`` (the JAX package's benchmark; Queue 1 item 5), ``--mesh``
-(item 12) and the viewer (``--viewer``, ``--viewer-mode http``; item 15).
+``live --viewer DIR`` renders the display windows into PNGs,
+``--viewer-mode http`` serves them with keys, ROI drags and config edits
+(:mod:`fdoct_tpu_torch.viewer_server`), ``--viewer-mode mpl`` shows them
+with matplotlib.  Not ported yet, each raising ``NotImplementedError`` that
+names its ROADMAP item: ``bench`` (the JAX package's benchmark; Queue 1
+item 5) and ``--mesh`` (item 12).
 
 Deliberate deviation: a triggered source that stays idle past
 ``--idle-timeout`` raises :class:`SourceTimeoutError`, which names the
@@ -285,9 +288,6 @@ def cmd_live(args) -> int:
         # no checkpoints: the period needs a path to write to
         raise SystemExit("--checkpoint-every N requires --checkpoint PATH")
     _no_mesh(args)
-    if args.viewer or args.viewer_mode == "http":
-        raise NotImplementedError("the live viewer (--viewer, --viewer-mode http) is not "
-                                  "ported to fdoct_tpu_torch yet (ROADMAP Queue 1 item 15)")
     cfg = _load_cfg(args)
     src = _make_source(args, cfg)
     if getattr(args, "image", None):
@@ -315,6 +315,16 @@ def cmd_live(args) -> int:
     else:
         s = Session(cfg, device=args.device, variant=session_variant, sink=sink, source=src,
                     method=args.method, camera=camera_cb)
+    viewer = None
+    if args.viewer or args.viewer_mode == "http":
+        from fdoct_tpu_torch.viewer import Viewer
+        viewer = Viewer(mode=args.viewer_mode, outdir=args.viewer or "viewer",
+                        port=args.viewer_port)
+        if viewer.server is not None:
+            print(f"live viewer at {viewer.server.url}", file=sys.stderr)
+        # dashboard config panel (editiniadv analog): GET serves current
+        # knobs, POSTed edits drain into Session.apply_config below
+        viewer.set_config_provider(s.config_snapshot)
 
     batch = max(getattr(args, "batch", 1), 1)
     if getattr(src, "triggered", False):
@@ -393,6 +403,14 @@ def cmd_live(args) -> int:
             if sys.stdin in select.select([sys.stdin], [], [], 0)[0]:
                 for ch in sys.stdin.readline().rstrip("\n"):
                     s.key(ch)
+            if viewer is not None:
+                for ch in viewer.pop_keys():
+                    s.key(ch)
+                for roi in viewer.pop_rois():
+                    s.set_roi(roi["x"], roi["y"], roi["w"], roi["h"])
+                for upd in viewer.pop_config():
+                    for msg in s.apply_config(upd):
+                        print(f"config: {msg}", file=sys.stderr)
             if streamer is not None:
                 want = batch if args.frames == 0 else min(batch, args.frames - n)
                 raws = streamer.get_batch(want)   # raises if the source died
@@ -401,7 +419,7 @@ def cmd_live(args) -> int:
                 rs = s.process_group(raws)
                 n += len(raws)
                 _maybe_checkpoint(len(rs))
-                r = rs[-1] if rs else None
+                raw, r = raws[-1], (rs[-1] if rs else None)
             else:
                 raw = next(it)
                 if raw is None:
@@ -411,6 +429,8 @@ def cmd_live(args) -> int:
                 r = s.process(raw)
                 n += 1
                 _maybe_checkpoint(1 if r is not None else 0)
+            if viewer is not None:
+                viewer.show_session_frame(s, raw, r)
             if r is not None and args.verbose:
                 print(f"bscan group done (n={n}), peak {float(r.bscandb.max()):.1f} dB",
                       file=sys.stderr)
@@ -423,6 +443,8 @@ def cmd_live(args) -> int:
         # producer polling a just-unmapped ring would crash the process
         if streamer is not None:
             streamer.stop()
+        if viewer is not None:
+            viewer.close()
         # the exit-time checkpoint runs BEFORE the handlers are restored,
         # through the same atomic write-aside as the periodic path, and on
         # an exception exit too; a save failure must not mask that error
@@ -867,8 +889,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="restore session state from an npz checkpoint (written by "
                          "fdoct-torch or fdoct) instead of starting cold")
     sp.add_argument("--viewer", default="",
-                    help="render display windows into this directory (not ported yet: "
-                         "ROADMAP Queue 1 item 15)")
+                    help="render display windows into this directory (--viewer-mode files)")
     sp.add_argument("--viewer-mode", default="files", choices=["files", "mpl", "http"])
     sp.add_argument("--viewer-port", type=int, default=8089,
                     help="http viewer port (0 = ephemeral)")

@@ -203,10 +203,12 @@ def test_results_stay_on_device_but_display(source):
 
 def test_port_never_imports_jax():
     """A fresh interpreter imports every module of the port and runs small
-    sessions of every variant on the CPU, some saving into run directories;
-    neither jax nor the JAX package may be loaded, under any module name (no
-    loaded module's file lies under fdoct_tpu/), nor PIL: the port writes its
-    PNGs itself."""
+    sessions of every variant on the CPU, some saving into run directories,
+    one shown through a files-mode viewer, and the analysis modules (Doppler,
+    the Wang estimators, the spectrometer); neither jax nor the JAX package
+    may be loaded, under any module name (no loaded module's file lies under
+    fdoct_tpu/), nor PIL (the port writes its PNGs and draws its text
+    itself), nor matplotlib (only the viewer's 'mpl' mode imports it)."""
     prog = (
         "import sys, importlib, pkgutil\n"
         "from pathlib import Path\n"
@@ -220,6 +222,9 @@ def test_port_never_imports_jax():
         "from fdoct_tpu_torch.utils.profiling import StageTimer\n"
         "import fdoct_tpu_torch.int8direct\n"
         "import fdoct_tpu_torch.bench_resident\n"
+        "import fdoct_tpu_torch.viewer, fdoct_tpu_torch.viewer_server, fdoct_tpu_torch.doppler\n"
+        "import fdoct_tpu_torch.ops.wang, fdoct_tpu_torch.sources.spectrometer\n"
+        "import fdoct_tpu_torch.utils.font\n"
         "cfg = PipelineConfig(width=256, height=32, averages=2, numfftpoints=512,\n"
         "                     numdisplaypoints=128, donotnormalize=False)\n"
         "src = SyntheticSource(height=32, width=256, noise=0.01)\n"
@@ -254,8 +259,29 @@ def test_port_never_imports_jax():
         "        vs.close()\n"
         "        assert (sink.dir / 'bscan001.png').exists(), v\n"
         "    assert len(list(DirectorySource(sink.dir).frames())) == 1\n"
+        "    from fdoct_tpu_torch.viewer import Viewer\n"
+        "    v = Viewer(mode='files', outdir=tmp + '/view')\n"
+        "    raw = next(it)\n"
+        "    vs = Session(cfg, device='cpu')\n"
+        "    v.show_session_frame(vs, raw, vs.process_group(np.stack([raw, raw]))[-1])\n"
+        "    from fdoct_tpu_torch.viewer_server import _encode_png\n"
+        "    assert _encode_png(np.zeros((4, 4, 3), np.uint8))[:4] == b'\\x89PNG'\n"
+        "import torch\n"
+        "from fdoct_tpu_torch.doppler import doppler_bscan, octa_bscan\n"
+        "bg = torch.ones(32, 256)\n"
+        "for fn in (doppler_bscan, octa_bscan):\n"
+        "    assert fn(torch.as_tensor(np.stack([next(it) for _ in range(3)])), bg,\n"
+        "              torch.zeros_like(bg), s.calib, cfg)[1].shape == (128, 32)\n"
+        "from fdoct_tpu_torch.ops.wang import ift_reflectivity, wang_interferogram_pair\n"
+        "pair = wang_interferogram_pair(n=64)\n"
+        "assert ift_reflectivity(torch.as_tensor(pair[0])).shape == (64,)\n"
+        "from fdoct_tpu_torch.sources.spectrometer import reconstruct_spectrometer_ascans\n"
+        "lam = np.linspace(816e-9, 884e-9, 128)\n"
+        "assert reconstruct_spectrometer_ascans(np.ones((2, 128)), lam, 256, 64,\n"
+        "                                       device='cpu').shape == (2, 64)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'fdoct_tpu', 'PIL'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'fdoct_tpu', 'PIL',\n"
+        "                                    'matplotlib'))\n"
         "assert not bad, bad\n"
         f"ref = Path({str(ROOT / 'fdoct_tpu')!r})\n"
         "files = [Path(f).resolve() for f in (getattr(m, '__file__', None)\n"
