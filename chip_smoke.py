@@ -181,17 +181,41 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    estimators (512 rows, n = 1024) in float32 against float64 numpy at
    ANALYSIS_RTOL, each launching no kernel, with device ms (CUDA events)
    and Doppler's bound (2 x 8 x 512 x 2048 x 512 multiply-adds).
+16. mesh    — the device mesh (fdoct_tpu_torch.parallel) on a world of one
+   with nccl (WorldOfOne("cuda"), a 1 x 1 mesh; the machine has one card).
+   For 'base' 'default' (kernel 1 bf16), 'base' 'highest' (kernel 1 f32),
+   'sim' 'default' (kernel 2 bf16) and 'base' 'default' with mediann = 3
+   (kernel 2 bf16 after the median): sharded_bscan_step on one group
+   (exactly one launch, its dB against the single-device session's group
+   within 1e-4, its collective bytes printed), then an 8-group
+   Session(mesh=) on the captures of a single-device session, counts set to
+   0 just before and read just after (exactly one launch a group), its
+   displays held to the single-device session's on the same frames: uint8
+   within 1 level (the pixels that differ printed; 0 expected), dB within
+   1e-4.  The 'base' 'default' group time of the single-device and the mesh
+   session, host clock, turns P C C P, and the mesh session's profiled
+   breakdown.  'base' 'int8_direct' on the mesh (no launch: the mesh int8
+   step is two torch._int_mm products and the shared tail, as in the JAX
+   package) against the single-device int8 session (kernel 3): uint8 within
+   1, dB rtol 1e-5, atol 1e-4.  The F = 512 volume, 'default' and
+   'int8_direct', on the mesh (gather_full) and with mesh=None, turns P C C
+   P, device ms (CUDA events) and peak device memory above the frames, equal
+   within 1e-6 of the peak.  Then `live --frames 64 --batch 8 --mesh 1x1` (8
+   kernel 1 launches) and `cscan --frames 64 --mesh 1x1` (none), each opening
+   and closing its own world of one, and dryrun_multichip(1, "cuda") (one
+   spawned nccl rank at the flagship, each check within 2e-2 dB).
 
 The line before the last is {"kernels": [...]}, one entry per instance
 (kernels 1-2 each with a bf16 and an f32 operator, kernel 3, the resident
 kernel): every time in it was measured in this run; "ms"/"plain_ms" are
 single calls and "ms_b2b"/"plain_ms_b2b" back-to-back calls (phase 5);
 "launches" is the count from the instance's session paths, phases 4, 13,
-14 and 15 (for the resident kernel, which no session runs, the count from
+14, 15 and 16 (for the resident kernel, which no session runs, the count from
 phase 10's bench_resident run, with the counts set to 0 just before it;
 its entry adds
 its schedule, streamed times and kernel 1 bf16's times); kernel 1 bf16's
-entry adds "streamed_session_launches", phase 11's count;
+entry adds "streamed_session_launches", phase 11's count; the kernel 1-2
+entries add "mesh_launches", phase 16's count (included in "launches");
 "bound_ms" is the larger of the bytes (each input read and each output
 written once, at 3.35 TB/s) and the product's operations at the dense peak
 of the operator type (bf16 989 TFLOP/s, s8 1,979 TOPS; an f32 operator as
@@ -502,13 +526,9 @@ def device_us(fn, calls: int = 20) -> float:
     return statistics.median(e.time_range.elapsed_us() for e in dev)
 
 
-def time_session(session, batches, groups_per_call: int = 2) -> dict:
-    """Host-clock ms per group of ``process_group`` (which ends in the D2H of
-    the displays): one warm-up pass over ``batches``, then SESSION_CALLS
-    timed calls; then ``torch.profiler`` over one more pass: per group the
-    device's busy time (the union of its kernel and copy intervals), its
-    idle share of the profiled host time, the H2D copies and the group
-    kernels (every fused_recon* and int8_bscan* kernel)."""
+def host_group_ms(session, batches, groups_per_call: int = 2) -> list[float]:
+    """Host-clock ms per group of SESSION_CALLS ``process_group`` calls (each
+    ending in the D2H of its displays), after one warm-up pass."""
     for b in batches:
         session.process_group(b)
     ms = []
@@ -517,6 +537,17 @@ def time_session(session, batches, groups_per_call: int = 2) -> dict:
         t0 = time.perf_counter()
         session.process_group(batches[i % len(batches)])
         ms.append((time.perf_counter() - t0) / groups_per_call * 1e3)
+    return ms
+
+
+def time_session(session, batches, groups_per_call: int = 2) -> dict:
+    """Host-clock ms per group of ``process_group`` (which ends in the D2H of
+    the displays): one warm-up pass over ``batches``, then SESSION_CALLS
+    timed calls; then ``torch.profiler`` over one more pass: per group the
+    device's busy time (the union of its kernel and copy intervals), its
+    idle share of the profiled host time, the H2D copies and the group
+    kernels (every fused_recon* and int8_bscan* kernel)."""
+    ms = host_group_ms(session, batches, groups_per_call)
     out = {"group_ms": statistics.median(ms), "group_ms_min": min(ms),
            "group_ms_max": max(ms), "groups": groups_per_call * len(ms)}
     return {**out, **device_breakdown(lambda: [session.process_group(b) for b in batches],
@@ -847,6 +878,9 @@ def main() -> int:
         else:
             launches[key] += n
     analysis_phase(cfg, calib, calib64, card_line, dev)
+    mesh_launches = mesh_phase(cfg, calib, src, frames, card_line, dev)
+    for key, n in mesh_launches.items():
+        launches[key] += n
 
     entries = []
     for name in runners:
@@ -873,6 +907,8 @@ def main() -> int:
                 "product_ms_b2b": products[op][1]})
             if (name, op) == ("fused_recon_raw_accumulate", "bf16"):
                 entries[-1]["streamed_session_launches"] = stream_launches
+            if (name, op) in mesh_launches:
+                entries[-1]["mesh_launches"] = mesh_launches[(name, op)]
     phase("total", f"{time.perf_counter() - t_start:.1f} s wall clock, the build included")
     print(json.dumps({"kernels": entries + [int8_entry, resident_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1752,6 +1788,182 @@ def http_request(port: int, path: str, body: bytes | None = None) -> tuple[int, 
             return resp.status, resp.read()
     except urllib.error.HTTPError as e:
         return e.code, e.read()
+
+
+def mesh_phase(cfg, calib, src, frames, card_line: str, dev: torch.device) -> dict:
+    """Phase 16, the device mesh on a world of one with nccl (a 1 x 1 mesh):
+    the sharded step and an 8-group Session(mesh=) of each kernel path
+    against the single-device session on the same captures, int8_direct, the
+    F = 512 volume, `live`/`cscan --mesh 1x1` and the dry run.  Returns the
+    launches of each (kernel, operator) on the mesh paths."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from fdoct_tpu_torch.int8direct import Int8DirectPlan
+    from fdoct_tpu_torch.ops import kernels
+    from fdoct_tpu_torch.ops.kernels import LAUNCHES
+    from fdoct_tpu_torch.parallel import (
+        WorldOfOne, gather_rows, make_mesh, shard_frames, sharded_bscan_step,
+        sharded_cscan_volume, sharded_cscan_volume_int8,
+    )
+    from fdoct_tpu_torch.parallel.distributed import backend_for
+    from fdoct_tpu_torch.parallel.dryrun import dryrun_multichip
+    from fdoct_tpu_torch.parallel.mesh import COLLECTIVE_BYTES, reset_collective_bytes
+    from fdoct_tpu_torch.pipeline import preprocess
+    from fdoct_tpu_torch.session import Session
+    from fdoct_tpu_torch.sources.synthetic import SyntheticSource
+
+    k1, k2, k3 = "fused_recon_raw_accumulate", "fused_recon_accumulate", "int8_bscan_display_fused"
+    counts: dict = {}
+    batches = [np.stack([next(frames) for _ in range(16)]) for _ in range(4)]
+    groups = 2 * len(batches)
+    paths = [("base", "default", 0, k1, "bf16"), ("base", "highest", 0, k1, "f32"),
+             ("sim", "default", 0, k2, "bf16"), ("base", "default", 3, k2, "bf16")]
+    with WorldOfOne("cuda"):
+        mesh = make_mesh(1, 1, device_type="cuda")
+        check(dist.get_backend() == backend_for(dev.type),
+              f"the mesh runs {dist.get_backend()}, not {backend_for(dev.type)}")
+        phase("mesh", f"world of one: backend {dist.get_backend()}, mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on {dev} | {card_line}")
+        for variant, precision, mediann, name, op in paths:
+            what = f"{variant} '{precision}'" + (f" mediann={mediann}" if mediann else "")
+            scfg = cfg.replace(matmul_precision=precision, donotnormalize=variant == "base",
+                               mediann=mediann)
+            single = captured_session(Session, scfg, variant, src, frames, calib, dev)
+            meshed = Session(scfg, device=dev, variant=variant, calib=calib,
+                             source=src if variant == "sim" else None, mesh=mesh)
+            meshed.data_yb, meshed.data_yp = single.data_yb, single.data_yp
+            # the offline sharded step on one group, counts at 0 around it
+            kernels.reset_launches()
+            reset_collective_bytes()
+            db, _ = sharded_bscan_step(shard_frames(batches[0][:cfg.averages], mesh),
+                                       single.data_yb, single.data_yp, calib, scfg, mesh)
+            torch.cuda.synchronize()
+            ran_step = {k: v for k, v in LAUNCHES.items() if v}
+            step_bytes = dict(COLLECTIVE_BYTES)
+            check(ran_step == {name: 1}, f"mesh step {what}: launches {ran_step}")
+            # the 8-group mesh session, counts at 0 just before, read just after
+            kernels.reset_launches()
+            got = [r for b in batches for r in meshed.process_group(b)]
+            torch.cuda.synchronize()
+            ran = {k: v for k, v in LAUNCHES.items() if v}
+            check(ran == {name: groups}, f"mesh session {what}: launches {ran}, not "
+                  f"{name}: {groups}")
+            counts[(name, op)] = counts.get((name, op), 0) + ran[name] + ran_step[name]
+            want = [r for b in batches for r in single.process_group(b)]
+            check(len(got) == len(want) == groups, f"mesh session {what}: {len(got)} B-scans")
+            u8 = np.stack([np.abs(a.bscandisp.astype(int) - b.bscandisp.astype(int))
+                           for a, b in zip(got, want)])
+            db_err = max(float((a.bscandb - b.bscandb).abs().max()) for a, b in zip(got, want))
+            step_err = float((gather_rows(db, mesh) - want[0].bscandb).abs().max())
+            phase("mesh", f"{what}: sharded_bscan_step launches {ran_step}, collective bytes "
+                  f"{step_bytes}, dB vs the single-device group {step_err:.3e}; Session(mesh=) "
+                  f"{groups} groups: launches {ran} ({name} op={op}); vs the single-device "
+                  f"session: max uint8 diff {int(u8.max())} (limit 1), {int((u8 > 0).sum())} "
+                  f"pixels differ (0 expected), max |dB diff| {db_err:.3e} (limit 1e-4)")
+            check(not any(k.startswith(("mesh:", "slow:")) for k in meshed._said_once),
+                  f"mesh session {what} fell back: {meshed.status}")
+            check(int(u8.max()) <= 1 and db_err <= 1e-4 and step_err <= 1e-4,
+                  f"mesh session {what} disagrees with the single-device session")
+            if (variant, precision, mediann) == ("base", "default", 0):
+                ms = {"single": [], "mesh": []}
+                for who in ("single", "mesh", "mesh", "single"):
+                    ms[who] += host_group_ms(single if who == "single" else meshed, batches)
+                t = time_session(meshed, batches)
+                phase("mesh", f"group time, {what}, turns P C C P (P single-device, C mesh; "
+                      f"{2 * SESSION_CALLS} calls of 2 groups each, host clock): single median "
+                      f"{statistics.median(ms['single']):.3f} ms (min {min(ms['single']):.3f}), "
+                      f"mesh median {statistics.median(ms['mesh']):.3f} ms (min "
+                      f"{min(ms['mesh']):.3f}); mesh profiled: {describe_breakdown(t)} | "
+                      f"{card_line}")
+
+        # int8_direct on the mesh: JAX's two s8 products and the tail, no kernel 3
+        i8cfg = cfg.replace(matmul_precision="int8_direct", donotnormalize=True)
+        single = captured_session(Session, i8cfg, "base", src, frames, calib, dev)
+        meshed = Session(i8cfg, device=dev, calib=calib, mesh=mesh)
+        meshed.data_yb, meshed.data_yp = single.data_yb, single.data_yp
+        kernels.reset_launches()
+        got = [r for b in batches for r in meshed.process_group(b)]
+        torch.cuda.synchronize()
+        ran = {k: v for k, v in LAUNCHES.items() if v}
+        want = [r for b in batches for r in single.process_group(b)]
+        u8 = max(int(np.abs(a.bscandisp.astype(int) - b.bscandisp.astype(int)).max())
+                 for a, b in zip(got, want))
+        db_share = max(float(((a.bscandb - b.bscandb).abs()
+                              / (1e-5 * b.bscandb.abs() + 1e-4)).max()) for a, b in zip(got, want))
+        phase("mesh", f"base 'int8_direct' on the mesh: {len(got)} B-scans, launches {ran} "
+              f"(kernel 3: {ran.get(k3, 0)}; the s8 products are torch._int_mm); vs the "
+              f"single-device session (kernel 3): max uint8 diff {u8} (limit 1), dB worst "
+              f"{db_share:.3e} of tol (rtol 1e-5, atol 1e-4)")
+        check(ran == {} and u8 <= 1 and db_share <= 1.0, "mesh int8_direct session")
+
+        # the F = 512 volume on the mesh beside the single-device volume
+        clean = SyntheticSource(height=cfg.height, width=cfg.width, lambda0=cfg.lambda0,
+                                dlambda=cfg.lambdabw * 2.3548 / 4.0)
+        it = clean.frames()
+        volume_raw = np.stack([next(it) for _ in range(CSCAN_FRAMES)])
+        fr = torch.as_tensor(volume_raw).to(dev)
+        block = shard_frames(volume_raw, mesh)
+        bg = torch.clamp_min(preprocess(torch.as_tensor(clean.background()).to(dev), cfg), 1.0)
+        pi = torch.zeros_like(bg)
+        c8 = cfg.replace(matmul_precision="int8_direct")
+        plan = Int8DirectPlan.create(calib, c8, bg, pi, device=dev)
+        routes = {"default": (lambda: sharded_cscan_volume(fr, bg, pi, calib, cfg),
+                              lambda: sharded_cscan_volume(block, bg, pi, calib, cfg, mesh,
+                                                           gather_full=True)),
+                  "int8_direct": (lambda: sharded_cscan_volume_int8(fr, plan, c8),
+                                  lambda: sharded_cscan_volume_int8(block, plan, c8, mesh,
+                                                                    gather_full=True))}
+        for precision, (one, meshed_vol) in routes.items():
+            peaks, vols = {}, {}
+            for who, fn in (("single", one), ("mesh", meshed_vol)):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                vols[who] = fn()
+                torch.cuda.synchronize()
+                peaks[who] = (torch.cuda.max_memory_allocated() - before) / 2**30
+            err = float((vols["mesh"] - vols["single"]).abs().max()
+                        / vols["single"].abs().max())
+            del vols
+            kernels.reset_launches()
+            t = {"single": [], "mesh": []}
+            for who in ("single", "mesh", "mesh", "single"):
+                t[who].append(cuda_ms(one if who == "single" else meshed_vol, runs=5,
+                                      warmup=1)[0])
+            check(not any(LAUNCHES.values()), f"volume {precision}: launches {dict(LAUNCHES)}")
+            phase("mesh", f"volume {precision} F={CSCAN_FRAMES} on the mesh (gather_full) vs "
+                  f"mesh=None, turns P C C P: device median single "
+                  f"{' / '.join(f'{x:.3f}' for x in t['single'])} ms, mesh "
+                  f"{' / '.join(f'{x:.3f}' for x in t['mesh'])} ms (5 calls a turn, CUDA events); "
+                  f"peak device memory above the frames single {peaks['single']:.3f} GiB, mesh "
+                  f"{peaks['mesh']:.3f} GiB; max |mesh - single| {err:.3e} of the peak (limit "
+                  f"1e-6) | {card_line}")
+            check(err <= 1e-6, f"the {precision} mesh volume differs from the single-device one")
+
+    # the command line, each opening its own world of one, then the dry run
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg_path = tmp / "flagship.json"
+        cfg_path.write_text(cfg.replace(dirdescr="chip_smoke").to_json())
+        text, _ = run_cli(["live", "--config", str(cfg_path), "--outdir", str(tmp / "live"),
+                           "--frames", "64", "--batch", "8", "--mesh", "1x1"], {k1: 8},
+                          "live --frames 64 --batch 8 --mesh 1x1 (kernel 1 bf16, one launch "
+                          "per group)")
+        check("processed 64 frames" in text and not dist.is_initialized(), f"live --mesh: {text}")
+        counts[(k1, "bf16")] += 8
+        text, _ = run_cli(["cscan", "--config", str(cfg_path), "--outdir", str(tmp / "cscan"),
+                           "--frames", "64", "--mesh", "1x1"], {}, "cscan --frames 64 --mesh 1x1")
+        with np.load(next((tmp / "cscan").iterdir()) / "BscanFFT.npz") as npz:
+            shape = npz["cscan"].shape
+        check(shape == (64, calib.ndisp, cfg.oph) and not dist.is_initialized(),
+              f"cscan --mesh: volume {shape}")
+    t0 = time.perf_counter()
+    report = dryrun_multichip(1, "cuda")
+    phase("mesh", f"dryrun_multichip(1, 'cuda') in {time.perf_counter() - t0:.1f} s (a spawned "
+          f"rank, nccl): {json.dumps(report)}")
+    return counts
 
 
 def host_ms(fn, runs: int = 20) -> tuple[float, float]:

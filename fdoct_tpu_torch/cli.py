@@ -26,9 +26,14 @@ PyTorch sees no card, that is an error, never a silent move to the CPU.
 ``live --viewer DIR`` renders the display windows into PNGs,
 ``--viewer-mode http`` serves them with keys, ROI drags and config edits
 (:mod:`fdoct_tpu_torch.viewer_server`), ``--viewer-mode mpl`` shows them
-with matplotlib.  Not ported yet, each raising ``NotImplementedError`` that
-names its ROADMAP item: ``bench`` (the JAX package's benchmark; Queue 1
-item 5) and ``--mesh`` (item 12).
+with matplotlib.  ``live --mesh DxA`` and ``cscan --mesh DxA`` run on a
+('data', 'ascan') device mesh, one process per device: ``torchrun
+--nproc-per-node N python -m fdoct_tpu_torch live --mesh DxA ...`` (D·A = N;
+rank 0 alone reads the source and broadcasts each batch, writes the outputs
+and prints the summary; a triggered camera is refused there); ``--mesh 1x1``
+needs no launcher.  ``cscan`` without ``--mesh`` under torchrun takes a mesh
+over the world, as the JAX CLI does.  Not ported yet: ``bench`` (the JAX
+package's benchmark; ROADMAP Queue 1 item 5) raises ``NotImplementedError``.
 
 Deliberate deviation: a triggered source that stays idle past
 ``--idle-timeout`` raises :class:`SourceTimeoutError`, which names the
@@ -39,6 +44,7 @@ message on stderr, where the JAX CLI raises a bare ``TimeoutError``.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 from pathlib import Path
@@ -92,6 +98,9 @@ def _device(name: str) -> torch.device:
             raise SystemExit(f"--device {name}: torch.cuda.is_available() is false; "
                              "fdoct-torch runs on the card unless --device cpu asks for the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
+        if "LOCAL_RANK" in os.environ:
+            # one process per card under torchrun: "cuda" is this rank's card
+            torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
     return dev
 
 
@@ -128,10 +137,97 @@ def _frame_iter(src, idle_timeout_s: float = IDLE_TIMEOUT_DEFAULT_S):
     return gen()
 
 
-def _no_mesh(args) -> None:
-    if getattr(args, "mesh", ""):
-        raise NotImplementedError(f"--mesh {args.mesh}: a device mesh is not ported to "
-                                  "fdoct_tpu_torch yet (ROADMAP Queue 1 item 12)")
+def _parse_mesh(spec: str, device: torch.device, args):
+    """'DxA' → a ('data', 'ascan') mesh on ``device``'s type, with a clean
+    CLI error on malformed values (``live --mesh`` / ``cscan --mesh``).  The
+    world is torchrun's (:func:`~fdoct_tpu_torch.parallel.initialize_multihost`),
+    one already initialized in this process, or a world of one this command
+    opens and closes."""
+    import torch.distributed as dist
+
+    from fdoct_tpu_torch.parallel import WorldOfOne, initialize_multihost, make_mesh
+    from fdoct_tpu_torch.parallel.distributed import backend_for
+
+    d, _, a = spec.lower().partition("x")
+    try:
+        n_data, n_ascan = int(d), (int(a) if a else 1)
+        if n_data < 1 or n_ascan < 1:
+            raise ValueError("axes must be >= 1")
+    except ValueError as e:
+        raise SystemExit(f"invalid --mesh {spec!r} (expected DxA, e.g. 4x2): {e}")
+    if not dist.is_initialized() and not initialize_multihost(backend=backend_for(device.type)):
+        args.open_sources.append(WorldOfOne(device.type))
+    # a well-formed spec that does not fit the world is a capacity problem,
+    # not a syntax one — report it without the misleading DxA prefix
+    try:
+        return make_mesh(n_data, n_ascan, device_type=device.type)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {spec}: {e}")
+
+
+def _from_lead(items: list) -> list:
+    """Rank 0's ``items`` on every rank of a multi-process world (one
+    broadcast); a single process's as they are."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return items
+    box = [items]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _is_lead() -> bool:
+    """Rank 0 of a multi-process world, or a single process: the one that
+    reads the source, writes the outputs and prints the summary."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _array_from_lead(arr: np.ndarray | None, device: torch.device):
+    """Rank 0's host array (None at the end of a stream) on every rank of a
+    multi-process world.  Rank 0 alone reads the source: a camera has one
+    reader, and every rank's block of a batch must come from the same
+    frames.  One broadcast of the shape and dtype, one of the bytes on
+    ``device`` (the card on nccl, the CPU on gloo).  Rank 0 gets ``arr``
+    back, the other ranks a tensor on ``device``."""
+    import torch.distributed as dist
+
+    head = None if arr is None else (tuple(arr.shape), str(arr.dtype))
+    head = _from_lead([head])[0]
+    if head is None:
+        return None
+    shape, dtype = head
+    if _is_lead():
+        buf = torch.from_numpy(np.ascontiguousarray(arr).reshape(-1).view(np.uint8)).to(device)
+    else:
+        buf = torch.empty(int(np.prod(shape)) * np.dtype(dtype).itemsize, dtype=torch.uint8,
+                          device=device)
+    dist.broadcast(buf, src=0)
+    return arr if _is_lead() else buf.view(getattr(torch, dtype)).reshape(shape)
+
+
+def _default_mesh(device: torch.device):
+    """The mesh without ``--mesh``, as the JAX CLI's C-scan takes it: over
+    every rank of the world (torchrun's, or one already initialized), two of
+    them on 'ascan' when their count is even; None for a single process."""
+    import torch.distributed as dist
+
+    from fdoct_tpu_torch.parallel import initialize_multihost, make_mesh
+    from fdoct_tpu_torch.parallel.distributed import backend_for
+
+    if not dist.is_initialized() and not initialize_multihost(backend=backend_for(device.type)):
+        return None
+    n = dist.get_world_size()
+    n_ascan = 2 if n % 2 == 0 else 1
+    return make_mesh(n // n_ascan, n_ascan, device_type=device.type)
 
 
 def _make_source(args, cfg):
@@ -217,12 +313,12 @@ def _autosize(cfg, src):
     return cfg
 
 
-def _background(src, cfg, dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(S(k) floored at 1, zero π) on ``dev``, the cscan/sweep calibration
-    frames."""
+def _background(raw: np.ndarray, cfg, dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(S(k) floored at 1, zero π) on ``dev`` from a source's background
+    frame ``raw``, the cscan/sweep calibration frames."""
     from fdoct_tpu_torch.pipeline import preprocess
 
-    bg = torch.clamp_min(preprocess(torch.as_tensor(src.background()).to(dev), cfg), 1.0)
+    bg = torch.clamp_min(preprocess(torch.as_tensor(raw).to(dev), cfg), 1.0)
     return bg, torch.zeros_like(bg)
 
 
@@ -280,6 +376,7 @@ def cmd_live(args) -> int:
     import select
     import signal
 
+    from fdoct_tpu_torch.parallel import mesh_device
     from fdoct_tpu_torch.session import Session
     from fdoct_tpu_torch.sinks import RunWriter
 
@@ -287,12 +384,27 @@ def cmd_live(args) -> int:
         # a user relying on periodic crash-safety must not silently get
         # no checkpoints: the period needs a path to write to
         raise SystemExit("--checkpoint-every N requires --checkpoint PATH")
-    _no_mesh(args)
     cfg = _load_cfg(args)
-    src = _make_source(args, cfg)
-    if getattr(args, "image", None):
+    mesh = None
+    if getattr(args, "mesh", ""):
+        # the live data path on the device mesh: Session.process_group runs
+        # the sharded session steps, each rank copying its block of a batch
+        mesh = _parse_mesh(args.mesh, args.device, args)
+    lead, shared = _is_lead(), _world_size() > 1
+    triggered = getattr(args, "camera", None) and getattr(args, "trigger", "none") in ("sw", "hw")
+    if shared and triggered:
+        raise SystemExit("live: a triggered camera keeps the per-frame loop, which runs in one "
+                         "process; run it without a multi-process --mesh")
+    # on a world of several ranks rank 0 alone reads the source and sends
+    # each batch to the others (_array_from_lead)
+    src = _make_source(args, cfg) if lead else None
+    if getattr(args, "image", None) and src is not None:
         cfg = _autosize(cfg, src)
-    sink = RunWriter(args.outdir, cfg.dirdescr, fmt=args.format)
+    cfg = _from_lead([cfg])[0]
+    if lead and mesh is not None:
+        print(f"live session on mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}",
+              file=sys.stderr)
+    sink = RunWriter(args.outdir, cfg.dirdescr, fmt=args.format) if lead else None
     # ini-schema names map onto session behavior variants
     session_variant = {"base": "base", "webcam": "base", "dark": "dark",
                        "peak": "peak", "spinj": "spinj", "spinjnt": "spinj",
@@ -306,17 +418,18 @@ def cmd_live(args) -> int:
         # resume: stored config wins; calibration tensors + knobs restored
         s = checkpoint.load_session(args.resume, variant=session_variant, sink=sink,
                                     source=src, method=args.method, camera=camera_cb,
-                                    device=args.device)
+                                    device=args.device, mesh=mesh)
         if camera_cb is not None:
             # restored knobs win over the config defaults
             camera_cb("exposure", s.exposure_us)
             camera_cb("gain", s.gain)
-        print(f"resumed session from {args.resume}", file=sys.stderr)
+        if lead:
+            print(f"resumed session from {args.resume}", file=sys.stderr)
     else:
         s = Session(cfg, device=args.device, variant=session_variant, sink=sink, source=src,
-                    method=args.method, camera=camera_cb)
+                    method=args.method, camera=camera_cb, mesh=mesh)
     viewer = None
-    if args.viewer or args.viewer_mode == "http":
+    if lead and (args.viewer or args.viewer_mode == "http"):
         from fdoct_tpu_torch.viewer import Viewer
         viewer = Viewer(mode=args.viewer_mode, outdir=args.viewer or "viewer",
                         port=args.viewer_port)
@@ -331,17 +444,23 @@ def cmd_live(args) -> int:
         # a triggered camera cannot ride the batched streamer: it services
         # keys only between batches, so the 't' pulse that produces the
         # first frame could never be fired
-        if batch > 1:
+        if batch > 1 or mesh is not None:
             print("live: triggered camera keeps the per-frame loop (keys fire the "
-                  "pulses); --batch applies to free-running sources only", file=sys.stderr)
+                  "pulses); --batch/--mesh apply to free-running sources only",
+                  file=sys.stderr)
         batch = 1
+    elif mesh is not None and batch == 1:
+        # the mesh rides the batched path (process_group); one averaging
+        # group per sharded step by default
+        batch = max(cfg.averages, 1)
     streamer = None
-    if batch > 1:
+    batched = batch > 1 or shared
+    if batched and lead:
         # batched fast path: overlapped producer thread + one group launch
         # per averaging group (Session.process_group)
         from fdoct_tpu_torch.streaming import FrameStreamer
         streamer = FrameStreamer(src.frames(), maxsize=4 * batch).start()
-    else:
+    elif not batched:
         # NOT _frame_iter: the live loop must see the None idle yields so
         # the keys that fire the next trigger pulses keep being serviced
         it = iter(src.frames())
@@ -391,7 +510,7 @@ def cmd_live(args) -> int:
         """Periodic crash-safety checkpoint every N completed groups."""
         nonlocal groups_done
         groups_done += completed
-        if not args.checkpoint or not ckpt_every or groups_done < ckpt_every:
+        if not lead or not args.checkpoint or not ckpt_every or groups_done < ckpt_every:
             return
         groups_done %= ckpt_every
         dest = _atomic_checkpoint()
@@ -399,21 +518,36 @@ def cmd_live(args) -> int:
             print(f"periodic checkpoint → {dest}", file=sys.stderr)
 
     try:
-        while not s.done and (args.frames == 0 or n < args.frames):
-            if sys.stdin in select.select([sys.stdin], [], [], 0)[0]:
-                for ch in sys.stdin.readline().rstrip("\n"):
-                    s.key(ch)
-            if viewer is not None:
-                for ch in viewer.pop_keys():
-                    s.key(ch)
-                for roi in viewer.pop_rois():
-                    s.set_roi(roi["x"], roi["y"], roi["w"], roi["h"])
-                for upd in viewer.pop_config():
-                    for msg in s.apply_config(upd):
+        while True:
+            # rank 0 decides whether to go on (a signal may reach one rank
+            # first), and its keys, ROI drags and config edits reach every
+            # rank in the same order, so the ranks' sessions stay in step
+            go = not s.done and (args.frames == 0 or n < args.frames)
+            inputs = []
+            if go and lead and sys.stdin in select.select([sys.stdin], [], [], 0)[0]:
+                inputs += [("key", ch) for ch in sys.stdin.readline().rstrip("\n")]
+            if go and viewer is not None:
+                inputs += [("key", ch) for ch in viewer.pop_keys()]
+                inputs += [("roi", roi) for roi in viewer.pop_rois()]
+                inputs += [("config", upd) for upd in viewer.pop_config()]
+            go, inputs = _from_lead([go, inputs])
+            if not go:
+                break
+            for kind, value in inputs:
+                if kind == "key":
+                    s.key(value)
+                elif kind == "roi":
+                    s.set_roi(value["x"], value["y"], value["w"], value["h"])
+                else:
+                    for msg in s.apply_config(value):
                         print(f"config: {msg}", file=sys.stderr)
-            if streamer is not None:
+            if batched:
                 want = batch if args.frames == 0 else min(batch, args.frames - n)
-                raws = streamer.get_batch(want)   # raises if the source died
+                # raises if the source died
+                raws = streamer.get_batch(want) if streamer is not None else None
+                if shared:
+                    raws = _array_from_lead(raws, args.device if mesh is None
+                                            else mesh_device(mesh))
                 if raws is None:
                     break
                 rs = s.process_group(raws)
@@ -448,7 +582,7 @@ def cmd_live(args) -> int:
         # the exit-time checkpoint runs BEFORE the handlers are restored,
         # through the same atomic write-aside as the periodic path, and on
         # an exception exit too; a save failure must not mask that error
-        if getattr(args, "checkpoint", None):
+        if lead and getattr(args, "checkpoint", None):
             try:
                 dest = _atomic_checkpoint()
                 print(f"session checkpoint saved to {dest}", file=sys.stderr)
@@ -457,7 +591,8 @@ def cmd_live(args) -> int:
         for sig, handler in old_handlers.items():
             signal.signal(sig, handler)
     s.close()
-    print(f"processed {n} frames; outputs in {sink.dir}")
+    if lead:
+        print(f"processed {n} frames; outputs in {sink.dir}")
     return 0
 
 
@@ -607,49 +742,70 @@ def cmd_bench(args) -> int:
 
 def cmd_cscan(args) -> int:
     """Volumetric C-scan: optional dispersion sweep, per-frame
-    reconstruction of the whole volume on the device, npz volume +
-    per-frame PNGs + en-face MIP + surface map out."""
+    reconstruction of the whole volume on the device (with ``--mesh``, each
+    rank its block of frames and rows, the volume gathered whole), npz
+    volume + per-frame PNGs + en-face MIP + surface map out (rank 0)."""
     from fdoct_tpu_torch.autofocus import autofocused_calibration, sweep_volume
     from fdoct_tpu_torch.calibration import Calibration
     from fdoct_tpu_torch.int8direct import Int8DirectPlan, int8_direct_supported
     from fdoct_tpu_torch.ops import normalize_minmax, to_db, to_uint8
-    from fdoct_tpu_torch.parallel import sharded_cscan_volume, sharded_cscan_volume_int8
+    from fdoct_tpu_torch.parallel import (
+        mesh_device, shard_frames, sharded_cscan_volume, sharded_cscan_volume_int8,
+    )
     from fdoct_tpu_torch.sinks import RunWriter
     from fdoct_tpu_torch.utils.colormap import apply_jet
     from fdoct_tpu_torch.utils.imageio import write_png
     from fdoct_tpu_torch.volume import enface_projection, surface_map
 
-    _no_mesh(args)
     dev = args.device
+    mesh = _parse_mesh(args.mesh, dev, args) if getattr(args, "mesh", "") else _default_mesh(dev)
+    if mesh is not None:
+        dev = mesh_device(mesh)
+    lead = _is_lead()
     cfg = _load_cfg(args)
-    src = _make_source(args, cfg)
-    if getattr(args, "image", None):
-        cfg = _autosize(cfg, src)
+    # on a world of several ranks rank 0 alone reads the source and sends the
+    # volume and the background to the others
+    volume_raw = bg_raw = None
+    if lead:
+        src = _make_source(args, cfg)
+        if getattr(args, "image", None):
+            cfg = _autosize(cfg, src)
+        it = _frame_iter(src, _idle_timeout(args))
+        volume_raw = np.stack([next(it) for _ in range(args.frames)])
+        bg_raw = src.background()
+    if _world_size() > 1:
+        cfg = _from_lead([cfg])[0]
+        volume_raw, bg_raw = [to_host(_array_from_lead(a, dev)) for a in (volume_raw, bg_raw)]
     calib = Calibration.create(cfg, dev)
-    it = _frame_iter(src, _idle_timeout(args))
-    volume_raw = np.stack([next(it) for _ in range(args.frames)])
-    bg, pi = _background(src, cfg, dev)
+    bg, pi = _background(bg_raw, cfg, dev)
 
     if args.dispersion_sweep:
         grid = torch.linspace(-8.0, 8.0, 33, dtype=torch.float64)
         _, best = sweep_volume(torch.as_tensor(volume_raw[:1]).to(dev), bg, pi, calib, cfg,
                                grid)
-        print(f"dispersion sweep: a2 = {best:+.2f}")
+        if lead:
+            print(f"dispersion sweep: a2 = {best:+.2f}")
         if best:
             calib = autofocused_calibration(cfg, best, device=dev)
 
-    frames = torch.as_tensor(volume_raw).to(dev)
+    # on a mesh each rank copies its block, and the volume comes back whole
+    frames = (torch.as_tensor(volume_raw).to(dev) if mesh is None
+              else shard_frames(volume_raw, mesh))
     # int8-direct display volumes when the config asks and the folding
     # applies; dispersion-swept calibrations fold the same way since the
     # phase lives inside the operator
     if (cfg.matmul_precision == "int8_direct" and args.method == "fused"
             and volume_raw.dtype == np.uint8 and int8_direct_supported(cfg)[0]):
         plan = Int8DirectPlan.create(calib, cfg, bg, pi, device=dev)
-        print(f"int8-direct volume path (bg rank-1 residual "
-              f"{float(plan.bg_rank1_resid):.2e})", file=sys.stderr)
-        vol = sharded_cscan_volume_int8(frames, plan, cfg)
+        if lead:
+            print(f"int8-direct volume path (bg rank-1 residual "
+                  f"{float(plan.bg_rank1_resid):.2e})", file=sys.stderr)
+        vol = sharded_cscan_volume_int8(frames, plan, cfg, mesh, gather_full=True)
     else:
-        vol = sharded_cscan_volume(frames, bg, pi, calib, cfg, method=args.method)
+        vol = sharded_cscan_volume(frames, bg, pi, calib, cfg, mesh, method=args.method,
+                                   gather_full=True)
+    if not lead:
+        return 0
 
     sink = RunWriter(args.outdir, cfg.dirdescr, fmt="npz")
     sink.save_data("cscan", to_host(vol))
@@ -688,7 +844,7 @@ def cmd_sweep(args) -> int:
         cfg = _autosize(cfg, src)
     calib = Calibration.create(cfg, dev)
     raw = torch.as_tensor(next(_frame_iter(src, _idle_timeout(args)))).to(dev)
-    bg, pi = _background(src, cfg, dev)
+    bg, pi = _background(src.background(), cfg, dev)
     grid = torch.linspace(args.a2_min, args.a2_max, args.steps, dtype=torch.float64)
     best_a3 = 0.0
     if args.joint:
@@ -710,9 +866,9 @@ def cmd_sweep(args) -> int:
 
 def cmd_selftest(args) -> int:
     """Deployment self-check: synthetic physics → both reconstruction paths
-    → agreement + known-depth peak, and the camera ring.  Exit 0 = healthy.
-    The sharded parity of the JAX selftest needs a mesh (ROADMAP Queue 1
-    item 12) and is skipped, as the JAX selftest skips it on one device."""
+    → agreement + known-depth peak, the sharded parity over the world's
+    ranks when it has more than one (under torchrun), and the camera ring.
+    Exit 0 = healthy."""
     import shutil
     import tempfile
 
@@ -750,7 +906,30 @@ def cmd_selftest(args) -> int:
     print(f"[{'ok' if hit else 'FAIL'}] scatterer depth bin {peak} (expect ~{expect:.1f})")
     ok &= hit
 
-    print("[--] single device; sharded parity skipped")
+    import torch.distributed as dist
+
+    from fdoct_tpu_torch.parallel import initialize_multihost
+    from fdoct_tpu_torch.parallel.distributed import backend_for
+
+    if not dist.is_initialized():
+        initialize_multihost(backend=backend_for(dev.type))
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    n_data = 2 if n % 2 == 0 and n > 1 else 1
+    n_ascan = n // n_data
+    if n > 1 and raw.shape[0] % n_data == 0 and cfg.oph % n_ascan == 0:
+        from fdoct_tpu_torch.parallel import (
+            gather_rows, make_mesh, shard_frames, sharded_bscan_step,
+        )
+        from fdoct_tpu_torch.pipeline import form_bscan
+
+        mesh = make_mesh(n_data, n_ascan, device_type=dev.type)
+        db, _ = sharded_bscan_step(shard_frames(raw, mesh), bg, pi, calib, cfg, mesh)
+        ref = form_bscan(torch.as_tensor(b).to(dev).sum(0), cfg, 2).bscandb
+        par = bool(torch.allclose(gather_rows(db, mesh), ref, atol=1e-4))
+        print(f"[{'ok' if par else 'FAIL'}] sharded parity over {n} devices")
+        ok &= par
+    else:
+        print("[--] single device; sharded parity skipped")
 
     # native acquisition seam: ring + daemon + control loop (skipped when
     # no C++ toolchain / prebuilt binaries are available)
@@ -875,7 +1054,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="frames per dispatch (>1 = batched fast path via "
                          "Session.process_group; use a multiple of the averaging count)")
     sp.add_argument("--mesh", default="", metavar="DxA",
-                    help="a device mesh (not ported yet: ROADMAP Queue 1 item 12)")
+                    help="run the live session over a ('data', 'ascan') device mesh, one "
+                         "process per device (torchrun --nproc-per-node D*A; 1x1 needs none)")
     sp.add_argument("--verbose", action="store_true")
     sp.add_argument("--trace", metavar="LOGDIR", default="",
                     help="write a torch.profiler Chrome trace of the live loop here")
@@ -935,7 +1115,8 @@ def build_parser() -> argparse.ArgumentParser:
     common(sp)
     sp.add_argument("--frames", type=int, default=32)
     sp.add_argument("--mesh", default="", metavar="DxA",
-                    help="a device mesh (not ported yet: ROADMAP Queue 1 item 12)")
+                    help="reconstruct the volume over a ('data', 'ascan') device mesh, one "
+                         "process per device (default: this device alone)")
     sp.add_argument("--dispersion-sweep", action="store_true")
     sp.set_defaults(fn=cmd_cscan)
 

@@ -64,6 +64,11 @@ def bin_area(img: torch.Tensor, bx: int, by: int | None = None) -> torch.Tensor:
     return torch.round(blocks.float().mean(dim=(-3, -1))).to(img.dtype)
 
 
+def resize_area(img: torch.Tensor, fx: int, fy: int) -> torch.Tensor:
+    """Alias of :func:`bin_area` with (fx, fy) downscale factors."""
+    return bin_area(img, fx, fy)
+
+
 def channel_select(frame: torch.Tensor, channelnum: int) -> torch.Tensor:
     """Webcam channel selection on RGB-order (…, h, w, 3) frames: 0/1/2 pick
     OpenCV's B/G/R plane (RGB channel 2 - c); 3 sums the channels scaled by

@@ -1,10 +1,24 @@
-"""Volume reconstruction over the frames of a C-scan.
+"""Scale-out over a device mesh, one process per device.
 
-The port of the C-scan volume functions of ``fdoct_tpu/parallel``, on one
-device: a device mesh (``mesh`` not None) is not ported yet (ROADMAP Queue 1
-item 12, which extends these same names with ``torch.distributed``).
+The port of ``fdoct_tpu/parallel``: the mesh axes ``('data', 'ascan')`` —
+frames (data parallelism) × lateral A-scan rows; the depth axis stays local,
+so no product needs communication.  The group average sums over 'data', the
+display scale's min and max complete over 'ascan', C-scans assemble whole
+B-scans with an all-gather over 'ascan'.  JAX runs one controller over
+global arrays; here every process (``torchrun``, or a
+:class:`~fdoct_tpu_torch.parallel.distributed.WorldOfOne`) runs the same
+program on its own block of each batch (:mod:`.mesh`, :mod:`.sharded`).
 """
 
-from fdoct_tpu_torch.parallel.sharded import sharded_cscan_volume, sharded_cscan_volume_int8
+from fdoct_tpu_torch.parallel.distributed import WorldOfOne, initialize_multihost
+from fdoct_tpu_torch.parallel.mesh import make_mesh, mesh_device
+from fdoct_tpu_torch.parallel.sharded import (
+    build_session_bscan_step, build_session_bscan_step_int8, gather_rows, shard_frames,
+    sharded_bscan_step, sharded_bscan_step_int8, sharded_cscan_volume, sharded_cscan_volume_int8,
+)
 
-__all__ = ["sharded_cscan_volume", "sharded_cscan_volume_int8"]
+__all__ = [
+    "WorldOfOne", "build_session_bscan_step", "build_session_bscan_step_int8", "gather_rows",
+    "initialize_multihost", "make_mesh", "mesh_device", "shard_frames", "sharded_bscan_step",
+    "sharded_bscan_step_int8", "sharded_cscan_volume", "sharded_cscan_volume_int8",
+]

@@ -37,6 +37,8 @@ samples; B-scans come out (depth, lateral).
 
 from __future__ import annotations
 
+import functools
+import inspect
 from typing import NamedTuple
 
 import numpy as np
@@ -120,14 +122,29 @@ def preprocess(raw: torch.Tensor, cfg, dtype=None) -> torch.Tensor:
 
 
 def apodize_ratio(y: torch.Tensor, background: torch.Tensor,
-                  pi_frame: torch.Tensor, cfg) -> torch.Tensor:
+                  pi_frame: torch.Tensor, cfg, ascan_axis=None) -> torch.Tensor:
     """(y - data_yp) / data_yb with the optional input normalizations
     (BscanFFT.cpp:1123-1132).  Each frame is min-max normalized by its own
-    range, never jointly across a batch."""
+    range, never jointly across a batch.
+
+    ``ascan_axis``: where a rank holds only some rows of each frame (the
+    mesh steps of :mod:`fdoct_tpu_torch.parallel.sharded`), the process
+    group of the mesh's 'ascan' axis (``mesh.get_group("ascan")``; in JAX,
+    the axis name).  Each frame's min and max then complete over the group
+    in one all-reduce, so every frame sees its full-row range."""
     if cfg.rowwisenormalize:
         y = normalize_rows(y, 0.0, 1.0)
     if not cfg.donotnormalize:
-        y = normalize_minmax(y, 0.0, 1.0, axis=(-2, -1) if y.ndim >= 2 else (-1,))
+        axes = (-2, -1) if y.ndim >= 2 else (-1,)
+        if ascan_axis is None:
+            y = normalize_minmax(y, 0.0, 1.0, axis=axes)
+        else:
+            from fdoct_tpu_torch.parallel.mesh import all_reduce_minmax
+            lo, hi = all_reduce_minmax(torch.amin(y, dim=axes, keepdim=True),
+                                       torch.amax(y, dim=axes, keepdim=True), ascan_axis)
+            rng = hi - lo
+            # cv::normalize NORM_MINMAX: a constant frame maps to the low bound
+            y = torch.where(rng == 0, 0.0, (y - lo) / torch.where(rng == 0, 1.0, rng))
     return (y - pi_frame) / background
 
 
@@ -216,6 +233,26 @@ def ascan_mags(yr: torch.Tensor, calib: Calibration, method: str = "fused",
     return ascan_mags_fused(yr, calib, "highest" if method == "fused_exact" else precision)
 
 
+def _accepts_raw_frames(fn):
+    """``fn`` also taking its frames as ``raw_frames=``, the JAX package's
+    name for them, beside ``raw`` (positional or keyword)."""
+    sig = inspect.signature(fn)
+
+    @functools.wraps(fn)
+    def wrapper(*args, raw_frames=None, **kw):
+        if raw_frames is not None:
+            if args or "raw" in kw:
+                raise TypeError(f"{fn.__name__}() got both raw and raw_frames")
+            kw["raw"] = raw_frames
+        return fn(*args, **kw)
+
+    wrapper.__signature__ = sig.replace(parameters=[
+        *sig.parameters.values(),
+        inspect.Parameter("raw_frames", inspect.Parameter.KEYWORD_ONLY, default=None)])
+    return wrapper
+
+
+@_accepts_raw_frames
 def reconstruct(raw: torch.Tensor, background: torch.Tensor, pi_frame: torch.Tensor,
                 calib: Calibration, cfg, method: str = "fused", dtype=None) -> torch.Tensor:
     """Raw frames (..., H, W) → per-frame A-scan magnitudes (..., oph, ndisp).
@@ -269,23 +306,32 @@ def reconstruct_group(raw: torch.Tensor, background: torch.Tensor,
     _check_precision(precision)
     dtype = getattr(torch, cfg.dtype)
     background, pi_frame = background.to(dtype), pi_frame.to(dtype)
+    if method not in STEPWISE_METHODS and raw_kernel_applies(raw, cfg):
+        op_re, op_im = _operator(calib, use_bf16(precision, dtype, raw.device))
+        if not _int8_tables_apply(precision, calib) and group_kernel_applies(op_re.dtype):
+            pi = pi_frame if dark is None else pi_frame + dark.to(dtype)
+            return fused_recon_raw_accumulate(raw.contiguous(), pi.contiguous(),
+                                              (1.0 / background).contiguous(), op_re, op_im)
+    y = preprocess(raw, cfg, dtype)
+    if dark is not None:
+        y = y - dark.to(dtype)
+    return ratio_group_sum(apodize_ratio(y, background, pi_frame, cfg), calib, cfg, method)
 
-    def ratio() -> torch.Tensor:
-        y = preprocess(raw, cfg, dtype)
-        if dark is not None:
-            y = y - dark.to(dtype)
-        return apodize_ratio(y, background, pi_frame, cfg)
 
+def ratio_group_sum(yr: torch.Tensor, calib: Calibration, cfg,
+                    method: str = "fused") -> torch.Tensor:
+    """Σ over the frames of |yr[b] @ M| from a ratio stack (B, oph, opw):
+    the ratio-input kernel ``fused_recon_accumulate``, or the plain chain
+    where :func:`reconstruct_group` takes it (a stepwise method, the int8
+    tables, an operator the kernels do not take)."""
+    _check_method(method)
+    precision = "highest" if method == "fused_exact" else cfg.matmul_precision
     if method in STEPWISE_METHODS:
-        return ascan_mags(ratio(), calib, method).sum(dim=0)
-    op_re, op_im = _operator(calib, use_bf16(precision, dtype, raw.device))
+        return ascan_mags(yr, calib, method).sum(dim=0)
+    op_re, op_im = _operator(calib, use_bf16(precision, yr.dtype, yr.device))
     if _int8_tables_apply(precision, calib) or not group_kernel_applies(op_re.dtype):
-        return ascan_mags_fused(ratio(), calib, precision).sum(dim=0)
-    if raw_kernel_applies(raw, cfg):
-        pi = pi_frame if dark is None else pi_frame + dark.to(dtype)
-        return fused_recon_raw_accumulate(raw.contiguous(), pi.contiguous(),
-                                          (1.0 / background).contiguous(), op_re, op_im)
-    return fused_recon_accumulate(ratio().contiguous(), op_re, op_im)
+        return ascan_mags_fused(yr, calib, precision).sum(dim=0)
+    return fused_recon_accumulate(yr.contiguous(), op_re, op_im)
 
 
 def reconstruct_group_frames(raw: torch.Tensor, background: torch.Tensor,
@@ -330,6 +376,7 @@ def form_bscan(mag_sum: torch.Tensor, cfg, averages: int = 1,
                         bscandisp=to_uint8(disp))
 
 
+@_accepts_raw_frames
 def reconstruct_bscan(raw: torch.Tensor, background: torch.Tensor,
                       pi_frame: torch.Tensor, calib: Calibration, cfg,
                       method: str = "fused", averages: int | None = None,

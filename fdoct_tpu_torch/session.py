@@ -22,8 +22,12 @@ and each group is one launch of the int8 B-scan kernel plus a small tail.
 
 Variants 'base', 'sim', 'dark', 'peak' and 'spinj'.  The ring buffers keep
 their frames and magnitudes on the device; a save ('s'), a plugin or
-J-lockin moves to the host only what it writes or reads.  A device mesh is
-not ported yet.
+J-lockin moves to the host only what it writes or reads.  With a device
+mesh (``mesh=``, :mod:`fdoct_tpu_torch.parallel`) every rank runs the session
+on the same frames and each group runs the sharded session step on the
+rank's block: the group kernels on its frames and rows, the frame sum over
+'data', the display scale over 'ascan'; the displays are then gathered, so
+plugins, saves, rings and J-lockin see whole B-scans on every rank.
 """
 
 from __future__ import annotations
@@ -46,8 +50,13 @@ from fdoct_tpu_torch.ops import (
     threshold_floor, to_db, to_uint8,
 )
 from fdoct_tpu_torch.ops.fft import lowpass_rowwise
+from fdoct_tpu_torch.parallel.mesh import axis_size, mesh_device
+from fdoct_tpu_torch.parallel.sharded import (
+    build_session_bscan_step, build_session_bscan_step_int8, gather_frames, gather_rows,
+    local_block,
+)
 from fdoct_tpu_torch.pipeline import (
-    form_bscan, preprocess, raw_kernel_applies, reconstruct_group, reconstruct_group_frames,
+    BscanOutputs, form_bscan, preprocess, raw_kernel_applies, reconstruct_group, reconstruct_group_frames,
 )
 from fdoct_tpu_torch.plugins import ROIPlugin, VibrometryPlugin
 from fdoct_tpu_torch.sinks import RunWriter
@@ -85,7 +94,11 @@ class Session:
     (BscanFFTsim.cpp:806-825); a ``trigger(n)`` method, when it has one,
     fires the triggered captures.  method: the reconstruction of
     :func:`fdoct_tpu_torch.pipeline.ascan_mags` ('fused', 'fused_exact', or
-    'gather'/'hilbert', which launch no kernel).
+    'gather'/'hilbert', which launch no kernel).  mesh: a ('data', 'ascan')
+    ``DeviceMesh`` of :func:`fdoct_tpu_torch.parallel.make_mesh` whose device
+    type is ``device``'s; the session then lives on the rank's device
+    (:func:`~fdoct_tpu_torch.parallel.mesh_device`) and its batched path runs
+    on the mesh where the batch divides it (:meth:`_mesh_ok`).
     """
 
     def __init__(self, cfg, device: torch.device | str, variant: str = "base",
@@ -95,11 +108,13 @@ class Session:
                  calib: Calibration | None = None, mesh: Any = None):
         if variant not in VARIANTS:
             raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
-        if mesh is not None:
-            raise NotImplementedError("a device mesh is not ported to fdoct_tpu_torch yet "
-                                      "(ROADMAP Queue 1 item 12)")
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh for a session on {self.device}")
+            self.device = mesh_device(mesh)
         self.variant = variant
         self.sink = sink
         self.camera = camera
@@ -665,10 +680,15 @@ class Session:
         avg = self.averagestoggle
         why = self._fast_path_blocker(n, avg)
         if why is not None:
-            self._say_once(f"slow:{why}", f"fast path disengaged ({why}) — per-frame dispatches")
+            self._say_once(f"slow:{why}", f"fast path disengaged ({why}) — per-frame dispatches"
+                           + ("; mesh unused" if self.mesh is not None else ""))
             return [r for f in frames if (r := self.process(f)) is not None]
 
         self._tick_fps(frames[-1], n=n)
+        if self.mesh is not None:
+            host = frames if torch.is_tensor(frames) else np.asarray(frames)
+            if self._mesh_ok(host, avg):
+                return self._process_group_mesh(host, n // avg, avg)
         farr = self._to_device(frames)
         if farr.ndim == 4:
             # a single-plane select keeps exact uint8 counts, so colour
@@ -699,6 +719,78 @@ class Session:
                                        eps=1e-5))
         disp = torch.stack([o.bscandisp for o in outs]).cpu().numpy()
         return self._emit_group_results(outs, disp, avg, farr, frame_mags)
+
+    # ------------------------------------------------------------------
+    # the batched path on a device mesh
+    # ------------------------------------------------------------------
+
+    def _mesh_ok(self, farr, avg: int) -> bool:
+        """Whether this batch can ride the sharded session steps: frames
+        over 'data', rows over 'ascan', so the averaging count and the rows
+        must divide the mesh axes and the median halo must fit one
+        neighbour's rows; colour frames take the single-device path (their
+        channel is selected there).  A session that falls back says why,
+        once, and stays on its device (session.py:795-820 of the JAX
+        package)."""
+        cfg = self.cfg
+        n_data, n_ascan = axis_size(self.mesh, "data"), axis_size(self.mesh, "ascan")
+        why = None
+        if farr.ndim != 3:
+            why = "color frames need host-side channel handling"
+        elif avg % n_data != 0:
+            why = f"averages {avg} not divisible by mesh 'data' axis {n_data}"
+        elif cfg.oph % n_ascan != 0:
+            why = f"oph {cfg.oph} not divisible by mesh 'ascan' axis {n_ascan}"
+        elif cfg.mediann > 1 and farr.shape[-2] // n_ascan < cfg.mediann // 2:
+            why = (f"median halo needs >= {cfg.mediann // 2} raw rows per "
+                   f"'ascan' shard, have {farr.shape[-2] // n_ascan}")
+        if why is not None:
+            self._say_once(f"mesh:{why}", f"mesh unused — single-device fast path ({why})")
+            return False
+        return True
+
+    def _process_group_mesh(self, farr, groups: int, avg: int) -> list[BscanResult]:
+        """Each group through the sharded session step on this rank's block
+        (only the block is copied to the device), then every group's display
+        gathered over 'ascan' in one all-gather and copied to the host at
+        once (and with ``saveframes`` each frame's magnitudes over both
+        axes), so that the per-group bookkeeping of
+        :meth:`_emit_group_results` sees what the single-device path gives
+        it.  The f32 step launches what the single-device group step
+        launches on the block; the int8 step runs JAX's two s8 products (no
+        fused int8 kernel: its display epilogue would precede the 'data'
+        sum)."""
+        cfg = self.cfg
+        thresh = torch.tensor(self.bscanthreshold, dtype=self.data_yb.dtype, device=self.device)
+        first = farr[0] if torch.is_tensor(farr) else torch.from_numpy(np.asarray(farr[0]))
+        if self._use_int8_direct(first):
+            step = build_session_bscan_step_int8(self.mesh, self._int8_plan(), cfg, avg,
+                                                 keep_frames=cfg.saveframes)
+
+            def run(fr):
+                return step(fr, thresh)
+        else:
+            step = build_session_bscan_step(self.mesh, self.calib, cfg, self.method, avg,
+                                            dark=self.variant == "dark",
+                                            keep_frames=cfg.saveframes)
+
+            def run(fr):
+                return step(fr, self.data_yb, self.data_yp, self.data_yd, thresh)
+        raw = self._to_device(farr).clone() if cfg.saveinterferograms else None
+        blocks, mags = [], []
+        for g in range(groups):
+            bscan, db, disp, *extra = run(self._to_device(
+                local_block(farr[g * avg:(g + 1) * avg], self.mesh)))
+            blocks.append(torch.stack([bscan, db, disp.to(bscan.dtype)]))
+            if cfg.saveframes:
+                mags.append(gather_frames(extra[0], self.mesh))
+        # one all-gather and one copy to the host for every group's display
+        whole = gather_rows(torch.stack(blocks), self.mesh)      # (groups, 3, ndisp, oph)
+        outs = [BscanOutputs(bscan=w[0], bscandb=w[1], bscandisp=w[2].to(torch.uint8))
+                for w in whole]
+        disp = whole[:, 2].to(torch.uint8).cpu().numpy()
+        return self._emit_group_results(outs, disp, avg, raw,
+                                        torch.cat(mags) if cfg.saveframes else None)
 
     def _int8_groups(self, s8: torch.Tensor, groups: int, avg: int) -> list:
         """The int8-direct group step: one ``int8_bscan_display_fused``

@@ -31,6 +31,9 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
+from fdoct_tpu_torch.parallel.mesh import axis_size, mesh_device
+from fdoct_tpu_torch.parallel.sharded import local_block
+
 #: pinned host slots in the ring of a CUDA run: the batch being stepped, the
 #: next one (copy in flight) and one more being filled
 PINNED_SLOTS = 3
@@ -205,33 +208,42 @@ class _PinnedRing:
 
 
 class _Feed:
-    """Host batches → device batches for :func:`run_streaming`."""
+    """Host batches → device batches for :func:`run_streaming`; with a mesh,
+    each batch's block of this rank."""
 
     def __init__(self, streamer: FrameStreamer, batch: int, device: torch.device,
-                 put: Callable | None):
+                 put: Callable | None, mesh=None):
         self.streamer = streamer
         self.batch = batch
         self.device = device
         self.put = put
+        self.mesh = mesh
         self.pinned = put is None and device.type == "cuda"
         if self.pinned:
-            self.ring = _PinnedRing(batch)
+            self.ring = _PinnedRing(batch if mesh is None else batch // axis_size(mesh, "data"))
             self.copy_stream = torch.cuda.Stream(device)
             self.compute = torch.cuda.current_stream(device)
 
     def next(self) -> tuple[torch.Tensor, torch.cuda.Event | None] | None:
         """The next batch on the device, its copy issued; None at the end."""
-        if not self.pinned:
-            host = self.streamer.get_batch(self.batch)
+        if self.pinned and self.mesh is None:
+            self.ring.advance()
+            host = self.streamer.get_batch(self.batch, out=self.ring.take)
             if host is None:
                 return None
-            if self.put is not None:
-                return self.put(host), None
-            return torch.as_tensor(host).to(self.device), None
-        self.ring.advance()
-        host = self.streamer.get_batch(self.batch, out=self.ring.take)
+            return self.ring.copy(len(host), self.device, self.copy_stream)
+        host = self.streamer.get_batch(self.batch)
         if host is None:
             return None
+        if self.put is not None:
+            return self.put(host), None
+        if self.mesh is not None:
+            host = local_block(host, self.mesh)       # only this block is pinned and copied
+        if not self.pinned:
+            return torch.as_tensor(np.ascontiguousarray(host)).to(self.device), None
+        self.ring.advance()
+        slot = self.ring.take(host[0])
+        np.copyto(slot[:len(host)], host)
         return self.ring.copy(len(host), self.device, self.copy_stream)
 
     def ready(self, item: tuple[torch.Tensor, torch.cuda.Event | None]) -> torch.Tensor:
@@ -268,18 +280,23 @@ def run_streaming(
     stream) after the next step has been issued, the last before returning.
 
     ``device`` is where the step's frames go (required; on CUDA through the
-    pinned ring and a side copy stream, see the module docstring).  ``put``
+    pinned ring and a side copy stream, see the module docstring).
+    ``sharding``, a ('data', 'ascan') device mesh of ``device``'s type: the
+    step gets this rank's (b_loc, h_loc, W) block of each batch on the
+    rank's device (``parallel.shard_frames``), and only the block is pinned
+    and copied; ``batch`` and the rows must divide the mesh's axes.  ``put``
     overrides the placement, ``put(host_batch) -> frames on the device``,
-    with host batches stacked by numpy.  ``sharding`` (a device mesh) is not
-    ported yet.
+    with host batches stacked by numpy (with a mesh, the rank's block is
+    ``put``'s to take: ``parallel.sharded.local_block``).
     """
-    if sharding is not None:
-        raise NotImplementedError("run_streaming(sharding=...) is not ported to "
-                                  "fdoct_tpu_torch yet (ROADMAP Queue 1 item 12)")
     device = torch.device(device)
+    if sharding is not None:
+        if sharding.device_type != device.type:
+            raise ValueError(f"a {sharding.device_type} mesh for frames on {device}")
+        device = mesh_device(sharding)
     streamer = FrameStreamer(source_frames, maxsize=4 * batch,
                              drop_oldest=drop_oldest, rate_fps=rate_fps).start()
-    feed = _Feed(streamer, batch, device, put)
+    feed = _Feed(streamer, batch, device, put, sharding)
     results: list = []
     inflight = None                  # (result, event) of the step before
     taken = 0

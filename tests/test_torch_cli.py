@@ -339,6 +339,72 @@ class TestLive:
             assert_data_close(t["bscan001"], j["bscan001"], 1e-5)
 
 
+class TestMesh:
+    """``--mesh``: a world of one in process, no launcher (tests/
+    test_torch_parallel.py holds the multi-rank mesh to JAX's)."""
+
+    def test_live_mesh_1x1_matches_jax(self, tmp_path, monkeypatch):
+        """The batched groups ride the mesh session step in both CLIs (the
+        JAX CLI on its 8 virtual devices, 8 × 1); an 's' from stdin saves
+        alike; the world is closed on exit."""
+        import torch.distributed as dist
+
+        from fdoct_tpu_torch.session import Session
+        used = []
+        orig = Session._process_group_mesh
+        monkeypatch.setattr(Session, "_process_group_mesh",
+                            lambda self, *a: used.append(1) or orig(self, *a))
+        cfg_path = json_config(tmp_path / "c.json", averages=8)
+        outs = {}
+        for name, fn, extra in (("jax", jax_main, ["--mesh", "8x1"]),
+                                ("port", main, ["--mesh", "1x1"] + CPU)):
+            monkeypatch.setattr("sys.stdin", io.StringIO("s\n"))
+            calls = iter([([sys.stdin], [], [])])
+            monkeypatch.setattr("select.select", lambda *a, **k: next(calls, ([], [], [])))
+            assert fn(["live", "--config", cfg_path, "--outdir", str(tmp_path / name),
+                       "--frames", "24", "--batch", "8", "--format", "npz"] + extra) == 0
+            outs[name] = run_dir(tmp_path / name)
+        assert used and not dist.is_initialized()
+        assert {p.name for p in outs["port"].iterdir()} == {p.name for p in outs["jax"].iterdir()}
+        assert_png_close(outs["port"] / "bscan001.png", outs["jax"] / "bscan001.png")
+        with np.load(outs["port"] / "BscanFFT.npz") as t, \
+                np.load(outs["jax"] / "BscanFFT.npz") as j:
+            assert_data_close(t["bscan001"], j["bscan001"], 1e-5)
+
+    def test_cscan_mesh_1x1_matches_jax(self, tmp_path):
+        """The volume on the port's 1 × 1 mesh and on the JAX CLI's 8 × 1."""
+        cfg_path = json_config(tmp_path / "c.json", dtype="float64", height=16)
+        argv = ["cscan", "--config", cfg_path, "--frames", "8"]
+        outs = {}
+        for name, fn, extra in (("jax", jax_main, ["--mesh", "8x1"]),
+                                ("port", main, ["--mesh", "1x1"] + CPU)):
+            (tmp_path / name).mkdir()
+            assert fn(argv + ["--outdir", str(tmp_path / name)] + extra) == 0
+            outs[name] = run_dir(tmp_path / name)
+        jdir, tdir = outs["jax"], outs["port"]
+        with np.load(jdir / "BscanFFT.npz") as j, np.load(tdir / "BscanFFT.npz") as t:
+            assert t["cscan"].shape == (8, 128, 16)
+            assert_data_close(t["cscan"], j["cscan"], 1e-9)
+            np.testing.assert_array_equal(t["surface"], j["surface"])
+
+    @pytest.mark.parametrize("spec,want", [
+        ("2xq", "invalid --mesh '2xq' (expected DxA, e.g. 4x2): "),
+        ("3x1", "--mesh 3x1: mesh 3x1 != ")])
+    def test_parse_mesh_errors_match_jax(self, small_ini, tmp_path, spec, want):
+        """A malformed spec and one the world cannot hold: the JAX CLI's
+        SystemExit messages (the device count is the world's: 8 virtual CPU
+        devices in JAX, one process here)."""
+        import torch.distributed as dist
+
+        argv = ["cscan", "--config", small_ini, "--outdir", str(tmp_path), "--frames", "2",
+                "--mesh", spec]
+        for fn, extra in ((jax_main, []), (main, CPU)):
+            with pytest.raises(SystemExit) as e:
+                fn(argv + extra)
+            assert str(e.value).startswith(want), str(e.value)
+        assert not dist.is_initialized()
+
+
 @native
 class TestLiveCamera:
     def test_live_from_camera_ring(self, small_ini, tmp_path, monkeypatch):
@@ -600,14 +666,10 @@ def test_default_device_is_cuda_and_fails_loudly(small_ini, tmp_path):
     assert not [p for p in tmp_path.iterdir() if p.is_dir()]      # no run directory
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["bench"], "item 5"),
-    (["live", "--mesh", "2x1", "--frames", "1"], "item 12"),
-    (["cscan", "--mesh", "1x1", "--frames", "1"], "item 12")])
-def test_unported_features_name_their_roadmap_item(argv, item, small_ini, tmp_path):
-    extra = [] if argv == ["bench"] else ["--config", small_ini, "--outdir", str(tmp_path)]
+@pytest.mark.parametrize("argv,item", [(["bench"], "item 5")])
+def test_unported_features_name_their_roadmap_item(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        main(argv + extra + (CPU if argv != ["bench"] else []))
+        main(argv)
 
 
 def test_live_viewer_files_match_jax(small_ini, tmp_path):

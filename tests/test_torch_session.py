@@ -154,19 +154,15 @@ def test_fast_path_reason_is_said_once(source):
     assert s.indextemp == 1
 
 
-@pytest.mark.parametrize("what", ["mesh", "offline_tool"])
+@pytest.mark.parametrize("what", ["offline_tool"])
 def test_unported_session_features_raise(source, what, monkeypatch):
-    """A device mesh (ROADMAP Queue 1 item 12) is not ported.  The spinj 'y'
-    key with no offline_tool_path, which raised until the port had a CLI,
-    now starts the port's own ``offline`` command on the session's device
-    type, as the JAX session starts the JAX CLI's (tests/test_torch_cli.py
-    runs that command)."""
+    """The spinj 'y' key with no offline_tool_path, which raised until the
+    port had a CLI, now starts the port's own ``offline`` command on the
+    session's device type, as the JAX session starts the JAX CLI's
+    (tests/test_torch_cli.py runs that command).  The device mesh, which
+    raised here too, is ported (tests/test_torch_parallel.py)."""
     src, frames = source
     _, tcfg = configs("base", "highest64")
-    if what == "mesh":
-        with pytest.raises(NotImplementedError, match="mesh.*item 12"):
-            Session(tcfg, device="cpu", mesh=object())
-        return
     cmds = []
     monkeypatch.setattr(subprocess, "Popen", lambda cmd: cmds.append(cmd))
     s = Session(tcfg.replace(manualaverages=3), device="cpu", variant="spinj")
@@ -242,6 +238,12 @@ def test_port_never_imports_jax():
         "out, _ = run_streaming(iter([np.zeros((32, 256), np.uint8)] * 4), len, batch=2,\n"
         "                       n_batches=2, device='cpu')\n"
         "assert out == [2, 2], out\n"
+        "from fdoct_tpu_torch.parallel import WorldOfOne, make_mesh\n"
+        "with WorldOfOne('cpu'):\n"
+        "    ms = Session(cfg.replace(donotnormalize=True), device='cpu',\n"
+        "                 mesh=make_mesh(1, 1, device_type='cpu'))\n"
+        "    assert len(ms.process_group(np.stack([next(it) for _ in range(2)]))) == 1\n"
+        "    assert not ms._said_once, ms.status\n"
         "for method in ('gather', 'hilbert'):\n"
         "    g = Session(cfg.replace(donotnormalize=True), device='cpu', method=method)\n"
         "    assert len(g.process_group(np.stack([next(it) for _ in range(2)]))) == 1\n"

@@ -271,11 +271,9 @@ def test_step_is_not_held_for_a_batch_that_has_not_arrived():
     assert log == ["put 0", "step 0", "put 1", "step 1", "put 2", "step 2"]
 
 
-def test_run_streaming_needs_a_device_and_has_no_mesh_yet():
+def test_run_streaming_needs_a_device():
     with pytest.raises(TypeError):
         run_streaming(frame_gen(), len, batch=2, n_batches=1)          # no device
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        run_streaming(frame_gen(), len, batch=2, n_batches=1, device="cpu", sharding=object())
 
 
 def test_producer_exception_surfaces_from_run_streaming():

@@ -311,16 +311,3 @@ def test_cscan_volume_int8_matches_jax_on_one_plan(cscan_frames):
     got = sharded_cscan_volume_int8(torch.as_tensor(frames), tplan, tcfg)
     assert tuple(got.shape) == (5, 128, 16) and got.dtype == torch.float32
     allclose(got.numpy(), want, 1e-5, 1e-5)
-
-
-@pytest.mark.parametrize("fn", ["f32", "int8"])
-def test_cscan_volume_mesh_is_not_ported(cscan_frames, fn):
-    frames, bg = cscan_frames
-    _, tcfg = configs(**CS, dtype="float32")
-    f = torch.as_tensor(frames)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        if fn == "f32":
-            sharded_cscan_volume(f, torch.as_tensor(bg), torch.zeros(bg.shape), None, tcfg,
-                                 mesh=object())
-        else:
-            sharded_cscan_volume_int8(f, None, tcfg, mesh=object())
