@@ -204,10 +204,23 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    kernel 1 launches) and `cscan --frames 64 --mesh 1x1` (none), each opening
    and closing its own world of one, and dryrun_multichip(1, "cuda") (one
    spawned nccl rank at the flagship, each check within 2e-2 dB).
+17. kernel1_u16 — kernel 1 on 16-bit frames (u16_phases): both u16
+   instances against their plain versions and the float64 product, at the
+   flagship on the full 16-bit range and on Mono16 frames and at RAGGED
+   (the element loads); their times; a 12-bit flagship 'base' session at
+   'default' and 'highest' (one kernel 1 launch a group, no kernel 2;
+   displays within 1 uint8 level of the kernel-2 route that 16-bit frames
+   took before; group times of both routes, turns P C C P).
+18. bench   — `fdoct-torch bench` in process (bench_phase): its JSON line
+   with every key of bench.py's or the row named in "dropped", the card's
+   name and power limit, kernel 1 once a headline group and nothing else,
+   one headline display byte-equal to Session.process_group's.  The line is
+   printed.
 
 The line before the last is {"kernels": [...]}, one entry per instance
-(kernels 1-2 each with a bf16 and an f32 operator, kernel 3, the resident
-kernel): every time in it was measured in this run; "ms"/"plain_ms" are
+(kernels 1-2 each with a bf16 and an f32 operator, kernel 1's two u16
+instances ("input": "u16", launches from phase 17's sessions), kernel 3,
+the resident kernel): every time in it was measured in this run; "ms"/"plain_ms" are
 single calls and "ms_b2b"/"plain_ms_b2b" back-to-back calls (phase 5);
 "launches" is the count from the instance's session paths, phases 4, 13,
 14, 15 and 16 (for the resident kernel, which no session runs, the count from
@@ -881,6 +894,8 @@ def main() -> int:
     mesh_launches = mesh_phase(cfg, calib, src, frames, card_line, dev)
     for key, n in mesh_launches.items():
         launches[key] += n
+    u16_entries = u16_phases(cfg, calib, products, card_line, dev)
+    bench_phase(card_line, dev)
 
     entries = []
     for name in runners:
@@ -910,7 +925,8 @@ def main() -> int:
             if (name, op) in mesh_launches:
                 entries[-1]["mesh_launches"] = mesh_launches[(name, op)]
     phase("total", f"{time.perf_counter() - t_start:.1f} s wall clock, the build included")
-    print(json.dumps({"kernels": entries + [int8_entry, resident_entry]}), flush=True)
+    print(json.dumps({"kernels": entries + u16_entries + [int8_entry, resident_entry]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -1964,6 +1980,279 @@ def mesh_phase(cfg, calib, src, frames, card_line: str, dev: torch.device) -> di
     phase("mesh", f"dryrun_multichip(1, 'cuda') in {time.perf_counter() - t0:.1f} s (a spawned "
           f"rank, nccl): {json.dumps(report)}")
     return counts
+
+
+def u16_problem(cfg, values: str, dev: torch.device, shape=None) -> dict:
+    """16-bit frames with pi and inv_background on their scale: ``"camera"``,
+    the synthetic source at 16 bits (bpp = 16: fringes over the whole
+    range) with its background and pi frame; ``"mono16"``, the 12-bit
+    source's frames, background and pi frame << 4 (Mono16); ``"noise"``,
+    counts drawn uniformly over the 16-bit range with pi and the background
+    drawn as random_problem draws them, 257 times larger (the ratio of
+    random_problem's u8 frames).  At the flagship (``shape`` None; the
+    caller adds the flagship operators) or at ``shape`` (B, rows, n_in,
+    ndisp) with random operators."""
+    from fdoct_tpu_torch.sources.synthetic import SyntheticSource
+    B, rows, n_in, ndisp = shape or (cfg.averages, cfg.height, cfg.width, cfg.numdisplaypoints)
+    rng = np.random.default_rng(SEED + 20)
+    if values == "noise":
+        raw = rng.integers(0, 65536, (B, rows, n_in))
+        pi = rng.uniform(0, 50 * 257, (rows, n_in))
+        bg = rng.uniform(50 * 257, 200 * 257, (rows, n_in))
+    else:
+        bpp, shift = (16, 0) if values == "camera" else (12, 4)
+        src = SyntheticSource(height=rows, width=n_in, lambda0=cfg.lambda0,
+                              dlambda=cfg.lambdabw * 2.3548 / 4.0, noise=0.02, seed=SEED,
+                              bpp=bpp)
+        it = src.frames()
+        raw = np.stack([next(it) for _ in range(B)]).astype(np.int64) << shift
+        pi = src.pi_frame().astype(np.float64) * (1 << shift)
+        bg = np.maximum(src.background().astype(np.float64) * (1 << shift), 1 << shift)
+    inp = {"raw": torch.as_tensor(raw.astype(np.uint16)).to(dev),
+           "pi": torch.as_tensor(pi).to(dev, torch.float32),
+           "inv": torch.as_tensor(1.0 / bg).to(dev, torch.float32)}
+    if shape is not None:
+        mr, mi = (torch.as_tensor(rng.normal(size=(n_in, ndisp))).to(dev, torch.float32)
+                  for _ in range(2))
+        inp["f32"], inp["bf16"] = (mr, mi), (mr.to(torch.bfloat16), mi.to(torch.bfloat16))
+    return inp
+
+
+def u16_phases(cfg, calib, products: dict, card_line: str, dev: torch.device) -> list:
+    """Phase 17: kernel 1 on 16-bit frames, as its TPU kernel takes them.
+    Both u16 instances (bf16 and f32 operator) against their plain versions
+    (bf16 at TC_TOL, f32 at TOL) and against the float64 product of their
+    rounded operands (BF16_F64_TOL, F64_TOL): at the flagship (its M) on a
+    16-bit camera's frames and on Mono16 frames, and at RAGGED (n_in % 8 !=
+    0: the element loads; random operators) on white-noise and Mono16
+    frames.  White-noise frames against the flagship M (u16_problem
+    "noise"), whose ratio has a large mean that M cancels, are read beside
+    the u8 instance on random_problem's frames (the same ratio, 257 times
+    fewer counts), cuBLAS f32 and the 24-bit truncating chain: the u16
+    instance's float64 share must stay within 1.25 times the u8 instance's
+    (BF16_F64_TOL was set on camera-like frames; on white noise the tensor
+    cores' truncating sums exceed it for u8 and u16 alike).  Times beside
+    the plain version's, the cuBLAS product's and the bound.  Then a
+    flagship 12-bit 'base' session (SyntheticSource bpp = 12) at 'default'
+    and 'highest': counts set to 0 just before its 8 groups and read just
+    after, exactly one kernel 1 launch a group and none of kernel 2; every
+    display within 1 uint8 level of the kernel-2 route (preprocess,
+    apodize_ratio, fused_recon_accumulate, form_bscan: the route 16-bit
+    frames took before kernel 1 took them) on the same frames; the group
+    time of both routes, host clock, turns P C C P (P: the kernel-2 route,
+    raw_kernel_applies narrowed to uint8 as it was), and each route's
+    profiled breakdown.  Returns the u16 instances' entries of the
+    {"kernels": [...]} line."""
+    from fdoct_tpu_torch import pipeline
+    from fdoct_tpu_torch.ops import kernels
+    from fdoct_tpu_torch.ops.kernels import (
+        LAUNCHES, fused_recon_accumulate, fused_recon_raw_accumulate,
+        fused_recon_raw_accumulate_reference,
+    )
+    from fdoct_tpu_torch.pipeline import apodize_ratio, form_bscan, preprocess
+    from fdoct_tpu_torch.session import Session
+    from fdoct_tpu_torch.sources.synthetic import SyntheticSource
+
+    name = "fused_recon_raw_accumulate"
+    ops = {"f32": (calib.op_re, calib.op_im), "bf16": (calib.op_re_bf16, calib.op_im_bf16)}
+    problems = {"flagship camera": {**u16_problem(cfg, "camera", dev), **ops},
+                "flagship mono16": {**u16_problem(cfg, "mono16", dev), **ops},
+                "ragged noise": u16_problem(cfg, "noise", dev, RAGGED),
+                "ragged mono16": u16_problem(cfg, "mono16", dev, RAGGED)}
+    errors, shares, f64 = {}, {}, {}
+    for shape_name, inp in problems.items():
+        x = (inp["raw"], inp["pi"], inp["inv"])
+        x32 = (inp["raw"].float() - inp["pi"]) * inp["inv"]
+        for op in ("bf16", "f32"):
+            got = fused_recon_raw_accumulate(*x, *inp[op])
+            torch.cuda.synchronize()
+            want = fused_recon_raw_accumulate_reference(*x, *inp[op])
+            tol = TC_TOL.get((name, op), TOL[op])
+            res = compare(got, want, tol, tol * float(want.abs().max()))
+            if op == "bf16":
+                want64, lim = bf16_f64_product(x32, *inp[op]), BF16_F64_TOL
+            else:
+                want64, lim = f64_product(x32, *inp[op]), F64_TOL
+            res64 = compare(got, want64, lim, lim * float(want64.abs().max()))
+            errors[(shape_name, op)] = res["max_abs_err"]
+            shares.setdefault(op, {})[shape_name] = res["worst_share_of_tol"]
+            f64.setdefault(op, {})[shape_name] = res64["worst_share_of_tol"]
+            phase("kernel1_u16", f"{name} u16 {shape_name} {tuple(x[0].shape)} (max count "
+                  f"{int(x[0].int().max())}) op={op}: vs plain max_abs_err "
+                  f"{res['max_abs_err']:.3e}, worst {res['worst_share_of_tol']:.3e} of tol "
+                  f"(rtol=atol/max={tol}); vs the float64 product of its rounded operands worst "
+                  f"{res64['worst_share_of_tol']:.3e} of tol (rtol=atol/max={lim})")
+            check(res["finite"] and res["worst_share_of_tol"] <= 1.0
+                  and res64["worst_share_of_tol"] <= 1.0,
+                  f"{name} u16 {shape_name} {op} disagrees with its plain version or float64")
+
+    # white noise against the flagship M: u16 beside u8 on the same ratio
+    noise = {"u16": u16_problem(cfg, "noise", dev),
+             "u8": random_problem((cfg.averages, cfg.height, cfg.width, 1), SEED + 21, dev)}
+    for op in ("bf16", "f32"):
+        read = {}
+        for frames_of, inp in noise.items():
+            x = (inp["raw"], inp["pi"], inp["inv"])
+            x32 = (inp["raw"].float() - inp["pi"]) * inp["inv"]
+            want64 = (bf16_f64_product if op == "bf16" else f64_product)(x32, *ops[op])
+            lim = BF16_F64_TOL if op == "bf16" else F64_TOL
+            more = {f"{frames_of} kernel": fused_recon_raw_accumulate(*x, *ops[op]),
+                    f"{frames_of} cuBLAS f32": fused_recon_raw_accumulate_reference(*x, *ops[op])}
+            if op == "bf16" and frames_of == "u16":
+                more["chain 24 bits"] = truncating_chain(x32, *ops[op], 24)
+            atol = lim * float(want64.abs().max())
+            read.update({k: compare(v, want64, lim, atol)["worst_share_of_tol"]
+                         for k, v in more.items()})
+        phase("kernel1_u16", f"{name} white-noise frames against the flagship M op={op}, against "
+              f"the float64 product of the rounded operands (rtol=atol/max={lim}): " +
+              ", ".join(f"{k} worst {v:.3e}" for k, v in read.items()) +
+              " of tol (the u16 instance must stay within 1.25x the u8 instance)")
+        check(read["u16 kernel"] <= 1.25 * read["u8 kernel"],
+              f"{name} u16 {op} errs more than the u8 instance on the same ratio")
+
+    flag = problems["flagship camera"]
+    x16 = (flag["raw"], flag["pi"], flag["inv"])
+    times = {}
+    for op in ("bf16", "f32"):
+        times[op] = t = timed_pair(lambda: fused_recon_raw_accumulate(*x16, *ops[op]),
+                                   lambda: fused_recon_raw_accumulate_reference(*x16, *ops[op]))
+        phase("kernel1_u16", f"{name} u16 flagship op={op}: {describe(t)} | {card_line}")
+
+    # the 12-bit session at 'default' and 'highest', counts at 0 around each
+    src16 = SyntheticSource(height=cfg.height, width=cfg.width, lambda0=cfg.lambda0,
+                            dlambda=cfg.lambdabw * 2.3548 / 4.0, noise=0.02, seed=SEED + 1,
+                            bpp=12)
+    frames16 = src16.frames()
+    batches = [np.stack([next(frames16) for _ in range(2 * cfg.averages)]) for _ in range(4)]
+    check(batches[0].dtype == np.uint16 and int(batches[0].max()) > 255, "not 16-bit frames")
+    widened = pipeline.raw_kernel_applies
+
+    def kernel2_route(raw, c):           # how 16-bit frames ran before: preprocess + kernel 2
+        return raw.dtype == torch.uint8 and widened(raw, c)
+
+    launches = {}
+    for precision, op in (("default", "bf16"), ("highest", "f32")):
+        scfg = cfg.replace(bpp=12, matmul_precision=precision)
+        s = captured_session(Session, scfg, "base", src16, frames16, calib, dev)
+        kernels.reset_launches()
+        results = [r for b in batches for r in s.process_group(b)]
+        torch.cuda.synchronize()
+        ran = {k: v for k, v in LAUNCHES.items() if v}
+        groups = len(results)
+        check(groups == 8 and ran == {name: groups},
+              f"12-bit '{precision}': launches {ran} for {groups} groups, not {name}: 8")
+        launches[op] = ran[name]
+        diff = 0
+        for i, r in enumerate(results):
+            raw = torch.as_tensor(batches[i // 2][(i % 2) * cfg.averages:][:cfg.averages]).to(dev)
+            yr = apodize_ratio(preprocess(raw, scfg), s.data_yb, s.data_yp, scfg).contiguous()
+            want = form_bscan(fused_recon_accumulate(yr, *ops[op]), scfg, cfg.averages,
+                              bscanthreshold=s.bscanthreshold).bscandisp.cpu().numpy()
+            diff = max(diff, int(np.abs(r.bscandisp.astype(int) - want.astype(int)).max()))
+        phase("kernel1_u16", f"12-bit base '{precision}': {groups} B-scans through {name} op="
+              f"{op}, launches this path {ran}; displays against the kernel-2 route on the same "
+              f"frames: max uint8 diff {diff} (limit 1)")
+        check(diff <= 1, f"12-bit '{precision}' display differs from the kernel-2 route")
+        turns = {}
+        for turn in ("P", "C", "C", "P"):
+            pipeline.raw_kernel_applies = kernel2_route if turn == "P" else widened
+            try:
+                turns.setdefault(turn, []).append(statistics.median(host_group_ms(s, batches)))
+            finally:
+                pipeline.raw_kernel_applies = widened
+        pipeline.raw_kernel_applies = kernel2_route
+        try:
+            prof_p = device_breakdown(lambda: [s.process_group(b) for b in batches], 8)
+        finally:
+            pipeline.raw_kernel_applies = widened
+        prof_c = device_breakdown(lambda: [s.process_group(b) for b in batches], 8)
+        phase("kernel1_u16", f"12-bit base '{precision}' Session.process_group per group (8 frames "
+              f"512x2048 u16 from host memory to uint8 display on host), host-clock medians of "
+              f"{SESSION_CALLS} calls, turns P C C P: kernel-2 route (P) "
+              f"{turns['P'][0]:.3f} / {turns['P'][1]:.3f} ms, kernel 1 (C) {turns['C'][0]:.3f} / "
+              f"{turns['C'][1]:.3f} ms | P: {describe_breakdown(prof_p)} | C: "
+              f"{describe_breakdown(prof_c)} | {card_line}")
+
+    entries = []
+    for op in ("bf16", "f32"):
+        entries.append({
+            "name": name, "input": "u16", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": launches[op], "operator": op,
+            "mma": MMA[(name, op)], "max_abs_err": errors[("flagship camera", op)],
+            "worst_share_of_tol": max(shares[op].values()),
+            **({"bf16_f64_tol": BF16_F64_TOL,
+                "worst_share_of_bf16_f64_tol": max(f64[op].values())} if op == "bf16" else
+               {"f64_tol": F64_TOL, "worst_share_of_f64_tol": max(f64[op].values())}),
+            **time_keys(times[op]),
+            **bound_keys(op, 2 * x16[0].numel() * calib.op_re.shape[1], [*x16, *ops[op]],
+                         fused_recon_raw_accumulate(*x16, *ops[op])),
+            "library_ms": None, "product_ms": products[op][0],
+            "product_ms_b2b": products[op][1]})
+    return entries
+
+
+def bench_phase(card_line: str, dev: torch.device) -> None:
+    """Phase 18: `fdoct-torch bench` (fdoct_tpu_torch.cli.main(["bench"]),
+    in process, on the default device cuda), its JSON line captured: every
+    key of bench.py's line present or its row named in "dropped", value > 0,
+    the card's name and power limit, the CUDA-event timer; launch counts set
+    to 0 just before and read just after: kernel 1 once for every group of
+    the headline's runs and of the host-inclusive row (bf16: the config's
+    'default' on the card), no other kernel (the int8 rows run two _int_mm
+    products, the batched rows torch.matmul); and one headline group's
+    display byte-equal to Session.process_group's on the same frames with
+    the same background and pi.  Prints the line."""
+    import contextlib
+    import io
+
+    from fdoct_tpu_torch import bench, cli
+    from fdoct_tpu_torch.ops import kernels
+    from fdoct_tpu_torch.ops.kernels import LAUNCHES
+    from fdoct_tpu_torch.pipeline import use_bf16
+    from fdoct_tpu_torch.session import Session
+
+    name = "fused_recon_raw_accumulate"
+    shape = bench.FLAGSHIP
+    check(use_bf16(bench.config(shape).matmul_precision, torch.float32, dev),
+          "bench's headline does not take the bf16 operator on the card")
+    kernels.reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["bench"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ran = {k: v for k, v in LAUNCHES.items() if v}
+    line = out.getvalue().strip().splitlines()[-1]
+    res = json.loads(line)
+    phase("bench", f"fdoct-torch bench: exit {rc} in {secs:.1f} s (host clock); launches "
+          f"{ran} | {card_line}")
+    print(line, flush=True)
+    check(rc == 0, f"bench exited {rc}")
+    missing = [k for k in bench.BENCH_PY_KEYS if k not in res and not any(
+        k in bench.ROW_KEYS[row] for row in res["dropped"])]
+    check(not missing, f"bench's line lacks {missing} and names no dropped row for them")
+    check(res["value"] > 0 and res["timer"] == "cuda_events", f"bench value {res['value']}, "
+          f"timer {res['timer']}")
+    check(res["device"]["name"] == torch.cuda.get_device_name(0)
+          and res["device"]["power_limit_w"] > 0, f"bench device {res['device']}")
+    groups = res["headline_groups"]
+    check(res["headline_launches"] == groups
+          and groups == (1 + shape.repeats) * (shape.g1 + shape.g2),
+          f"headline: {res['headline_launches']} launches for {groups} groups")
+    check(ran == {name: groups + bench.HOST_GROUPS},
+          f"bench launched {ran}, not {name}: {groups + bench.HOST_GROUPS}")
+
+    harness = bench.Harness.create(shape, dev)
+    frames = bench.gen_frames(shape, 1, dev)[0]
+    disp = harness.group_step(frames).cpu().numpy()
+    s = Session(harness.cfg, device=dev, calib=harness.calib)
+    s.data_yb, s.data_yp = harness.background, harness.pi_frame
+    (r,) = s.process_group(frames)
+    check(np.array_equal(disp, r.bscandisp), "a headline display differs from process_group's")
+    phase("bench", f"one headline group's display {disp.shape} byte-equal to "
+          f"Session.process_group's on the same frames; dropped rows {res['dropped']}; "
+          f"baseline {res['vs_baseline']} ({res.get('baseline_error', 'built and run')})")
 
 
 def host_ms(fn, runs: int = 20) -> tuple[float, float]:

@@ -19,6 +19,9 @@ outputs, on the port's session, sources and sinks:
 - ``cscan``    — volumetric C-scan with an optional dispersion sweep.
 - ``sweep``    — dispersion autofocus sweep.
 - ``selftest`` — deployment self-check.
+- ``bench``    — the throughput benchmark: A-scans/s of the per-group
+  pipeline at the flagship shape, measured on the card
+  (:mod:`fdoct_tpu_torch.bench`), one JSON line on stdout.
 - ``configedit`` — view/edit ini fields by name.
 
 Every command that computes runs on ``--device`` (default ``cuda``); where
@@ -32,8 +35,7 @@ with matplotlib.  ``live --mesh DxA`` and ``cscan --mesh DxA`` run on a
 rank 0 alone reads the source and broadcasts each batch, writes the outputs
 and prints the summary; a triggered camera is refused there); ``--mesh 1x1``
 needs no launcher.  ``cscan`` without ``--mesh`` under torchrun takes a mesh
-over the world, as the JAX CLI does.  Not ported yet: ``bench`` (the JAX
-package's benchmark; ROADMAP Queue 1 item 5) raises ``NotImplementedError``.
+over the world, as the JAX CLI does.
 
 Deliberate deviation: a triggered source that stays idle past
 ``--idle-timeout`` raises :class:`SourceTimeoutError`, which names the
@@ -736,8 +738,9 @@ def _convert(args, mode: str) -> int:
 
 
 def cmd_bench(args) -> int:
-    raise NotImplementedError("the benchmark (bench.py) belongs to the JAX package; the port's "
-                              "harness is ROADMAP Queue 1 item 5")
+    """The throughput benchmark (the JAX package's ``bench.py``) on ``--device``."""
+    from fdoct_tpu_torch import bench
+    return bench.main(device=args.device)
 
 
 def cmd_cscan(args) -> int:
@@ -1108,7 +1111,8 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("xmlfile")
         sp.set_defaults(fn=lambda a, m=mode: _convert(a, m))
 
-    sp = sub.add_parser("bench", help="the benchmark (not ported yet: ROADMAP Queue 1 item 5)")
+    sp = sub.add_parser("bench", help="A-scans/s benchmark on the card (one JSON line)")
+    device(sp)
     sp.set_defaults(fn=cmd_bench)
 
     sp = sub.add_parser("cscan", help="volumetric C-scan")

@@ -3,8 +3,9 @@
 //   out[r, d] = sum_b | x_b[r, :] @ (op_re + i*op_im)[:, d] |
 //
 // Replaces three Pallas TPU kernels of fdoct_tpu/ops/pallas_kernels.py:
-//   * fdoct_recon_raw_u8_*  <- fused_recon_raw_accumulate (_recon_raw_kernel,
-//     pallas_kernels.py:126-160): x_b = (raw[b] - pi_frame) * inv_background,
+//   * fdoct_recon_raw_{u8,u16}_*  <- fused_recon_raw_accumulate
+//     (_recon_raw_kernel, pallas_kernels.py:126-160), raw u8 or u16 frames as
+//     the TPU kernel takes them: x_b = (raw[b] - pi_frame) * inv_background,
 //     computed on chip as the tile is staged, so the f32 apodization ratio
 //     never reaches device memory;
 //   * fdoct_recon_yr_f32_*  <- fused_recon_accumulate (_recon_kernel,
@@ -23,14 +24,14 @@
 // What bounds them.  At the flagship shape (B=8 frames of 512 rows x 2048
 // spectral samples, 512 display depths) one group is 2 matmuls x 2 x 4096 x
 // 2048 x 512 = 17.2 GFLOP against 21-41 MiB of compulsory traffic (8 MiB u8
-// frames or 32 MiB f32 ratio, 8 MiB pi/inv_background, 4-8 MiB operator,
-// 1 MiB out): 400-800 FLOP/byte, compute-bound at every precision.  The
-// least time for the products: 17.4 us on the bf16 tensor cores (989
-// TFLOP/s); with an f32 operator 0.256 ms on the SIMT FP32 pipes (67
+// or 16 MiB u16 frames, or 32 MiB f32 ratio, 8 MiB pi/inv_background, 4-8
+// MiB operator, 1 MiB out): 400-800 FLOP/byte, compute-bound at every
+// precision.  The least time for the products: 17.4 us on the bf16 tensor
+// cores (989 TFLOP/s); with an f32 operator 0.256 ms on the SIMT FP32 pipes (67
 // TFLOP/s) or 0.104 ms as three TF32 products on the tensor cores (495
 // TFLOP/s), the form taken here.
 //
-// The four raw and yr entry points run one mma.sync schedule,
+// The six raw and yr entry points run one mma.sync schedule,
 // fused_recon_tc_kernel<In, Op> below; the resident kernel runs its own
 // wgmma + TMA schedule at the end of the file.
 
@@ -50,13 +51,16 @@ __device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat16 v) { return __bfloat
 
 // ---------------------------------------------------------------------------
 // fused_recon_tc_kernel<In, Op>: the group sum on the tensor cores, for raw
-// u8 frames (In = uint8_t, the ratio formed on chip) or an f32 ratio stack
-// (In = float), against a bf16 or an f32 operator (Op).  The C entry points:
+// u8 or u16 frames (In = uint8_t or uint16_t, the ratio formed on chip) or
+// an f32 ratio stack (In = float), against a bf16 or an f32 operator (Op).
+// The C entry points:
 //
-//   fdoct_recon_raw_u8_bf16  mma.sync.m16n8k16.f32.bf16.bf16.f32
-//   fdoct_recon_yr_f32_bf16  mma.sync.m16n8k16.f32.bf16.bf16.f32
-//   fdoct_recon_raw_u8_f32   mma.sync.m16n8k8.f32.tf32.tf32.f32, 3xTF32
-//   fdoct_recon_yr_f32_f32   mma.sync.m16n8k8.f32.tf32.tf32.f32, 3xTF32
+//   fdoct_recon_raw_u8_bf16   mma.sync.m16n8k16.f32.bf16.bf16.f32
+//   fdoct_recon_raw_u16_bf16  mma.sync.m16n8k16.f32.bf16.bf16.f32
+//   fdoct_recon_yr_f32_bf16   mma.sync.m16n8k16.f32.bf16.bf16.f32
+//   fdoct_recon_raw_u8_f32    mma.sync.m16n8k8.f32.tf32.tf32.f32, 3xTF32
+//   fdoct_recon_raw_u16_f32   mma.sync.m16n8k8.f32.tf32.tf32.f32, 3xTF32
+//   fdoct_recon_yr_f32_f32    mma.sync.m16n8k8.f32.tf32.tf32.f32, 3xTF32
 //
 // The schedule is namespace tc of hopper_mma.cuh, shared with int8_bscan.cu.
 // M is (row, frame) pairs, ordered row * F + frame with F = min(8, B rounded
@@ -75,8 +79,18 @@ __device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat16 v) { return __bfloat
 // Masked pairs (frames past B, rows past rows) get a zero ratio; samples past
 // n_in and depths past ndisp stage as zero.  No atomics, deterministic.
 //
+// u16 frames (Mono16, 12-bit counts, the synthetic source's bpp > 8) stage
+// as u8 frames do, two bytes a sample: a 16-byte copy holds 8 samples, so
+// the vector path needs n_in % 8 == 0 where u8 needs n_in % 16, and the
+// frame rows of a stage take twice the bytes.  At B = 8 a bf16 block holds
+// 98,304 B of shared memory (u8: 86,016) and an f32 block 79,872 B (u8:
+// 73,728), still two blocks per SM; at B = 1 (R = 64 rows, pi and
+// inv_background 32 KiB a stage) 184,320 B, one block, as u8's 172,032 B.
+// The u8 instances' code is unchanged (the u16 widening is a branch of its
+// own in tc_ratio_tile).
+//
 // The A tile (the ratio of the stage's pairs, as the tensor cores take it):
-//   * raw frames: formed from the staged u8, pi and inv_background into its
+//   * raw frames: formed from the staged u8/u16, pi and inv_background into its
 //     own shared tile, rounded op by op as torch computes it ((raw - pi) *
 //     inv), then rounded to bf16 for a bf16 operator;
 //   * yr, bf16 operator: the staged f32 rows rounded to bf16
@@ -139,18 +153,20 @@ template <> struct TcOp<float> {
   static constexpr int OP_LD = 2 * tc::BN * 4 + 32;  // 544: 136 floats
 };
 
-// The input rows of a stage, [pair][k]: u8 frames, or the f32 ratio (its
-// rows at A's pitch where the MMAs read them as the A tile).
+// The input rows of a stage, [pair][k]: u8 or u16 frames, or the f32 ratio
+// (its rows at A's pitch where the MMAs read them as the A tile).  LD is in
+// bytes.
 template <typename In, typename Op> struct TcIn {
-  static constexpr bool RAW = std::is_same<In, uint8_t>::value;
+  static constexpr bool RAW = std::is_same<In, uint8_t>::value ||
+                              std::is_same<In, uint16_t>::value;
   static constexpr bool A_IN_STAGE = !RAW && std::is_same<Op, float>::value;
-  static constexpr int LD = RAW ? TcOp<Op>::KT
+  static constexpr int LD = RAW ? TcOp<Op>::KT * static_cast<int>(sizeof(In))
                                 : (A_IN_STAGE ? TcOp<Op>::A_LD : TcOp<Op>::KT * 4);
   static constexpr int BYTES = tc::BM * LD;
 };
 static_assert(TcOp<__nv_bfloat16>::A_LD % 16 == 0 && TcOp<__nv_bfloat16>::OP_LD % 16 == 0 &&
               TcOp<float>::A_LD % 16 == 0 && TcOp<float>::OP_LD % 16 == 0, "16-byte rows");
-static_assert(TcOp<float>::KT % 16 == 0, "whole 16-byte copies of u8 rows");
+static_assert(TcOp<float>::KT % 16 == 0, "whole 16-byte copies of u8 (and u16) rows");
 
 // One stage: input rows | operator | pi [R][KT] f32 | inv_background [R][KT]
 // f32 (raw frames only), R = tc::BM / F rows.
@@ -237,13 +253,22 @@ __device__ __forceinline__ void tc_ratio_tile(const uint8_t* stage, uint8_t* a_s
       const float* inv_s = pi_s + R * KT;
       const int rr = tc::pair_row(m, fs);
       if (b0 + tc::pair_frame(m, fs) < B && row0 + rr < rows) {
-        const uint32_t w = *reinterpret_cast<const uint32_t*>(stage + m * I::LD + k);
         const float4 p = *reinterpret_cast<const float4*>(pi_s + rr * KT + k);
         const float4 v = *reinterpret_cast<const float4*>(inv_s + rr * KT + k);
-        x[0] = __fmul_rn(__fsub_rn(static_cast<float>(w & 0xffu), p.x), v.x);
-        x[1] = __fmul_rn(__fsub_rn(static_cast<float>((w >> 8) & 0xffu), p.y), v.y);
-        x[2] = __fmul_rn(__fsub_rn(static_cast<float>((w >> 16) & 0xffu), p.z), v.z);
-        x[3] = __fmul_rn(__fsub_rn(static_cast<float>(w >> 24), p.w), v.w);
+        float c[4];                    // the 4 counts, exact in f32
+        if constexpr (sizeof(In) == 1) {
+          const uint32_t w = *reinterpret_cast<const uint32_t*>(stage + m * I::LD + k);
+          c[0] = static_cast<float>(w & 0xffu), c[1] = static_cast<float>((w >> 8) & 0xffu);
+          c[2] = static_cast<float>((w >> 16) & 0xffu), c[3] = static_cast<float>(w >> 24);
+        } else {
+          const uint2 w = *reinterpret_cast<const uint2*>(stage + m * I::LD + k * 2);
+          c[0] = static_cast<float>(w.x & 0xffffu), c[1] = static_cast<float>(w.x >> 16);
+          c[2] = static_cast<float>(w.y & 0xffffu), c[3] = static_cast<float>(w.y >> 16);
+        }
+        x[0] = __fmul_rn(__fsub_rn(c[0], p.x), v.x);
+        x[1] = __fmul_rn(__fsub_rn(c[1], p.y), v.y);
+        x[2] = __fmul_rn(__fsub_rn(c[2], p.z), v.z);
+        x[3] = __fmul_rn(__fsub_rn(c[3], p.w), v.w);
       }
     } else {   // masked pairs staged as zero
       const float4 y = *reinterpret_cast<const float4*>(stage + m * I::LD + k * 4);
@@ -762,9 +787,10 @@ int launch_resident(const void* raw, const void* pi, const void* inv_bg, const v
 }  // namespace
 
 // Plain C entry points for ctypes.  Every pointer is a contiguous device
-// buffer: x (B, rows, n_in); pi, inv_bg (rows, n_in) f32; op_re, op_im
-// (n_in, ndisp); out (rows, ndisp) f32.  Launches on ``stream`` and returns
-// cudaGetLastError() (0 when the launch was accepted).
+// buffer: x (B, rows, n_in) u8, u16 or f32; pi, inv_bg (rows, n_in) f32;
+// op_re, op_im (n_in, ndisp); out (rows, ndisp) f32.  Launches on
+// ``stream`` and returns cudaGetLastError() (0 when the launch was
+// accepted).
 extern "C" {
 
 int fdoct_recon_raw_u8_f32(const void* raw, const void* pi, const void* inv_bg,
@@ -779,6 +805,20 @@ int fdoct_recon_raw_u8_bf16(const void* raw, const void* pi, const void* inv_bg,
                             int B, int rows, int n_in, int ndisp, void* stream) {
   return launch_tc<uint8_t, __nv_bfloat16>(raw, pi, inv_bg, op_re, op_im, out, B, rows, n_in,
                                            ndisp, stream);
+}
+
+int fdoct_recon_raw_u16_f32(const void* raw, const void* pi, const void* inv_bg,
+                            const void* op_re, const void* op_im, void* out,
+                            int B, int rows, int n_in, int ndisp, void* stream) {
+  return launch_tc<uint16_t, float>(raw, pi, inv_bg, op_re, op_im, out, B, rows, n_in, ndisp,
+                                    stream);
+}
+
+int fdoct_recon_raw_u16_bf16(const void* raw, const void* pi, const void* inv_bg,
+                             const void* op_re, const void* op_im, void* out,
+                             int B, int rows, int n_in, int ndisp, void* stream) {
+  return launch_tc<uint16_t, __nv_bfloat16>(raw, pi, inv_bg, op_re, op_im, out, B, rows, n_in,
+                                            ndisp, stream);
 }
 
 int fdoct_recon_yr_f32_f32(const void* yr, const void* op_re, const void* op_im, void* out,

@@ -42,6 +42,8 @@ _FLOAT = ctypes.c_float
 SIGNATURES = {
     "fdoct_recon_raw_u8_f32": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     "fdoct_recon_raw_u8_bf16": [_PTR] * 6 + [_INT] * 4 + [_PTR],
+    "fdoct_recon_raw_u16_f32": [_PTR] * 6 + [_INT] * 4 + [_PTR],
+    "fdoct_recon_raw_u16_bf16": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     "fdoct_recon_yr_f32_f32": [_PTR] * 4 + [_INT] * 4 + [_PTR],
     "fdoct_recon_yr_f32_bf16": [_PTR] * 4 + [_INT] * 4 + [_PTR],
     "fdoct_recon_resident_u8_bf16": [_PTR] * 6 + [_INT] * 4 + [_PTR],

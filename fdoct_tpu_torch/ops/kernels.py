@@ -3,7 +3,7 @@
 Hopper counterparts of the four Pallas kernels of ``fdoct_tpu/ops/pallas_kernels.py``:
 
 - :func:`fused_recon_raw_accumulate`: Σ_b |((raw[b] − y_p)·(1/y_b)) @ M| from
-  raw uint8 frames, the ratio formed on the tile;
+  raw uint8 or uint16 frames, the ratio formed on the tile;
 - :func:`fused_recon_accumulate`: Σ_b |yr[b] @ M| from a float32 ratio stack;
 - :func:`fused_recon_resident`: the first with a bfloat16 operator, in the
   schedule that reads each frame byte from device memory once;
@@ -146,6 +146,10 @@ def _check_ratio_terms(pi_frame: torch.Tensor, inv_background: torch.Tensor, row
             raise TypeError(f"{name} is {t.dtype}; here it must be {dtype}")
 
 
+#: the C entry stem of kernel 1 for each frame type it takes
+RAW_ENTRY = {torch.uint8: "fdoct_recon_raw_u8", torch.uint16: "fdoct_recon_raw_u16"}
+
+
 def _launch(name: str, fn_stem: str, args: list, dims: tuple, op_re: torch.Tensor,
             out: torch.Tensor) -> torch.Tensor:
     lib = _build.load()
@@ -165,10 +169,11 @@ def fused_recon_raw_accumulate(raw: torch.Tensor, pi_frame: torch.Tensor,
                                op_im: torch.Tensor) -> torch.Tensor:
     """Σ_b |((raw[b] − pi_frame)·inv_background) @ (op_re + i·op_im)|.
 
-    raw: (B, rows, n_in) uint8; pi_frame, inv_background: (rows, n_in),
-    float32 (float64 with a float64 operator, CPU only); op_re, op_im:
-    (n_in, ndisp) float32 or bfloat16.  Returns (rows, ndisp).  Replaces the
-    TPU kernel ``fused_recon_raw_accumulate`` (pallas_kernels.py:126-160).
+    raw: (B, rows, n_in) uint8 or uint16 (the TPU kernel's "raw uint8/uint16
+    frames"); pi_frame, inv_background: (rows, n_in), float32 (float64 with
+    a float64 operator, CPU only); op_re, op_im: (n_in, ndisp) float32 or
+    bfloat16.  Returns (rows, ndisp).  Replaces the TPU kernel
+    ``fused_recon_raw_accumulate`` (pallas_kernels.py:126-160).
     On CUDA a block holds all frames of its rows, forms their ratio on chip
     and stages pi_frame, inv_background and each operator tile once for all
     of them.  With a bfloat16 operator the products run on the bf16 tensor
@@ -177,15 +182,15 @@ def fused_recon_raw_accumulate(raw: torch.Tensor, pi_frame: torch.Tensor,
     (``mma.sync`` m16n8k8, float32 sums; see :func:`split_tf32`).
     """
     B, rows, n_in = _check_stack(raw, "raw")
-    if raw.dtype != torch.uint8:
-        raise TypeError(f"raw must be uint8, got {raw.dtype}")
+    if raw.dtype not in RAW_ENTRY:
+        raise TypeError(f"raw must be uint8 or uint16, got {raw.dtype}")
     ndisp = _check_operator(op_re, op_im, n_in, raw.device)
     _check_ratio_terms(pi_frame, inv_background, rows, n_in, raw.device, _ratio_dtype(op_re))
     if raw.device.type == "cpu":
         return fused_recon_raw_accumulate_reference(raw, pi_frame, inv_background,
                                                     op_re, op_im)
     out = torch.empty((rows, ndisp), dtype=torch.float32, device=raw.device)
-    return _launch("fused_recon_raw_accumulate", "fdoct_recon_raw_u8",
+    return _launch("fused_recon_raw_accumulate", RAW_ENTRY[raw.dtype],
                    [raw, pi_frame, inv_background, op_re, op_im],
                    (B, rows, n_in, ndisp), op_re, out)
 

@@ -52,7 +52,7 @@ from fdoct_tpu_torch.ops import (
 from fdoct_tpu_torch.ops.fft import ifft_mag_rows, zeropad_rowwise
 from fdoct_tpu_torch.ops.hilbert import hilbert_reconstruct
 from fdoct_tpu_torch.ops.kernels import (
-    fused_recon_accumulate, fused_recon_raw_accumulate, int8_matmul,
+    RAW_ENTRY, fused_recon_accumulate, fused_recon_raw_accumulate, int8_matmul,
 )
 from fdoct_tpu_torch.ops.resample import resample_klinear
 from fdoct_tpu_torch.ops.scale import clamp_pixel
@@ -264,10 +264,11 @@ def reconstruct(raw: torch.Tensor, background: torch.Tensor, pi_frame: torch.Ten
 
 def raw_kernel_applies(raw: torch.Tensor, cfg) -> bool:
     """Whether the ratio can be formed from the raw counts inside the kernel:
-    8-bit single-channel frames and an identity preprocess and normalization
-    (no median, binning or moving average; donotnormalize and no row-wise
+    8- or 16-bit single-channel frames (the TPU kernel's "raw uint8/uint16
+    frames") and an identity preprocess and normalization (no median,
+    binning or moving average; donotnormalize and no row-wise
     normalization).  The same conditions as pallas_kernels.py:137-139."""
-    return (raw.dtype == torch.uint8 and raw.ndim == 3
+    return (raw.dtype in RAW_ENTRY and raw.ndim == 3
             and cfg.mediann <= 1 and cfg.movavgn <= 0
             and max(cfg.binvalue, cfg.binvaluex, cfg.binvaluey) == 1
             and cfg.donotnormalize and not cfg.rowwisenormalize)
@@ -289,7 +290,7 @@ def reconstruct_group(raw: torch.Tensor, background: torch.Tensor,
     may be None.
 
     The counterpart of ``reconstruct_group_pallas`` (pipeline.py:253-275 of
-    the JAX package) and the session's group step.  8-bit frames with an
+    the JAX package) and the session's group step.  8- and 16-bit frames with an
     identity preprocess go straight to the raw-input kernel, the dark frame
     folded into its π: (y − dark − π)/bg = (raw − (π + dark))·(1/bg), one
     launch per group (the session forms π + dark once per capture and

@@ -443,7 +443,9 @@ class Session:
         reading = self.fpsmeter.tick(n)
         if reading is not None:
             self.fps = reading
-            self.max_intensity = int(raw.max())
+            # CUDA has no max of uint16 (torch 2.11): widen such frames first
+            wide = torch.is_tensor(raw) and raw.dtype == torch.uint16
+            self.max_intensity = int((raw.int() if wide else raw).max())
             self._say(f"fps = {reading:.0f}  Max Intensity = {self.max_intensity}")
 
     def _to_device(self, frames) -> torch.Tensor:

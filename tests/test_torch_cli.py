@@ -667,9 +667,28 @@ def test_default_device_is_cuda_and_fails_loudly(small_ini, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [(["bench"], "item 5")])
-def test_unported_features_name_their_roadmap_item(argv, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        main(argv)
+def test_unported_features_name_their_roadmap_item(argv, item, monkeypatch, tmp_path, capsys):
+    """The last feature the ROADMAP listed as unported (Queue 1 ``item``),
+    ``bench``, now runs through the CLI: on the CPU at a small shape, its
+    clock charging each chained run 1 ms a group, one JSON line with
+    bench.py's headline keys."""
+    from fdoct_tpu_torch import bench
+
+    def clock(fn, frames):
+        fn(frames)
+        return len(frames) * 1e-3
+
+    monkeypatch.setattr(bench, "FLAGSHIP", bench.Shape(rows=16, cols=128, nfft=128, ndisp=32,
+                                                       batch=2, g1=1, g2=2, batched_g1=1,
+                                                       batched_g2=2, repeats=1))
+    monkeypatch.setattr(bench, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(bench, "BASELINE_SECONDS", 0.2)
+    monkeypatch.setattr(bench, "run_seconds", clock)
+    assert main(argv + CPU) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["metric"] == "ascans_per_sec_per_chip_2048px"
+    assert out["value"] == 2 * 16 / 1e-3 and out["vs_baseline"] > 0
+    assert out["dropped"] == {} and out["timer"] == "host_clock"
 
 
 def test_live_viewer_files_match_jax(small_ini, tmp_path):

@@ -50,6 +50,7 @@ def make_problem(shape, seed=0):
         pi=rng.uniform(0, 50, (rows, n_in)).astype(np.float32),
         mr=rng.normal(size=(n_in, ndisp)).astype(np.float32),
         mi=rng.normal(size=(n_in, ndisp)).astype(np.float32),
+        raw16=rng.integers(0, 65536, (B, rows, n_in)).astype(np.uint16),
     )
 
 
@@ -148,8 +149,8 @@ def test_split_tf32_parts():
 def ratio32(t, inp):
     """The float32 ratio an instance takes (yr) or forms (raw), rounded as
     the kernel forms it."""
-    if inp == "raw":
-        return (t["raw"].float() - t["pi"]) * (1.0 / t["bg"])
+    if inp in ("raw", "raw16"):
+        return (t[inp].float() - t["pi"]) * (1.0 / t["bg"])
     return t["yr"]
 
 
@@ -274,6 +275,81 @@ def test_raw_wrapper_rejects(mutate, exc, match):
     mutate(args)
     with pytest.raises(exc, match=match):
         fused_recon_raw_accumulate(*args)
+
+
+#: 16-bit frames: the full range, and Mono16 as cameras and the session make
+#: it (12-bit counts << 4)
+U16_VALUES = {"full": lambda rng, shape: rng.integers(0, 65536, shape),
+              "mono16": lambda rng, shape: rng.integers(0, 4096, shape) << 4}
+
+
+@pytest.mark.parametrize("values", list(U16_VALUES))
+@pytest.mark.parametrize("shape", list(SHAPES.values()), ids=list(SHAPES))
+def test_raw_u16_plain_matches_pallas_kernel(pallas, shape, values):
+    """16-bit frames, which the TPU kernel takes ("raw uint8/uint16"), with a
+    float32 operator: the port's plain version against the Pallas kernel in
+    interpret mode at rtol 1e-5, atol 1e-5 of the peak."""
+    jnp, pk = pallas
+    p = make_problem(shape, seed=11)
+    raw = U16_VALUES[values](np.random.default_rng(12), shape[:3]).astype(np.uint16)
+    want = np.asarray(pk.fused_recon_raw_accumulate(
+        jnp.asarray(raw), jnp.asarray(p["pi"]), jnp.asarray(1.0 / p["bg"]),
+        jnp.asarray(p["mr"]), jnp.asarray(p["mi"]), interpret=True, **tiles(shape)))
+    got = fused_recon_raw_accumulate(torch.as_tensor(raw), torch.as_tensor(p["pi"]),
+                                     torch.as_tensor(1.0 / p["bg"]), *torch_op(p, "f32"))
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("shape", list(SHAPES.values()), ids=list(SHAPES))
+def test_raw_u16_plain_matches_pallas_kernel_bf16_operator(pallas, shape):
+    """16-bit frames with a bfloat16 operator at rtol 1e-5, atol 1e-5 of the
+    peak.  The port rounds the ratio to bf16, the Pallas kernel keeps it
+    float32 (the 2e-2 of the u8 case above), so the ratio here is one that
+    bf16 holds exactly: 8-bit counts << 8 (the session's Mono16 of 8-bit
+    frames), π = 0 and 1/y_b a power of two."""
+    jnp, pk = pallas
+    p = make_problem(shape, seed=13)
+    raw = p["raw"].astype(np.uint16) << 8
+    pi = np.zeros_like(p["pi"])
+    inv = np.full_like(p["bg"], 2.0 ** -7)
+    op = torch_op(p, "bf16")
+    want = np.asarray(pk.fused_recon_raw_accumulate(
+        jnp.asarray(raw), jnp.asarray(pi), jnp.asarray(inv),
+        jnp.asarray(p["mr"], jnp.bfloat16), jnp.asarray(p["mi"], jnp.bfloat16),
+        interpret=True, **tiles(shape)))
+    got = fused_recon_raw_accumulate(torch.as_tensor(raw), torch.as_tensor(pi),
+                                     torch.as_tensor(inv), *op)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    # the 16-bit counts give the u8 counts' sums, 256 times over
+    u8 = fused_recon_raw_accumulate(torch.as_tensor(p["raw"]), torch.as_tensor(pi),
+                                    torch.as_tensor(inv), *op)
+    np.testing.assert_allclose(got.numpy(), 256 * u8.numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32, torch.int8])
+def test_raw_wrapper_takes_only_u8_and_u16(dtype):
+    args = _raw_args(make_problem(SHAPES["tiled"]))
+    args[0] = args[0].to(dtype)
+    with pytest.raises(TypeError, match="raw must be uint8 or uint16, got torch.int"):
+        fused_recon_raw_accumulate(*args)
+
+
+def test_u16_entries_are_kernel_1s_template():
+    """Kernel 1's wrapper picks its C entry by the frame type, and both u16
+    entries run the mma.sync template on uint16_t frames; LAUNCHES keeps one
+    key per TPU kernel."""
+    text = (_build.PACKAGE_ROOT / "csrc" / "fused_recon.cu").read_text()
+    assert kernels.RAW_ENTRY == {torch.uint8: "fdoct_recon_raw_u8",
+                                 torch.uint16: "fdoct_recon_raw_u16"}
+    for op in ("f32", "bf16"):
+        for stem in kernels.RAW_ENTRY.values():
+            assert f"{stem}_{op}" in _build.SIGNATURES
+    for name, op in {"raw_u16_f32": "float", "raw_u16_bf16": "__nv_bfloat16"}.items():
+        body = text[text.index(f"int fdoct_recon_{name}("):]
+        assert body[:body.index("}")].count(f"launch_tc<uint16_t, {op}>") == 1, name
+    assert set(LAUNCHES) == {"fused_recon_raw_accumulate", "fused_recon_accumulate",
+                             "fused_recon_resident", "int8_bscan_display_fused"}
 
 
 def test_yr_wrapper_rejects_mismatched_dtype():
@@ -462,14 +538,15 @@ def test_cuda_bf16_tensor_core_unaligned(cuda):
 
 #: the instances redesigned on kernel 1 bf16's tensor-core schedule: the
 #: wrapper's input and the operator type
-TC_INSTANCES = {"raw-f32": ("raw", "f32"), "yr-f32": ("yr", "f32"), "yr-bf16": ("yr", "bf16")}
+TC_INSTANCES = {"raw-f32": ("raw", "f32"), "yr-f32": ("yr", "f32"), "yr-bf16": ("yr", "bf16"),
+                "raw16-bf16": ("raw16", "bf16"), "raw16-f32": ("raw16", "f32")}
 
 
 def run_instance(t, inp, op, kernel=True):
     """One instance on the problem ``t`` (tensors) with operator ``op``."""
-    if inp == "raw":
+    if inp in ("raw", "raw16"):
         fn = fused_recon_raw_accumulate if kernel else fused_recon_raw_accumulate_reference
-        return fn(t["raw"], t["pi"], (1.0 / t["bg"]).contiguous(), *op)
+        return fn(t[inp], t["pi"], (1.0 / t["bg"]).contiguous(), *op)
     fn = fused_recon_accumulate if kernel else fused_recon_accumulate_reference
     return fn(t["yr"], *op)
 
@@ -494,7 +571,7 @@ def test_cuda_tensor_core_instance_edges(cuda, shape, instance):
     p = make_problem(shape, seed=9)
     t = {k: torch.as_tensor(v).to(cuda) for k, v in p.items()}
     op = torch_op(p, op_name, cuda)
-    key = "fused_recon_raw_accumulate" if inp == "raw" else "fused_recon_accumulate"
+    key = "fused_recon_raw_accumulate" if inp.startswith("raw") else "fused_recon_accumulate"
     before = LAUNCHES[key]
     got = run_instance(t, inp, op)
     torch.cuda.synchronize()

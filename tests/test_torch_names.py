@@ -15,9 +15,7 @@ The deliberate exceptions, and nothing else:
 - ``pipeline.reconstruct_group_pallas``: its port is
   ``pipeline.reconstruct_group``;
 - the ``interpret=`` keyword: Pallas's interpret mode; the port's wrappers
-  run their plain versions on CPU tensors instead;
-- ``bench``: the name exists (``cli.cmd_bench``, the ``bench`` subcommand),
-  but the port's raises ``NotImplementedError`` (ROADMAP Queue 1 item 5).
+  run their plain versions on CPU tensors instead.
 """
 
 import ast
@@ -136,11 +134,20 @@ def test_the_exceptions_are_real():
     """Each listed exception names something the JAX package has and the
     port deliberately does otherwise."""
     from fdoct_tpu import int8direct, pipeline
-    from fdoct_tpu_torch import cli
 
     assert (JAX_PKG / "ops" / "pallas_kernels.py").exists()
     assert not (ROOT / "fdoct_tpu_torch" / "ops" / "pallas_kernels.py").exists()
     assert hasattr(pipeline, "reconstruct_group_pallas")
     assert "interpret" in inspect.signature(int8direct.reconstruct_bscan_int8_fused).parameters
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        cli.main(["bench"])
+
+
+def test_cmd_bench_reaches_the_ports_benchmark(monkeypatch):
+    """``bench`` is no exception: the subcommand runs
+    ``fdoct_tpu_torch.bench.main`` on ``--device``."""
+    import torch
+
+    from fdoct_tpu_torch import bench, cli
+    seen = []
+    monkeypatch.setattr(bench, "main", lambda device: seen.append(device) or 0)
+    assert cli.main(["bench", "--device", "cpu"]) == 0
+    assert seen == [torch.device("cpu")]

@@ -236,6 +236,49 @@ def test_raw_kernel_needs_identity_preprocess(change):
     assert not tp.raw_kernel_applies(torch.zeros(32, 256, dtype=torch.uint8), tcfg)
 
 
+@pytest.mark.parametrize("change", [
+    dict(), dict(mediann=3), dict(binvalue=2), dict(binvaluex=2), dict(movavgn=1),
+    dict(donotnormalize=False), dict(rowwisenormalize=True)],
+    ids=["identity", "mediann", "binvalue", "binvaluex", "movavgn", "normalize", "rowwise"])
+def test_raw_kernel_takes_16_bit_frames(change):
+    """uint16 frames take the raw-input kernel under the identity preprocess,
+    as pallas_kernels.py:128 takes them, and no other 16-bit or wider type
+    does."""
+    tcfg = PipelineConfig(**BASE).replace(**change)
+    u16 = torch.zeros(2, 32, 256, dtype=torch.uint16)
+    assert tp.raw_kernel_applies(u16, tcfg) == (change == {})
+    for dtype in (torch.int16, torch.int32, torch.float32):
+        assert not tp.raw_kernel_applies(u16.to(dtype), tcfg)
+    assert not tp.raw_kernel_applies(u16[0], tcfg)
+
+
+def test_u16_group_takes_kernel_1(monkeypatch):
+    """A 16-bit group with an identity preprocess calls kernel 1 once and
+    never kernel 2, and equals the ratio route's sum."""
+    jcfg, tcfg, raw, bg, pi = make_case("identity", "highest32")
+    tcal = Calibration.create(tcfg, "cpu")
+    raw16 = torch.as_tensor(raw.astype(np.uint16) * 16 + 7)        # 12-bit counts
+    calls = []
+    real = tp.fused_recon_raw_accumulate
+
+    def counted(raw, *a):
+        calls.append(raw.dtype)
+        return real(raw, *a)
+
+    def refuse(*a, **k):
+        raise AssertionError("kernel 2 was called for 16-bit identity frames")
+
+    args = (torch.as_tensor(bg), torch.as_tensor(pi), tcal, tcfg)
+    via_yr = tp.ratio_group_sum(tp.apodize_ratio(tp.preprocess(raw16, tcfg), *args[:2], tcfg),
+                                tcal, tcfg)
+    monkeypatch.setattr(tp, "fused_recon_raw_accumulate", counted)
+    monkeypatch.setattr(tp, "fused_recon_accumulate", refuse)
+    via_raw = tp.reconstruct_group(raw16, *args)
+    assert calls == [torch.uint16]
+    np.testing.assert_allclose(via_raw.numpy(), via_yr.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(via_yr.abs().max()))
+
+
 def test_precision_policy():
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     assert tp.use_bf16("bf16", torch.float32, cpu)

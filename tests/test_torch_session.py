@@ -127,6 +127,51 @@ def test_session_matches_jax(source, variant, prec_name):
         assert getattr(ts, name) == getattr(js, name), name
 
 
+@pytest.fixture(scope="module")
+def source16():
+    """A 12-bit camera (SyntheticSource bpp = 12): uint16 counts up to 4095."""
+    src = SyntheticSource(height=64, width=256, noise=0.02, seed=6, bpp=12,
+                          depths_um=(50.0, 120.0), reflectivities=(0.5, 0.3))
+    it = src.frames()
+    frames = np.stack([next(it) for _ in range(40)])
+    assert frames.dtype == np.uint16 and frames.max() > 255
+    return FixedSource(src), frames
+
+
+def test_16_bit_session_matches_jax(source16, monkeypatch):
+    """A 12-bit 'base' session at 'bf16': every group of the batched path
+    through kernel 1 (once a group, never kernel 2), each result against the
+    JAX session on the same frames within the bf16 tolerances and one uint8
+    level."""
+    src, frames = source16
+    jcfg, tcfg = configs("base", "bf16", bpp=12)
+    calls = {"raw": [], "yr": 0}
+    real_raw, real_yr = tpl.fused_recon_raw_accumulate, tpl.fused_recon_accumulate
+
+    def raw_kernel(raw, *a):
+        calls["raw"].append(raw.dtype)
+        return real_raw(raw, *a)
+
+    def yr_kernel(*a):
+        calls["yr"] += 1
+        return real_yr(*a)
+
+    monkeypatch.setattr(tpl, "fused_recon_raw_accumulate", raw_kernel)
+    monkeypatch.setattr(tpl, "fused_recon_accumulate", yr_kernel)
+    js = JaxSession(jcfg, variant="base", source=src)
+    ts = Session(tcfg, device="cpu", variant="base", source=src)
+    want = drive(js, src, frames, "base")
+    got = drive(ts, src, frames, "base")
+    assert len(got) == len(want) == 2 + 4 + 2 + 2 + 3
+    for g, w in zip(got, want):
+        assert_result_close(g, w, "bf16")
+    # one launch a frame on the per-frame path, one a group on the batched
+    assert set(calls["raw"]) == {torch.uint16} and calls["yr"] == 0
+    calls["raw"].clear()
+    ts.key("a")                                      # averaging back to 4
+    assert len(ts.process_group(frames[:8])) == 2 and len(calls["raw"]) == 2
+
+
 def test_strict_sim_matches_jax(source):
     src, frames = source
     jcfg, tcfg = configs("sim", "highest64", simcopyto=True)

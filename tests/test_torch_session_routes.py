@@ -148,16 +148,17 @@ def test_cuda_dark_and_per_frame_routes_match_their_plain_versions(cuda, normali
 
 
 @pytest.mark.cuda
-def test_cuda_streamed_saveinterferograms_ring_holds_the_source_frames(cuda, tmp_path):
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16], ids=["u8", "u16"])
+def test_cuda_streamed_saveinterferograms_ring_holds_the_source_frames(cuda, tmp_path, dtype):
     """A saveinterferograms session behind run_streaming, its step slowed so
     that pinned slots are refilled while copies are in flight: after each
     group the inactive ring holds exactly that group's source frames, and an
-    's' save writes them."""
+    's' save writes them; 8-bit frames and 12-bit counts in uint16."""
     from fdoct_tpu_torch.streaming import run_streaming
 
     cfg = PipelineConfig(**{**I8, "donotnormalize": True, "saveinterferograms": True})
     rng = np.random.default_rng(0)
-    frames = rng.integers(0, 255, (48, 32, 256), dtype=np.uint8)
+    frames = rng.integers(0, 255 if dtype == np.uint8 else 4095, (48, 32, 256)).astype(dtype)
     frames[:, 0, :8] = np.arange(48)[:, None]                     # every frame differs
     sink = RunWriter(tmp_path, "stream", timestamp=TS)
     s = Session(cfg, device=cuda, sink=sink)

@@ -598,6 +598,21 @@ def test_triggered_capture_matches_jax(tmp_path, data, keys, expect):
     assert first.dtype == np.uint16 and np.array_equal(first >> 8, frames[0])
 
 
+def test_triggered_capture_of_16_bit_frames_matches_jax(tmp_path, data):
+    """A 12-bit camera's uint16 frames are written as they come, with no
+    Mono16 shift, by both packages; the groups around the capture take
+    kernel 1's raw route on the port."""
+    _, frames, bg = data
+    frames16 = frames.astype(np.uint16) << 4
+    js, ts = pair(tmp_path, variant="spinj", manualaverages=3, averages=2, bpp=12)
+    prime(js, ts, bg * 16)
+    both(js, ts, ["t", 6, 4], frames16)
+    names = sorted(p.name for p in ts.sink.dir.glob("*Trig*.png"))
+    assert names == ["Trig000-000.png", "Trig000-001.png", "Trig000-002.png"]
+    for i, name in enumerate(names):
+        np.testing.assert_array_equal(read_png(ts.sink.dir / name), frames16[i])
+
+
 def test_trig_needs_a_sink(data):
     _, frames, _ = data
     js, ts = pair(variant="spinj")

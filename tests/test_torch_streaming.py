@@ -164,10 +164,10 @@ def test_stop_joins_the_producer():
 # run_streaming on the CPU
 
 
-def small_case(seed=0):
+def small_case(seed=0, bpp=8):
     cfg = PipelineConfig(**SMALL)
     calib = Calibration.create(cfg, "cpu")
-    src = SyntheticSource(height=H, width=W, depths_um=(20.0,), noise=0.02, seed=seed)
+    src = SyntheticSource(height=H, width=W, depths_um=(20.0,), noise=0.02, seed=seed, bpp=bpp)
     bg = np.maximum(src.background(), 1).astype(np.float32)
     return cfg, calib, src, bg
 
@@ -202,12 +202,13 @@ def test_run_streaming_matches_jax():
         np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-5 * np.abs(w).max())
 
 
-def test_session_behind_run_streaming_is_bit_equal():
+def streamed_against_direct(bpp):
     """A CPU session fed by run_streaming, one averaging group per batch,
-    equals a direct process_group on the same frames and captures."""
-    cfg, calib, src, bg = small_case(seed=3)
+    against a direct process_group on the same frames and captures."""
+    cfg, calib, src, bg = small_case(seed=3, bpp=bpp)
     cfg = cfg.replace(donotnormalize=True)
     frames = np.stack(list(itertools.islice(src.frames(), 24)))
+    assert frames.dtype == (np.uint8 if bpp <= 8 else np.uint16)
     pi = src.pi_frame()
 
     def session():
@@ -226,6 +227,15 @@ def test_session_behind_run_streaming_is_bit_equal():
         (want,) = direct.process_group(frames[4 * g:4 * g + 4])
         np.testing.assert_array_equal(got.bscandisp, want.bscandisp)
         assert torch.equal(got.bscan, want.bscan) and torch.equal(got.bscandb, want.bscandb)
+
+
+def test_session_behind_run_streaming_is_bit_equal():
+    streamed_against_direct(bpp=8)
+
+
+def test_16_bit_session_behind_run_streaming_is_bit_equal():
+    """The same with a 12-bit camera's uint16 frames (kernel 1's raw route)."""
+    streamed_against_direct(bpp=12)
 
 
 def test_run_streaming_stops_at_n_batches_and_at_the_end():
@@ -324,13 +334,15 @@ def test_cuda_pinned_ring_is_never_refilled_under_a_copy(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_session_ingest_routes_are_bit_equal(cuda):
+@pytest.mark.parametrize("bpp", [8, 12], ids=["u8", "u16"])
+def test_cuda_session_ingest_routes_are_bit_equal(cuda, bpp):
     """process_group on numpy frames (pinned staging), a pinned host tensor,
-    a pageable host tensor and a CUDA tensor gives the same bytes."""
+    a pageable host tensor and a CUDA tensor gives the same bytes, for 8-
+    and 16-bit frames."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = PipelineConfig(**{**SMALL, "width": 256, "height": 32, "numfftpoints": 512,
                             "numdisplaypoints": 128, "donotnormalize": True})
-    src = SyntheticSource(height=32, width=256, noise=0.02, seed=6)
+    src = SyntheticSource(height=32, width=256, noise=0.02, seed=6, bpp=bpp)
     frames = np.stack(list(itertools.islice(src.frames(), 8)))
     routes = {"numpy": frames, "pinned": torch.as_tensor(frames).pin_memory(),
               "pageable": torch.as_tensor(frames), "cuda": torch.as_tensor(frames).to(cuda)}
@@ -349,12 +361,14 @@ def test_cuda_session_ingest_routes_are_bit_equal(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_streamed_session_equals_direct(cuda):
-    """A CUDA session behind run_streaming (one group per batch) gives the
-    same displays as a direct process_group on the same frames."""
+@pytest.mark.parametrize("bpp", [8, 12], ids=["u8", "u16"])
+def test_cuda_streamed_session_equals_direct(cuda, bpp):
+    """A CUDA session behind run_streaming (one group per batch; the pinned
+    ring's slots of the frames' type) gives the same displays as a direct
+    process_group on the same frames, 8- and 16-bit."""
     cfg = PipelineConfig(**{**SMALL, "width": 256, "height": 32, "numfftpoints": 512,
                             "numdisplaypoints": 128, "donotnormalize": True})
-    src = SyntheticSource(height=32, width=256, noise=0.02, seed=7)
+    src = SyntheticSource(height=32, width=256, noise=0.02, seed=7, bpp=bpp)
     frames = np.stack(list(itertools.islice(src.frames(), 32)))
     calib = Calibration.create(cfg, cuda)
     a, b = Session(cfg, device=cuda, calib=calib), Session(cfg, device=cuda, calib=calib)
