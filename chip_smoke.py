@@ -216,6 +216,27 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    name and power limit, kernel 1 once a headline group and nothing else,
    one headline display byte-equal to Session.process_group's.  The line is
    printed.
+19. graphs  — the captured group steps (fdoct_tpu_torch.graphs, graphs_phase):
+   for each session path of PERF.md §5 (GRAPH_PATHS: 'base' and 'sim' at
+   'default' and 'highest', 'base' and 'dark' at 'int8_direct', 'dark'
+   'default', 'peak' 'highest', 'base' with both rings, the 12-bit 'base'
+   at 'default' and 'highest') three process_group calls of 2 groups, the
+   first capturing the step's CUDA graph (it runs the step eagerly once),
+   the next two replaying it: every display, dB and linear B-scan equal to
+   the eager step (session_group_pipeline[_int8]) on the same state bit for
+   bit, the launch counts the eager step's, each graph's pool printed; a
+   threshold key and a 'b' capture between batches at 'default' and
+   'int8_direct' (the next group equal to the eager step, the graph
+   captured again where its state or its int8 floor changed); then a
+   'base' 'default' group's host time in parts (route, np.copyto staging,
+   H2D enqueue, step, D2H, bookkeeping), eager and replayed, beside the
+   parent's per-group copy of its display floor, and group ms, device busy
+   and idle share of the eager step and of the replay, turns E R R E.
+
+On CUDA every session path of phases 4-18 that takes process_group's fast
+path replays its captured graph (the per-frame and mesh paths run eagerly),
+and `fdoct-torch bench`'s chained rows replay theirs: their times are the
+graphs'.
 
 The line before the last is {"kernels": [...]}, one entry per instance
 (kernels 1-2 each with a bf16 and an f32 operator, kernel 1's two u16
@@ -896,6 +917,11 @@ def main() -> int:
         launches[key] += n
     u16_entries = u16_phases(cfg, calib, products, card_line, dev)
     bench_phase(card_line, dev)
+    for key, n in graphs_phase(cfg, calib, card_line, dev).items():
+        if key == ("int8_bscan_display_fused", "s8"):
+            int8_entry["launches"] += n
+        else:
+            launches[key] += n
 
     entries = []
     for name in runners:
@@ -2153,18 +2179,25 @@ def u16_phases(cfg, calib, products: dict, card_line: str, dev: torch.device) ->
               f"{op}, launches this path {ran}; displays against the kernel-2 route on the same "
               f"frames: max uint8 diff {diff} (limit 1)")
         check(diff <= 1, f"12-bit '{precision}' display differs from the kernel-2 route")
+        # the route is read when a step is captured: each turn captures anew
+        # (in host_group_ms's warm-up pass)
         turns = {}
         for turn in ("P", "C", "C", "P"):
             pipeline.raw_kernel_applies = kernel2_route if turn == "P" else widened
+            s.graphs.clear()
             try:
                 turns.setdefault(turn, []).append(statistics.median(host_group_ms(s, batches)))
             finally:
                 pipeline.raw_kernel_applies = widened
         pipeline.raw_kernel_applies = kernel2_route
+        s.graphs.clear()
         try:
+            s.process_group(batches[0])
             prof_p = device_breakdown(lambda: [s.process_group(b) for b in batches], 8)
         finally:
             pipeline.raw_kernel_applies = widened
+        s.graphs.clear()
+        s.process_group(batches[0])
         prof_c = device_breakdown(lambda: [s.process_group(b) for b in batches], 8)
         phase("kernel1_u16", f"12-bit base '{precision}' Session.process_group per group (8 frames "
               f"512x2048 u16 from host memory to uint8 display on host), host-clock medians of "
@@ -2197,7 +2230,8 @@ def bench_phase(card_line: str, dev: torch.device) -> None:
     key of bench.py's line present or its row named in "dropped", value > 0,
     the card's name and power limit, the CUDA-event timer; launch counts set
     to 0 just before and read just after: kernel 1 once for every group of
-    the headline's runs and of the host-inclusive row (bf16: the config's
+    the headline's runs and twice for each of the host-inclusive row's (the
+    run that captures its graph and the timed one; bf16: the config's
     'default' on the card), no other kernel (the int8 rows run two _int_mm
     products, the batched rows torch.matmul); and one headline group's
     display byte-equal to Session.process_group's on the same frames with
@@ -2240,8 +2274,10 @@ def bench_phase(card_line: str, dev: torch.device) -> None:
     check(res["headline_launches"] == groups
           and groups == (1 + shape.repeats) * (shape.g1 + shape.g2),
           f"headline: {res['headline_launches']} launches for {groups} groups")
-    check(ran == {name: groups + bench.HOST_GROUPS},
-          f"bench launched {ran}, not {name}: {groups + bench.HOST_GROUPS}")
+    # the host-inclusive row runs its groups twice: the run that captures its
+    # graph, then the timed replay
+    check(ran == {name: groups + 2 * bench.HOST_GROUPS},
+          f"bench launched {ran}, not {name}: {groups + 2 * bench.HOST_GROUPS}")
 
     harness = bench.Harness.create(shape, dev)
     frames = bench.gen_frames(shape, 1, dev)[0]
@@ -2253,6 +2289,198 @@ def bench_phase(card_line: str, dev: torch.device) -> None:
     phase("bench", f"one headline group's display {disp.shape} byte-equal to "
           f"Session.process_group's on the same frames; dropped rows {res['dropped']}; "
           f"baseline {res['vs_baseline']} ({res.get('baseline_error', 'built and run')})")
+
+
+#: the session paths of PERF.md §5 that the graphs phase replays: (label,
+#: variant, config changes, frame bits, kernel, operator, launches a group)
+GRAPH_PATHS = [
+    ("base 'default'", "base", {}, 8, "fused_recon_raw_accumulate", "bf16", 1),
+    ("base 'highest'", "base", {"matmul_precision": "highest"}, 8,
+     "fused_recon_raw_accumulate", "f32", 1),
+    ("sim 'default'", "sim", {"donotnormalize": False}, 8, "fused_recon_accumulate", "bf16", 1),
+    ("sim 'highest'", "sim", {"donotnormalize": False, "matmul_precision": "highest"}, 8,
+     "fused_recon_accumulate", "f32", 1),
+    ("base 'int8_direct'", "base", {"matmul_precision": "int8_direct"}, 8,
+     "int8_bscan_display_fused", "s8", 1),
+    ("dark 'default'", "dark", {}, 8, "fused_recon_raw_accumulate", "bf16", 1),
+    ("dark 'int8_direct'", "dark", {"matmul_precision": "int8_direct"}, 8,
+     "int8_bscan_display_fused", "s8", 1),
+    ("peak 'highest'", "peak", {"matmul_precision": "highest"}, 8,
+     "fused_recon_raw_accumulate", "f32", 1),
+    ("base + rings 'default'", "base", {"saveframes": True, "saveinterferograms": True}, 8,
+     "fused_recon_raw_accumulate", "bf16", 8),
+    ("12-bit base 'default'", "base", {"bpp": 12}, 12, "fused_recon_raw_accumulate", "u16", 1),
+    ("12-bit base 'highest'", "base", {"bpp": 12, "matmul_precision": "highest"}, 12,
+     "fused_recon_raw_accumulate", "u16", 1),
+]
+#: samples of each part of the host-time breakdown
+BREAKDOWN_RUNS = 20
+
+
+def graph_session(cfg, calib, variant: str, changes: dict, src, dev: torch.device):
+    """A flagship session whose calibration frames are set as its captures
+    set them: the source's background (at least 1) and pi frame, and a dark
+    frame of 2 counts for the dark variant."""
+    from fdoct_tpu_torch.session import Session
+
+    s = Session(cfg.replace(**changes), device=dev, variant=variant, calib=calib)
+    s.data_yb = torch.as_tensor(np.maximum(src.background(), 1)).to(dev, torch.float32)
+    s.data_yp = torch.as_tensor(src.pi_frame()).to(dev, torch.float32)
+    s.data_yd = torch.full_like(s.data_yp, 2.0)
+    return s
+
+
+def eager_outputs(s, batch: np.ndarray):
+    """The stacked outputs of the session's group step for ``batch``,
+    called eagerly (``session_group_pipeline[_int8]``), not replayed."""
+    _, _, step = s._group_step(batch.shape, torch.from_numpy(batch[:0]).dtype,
+                               len(batch) // s.averagestoggle, s.averagestoggle)
+    return step(torch.as_tensor(batch).to(s.device))[0]
+
+
+def same_outputs(results: list, want) -> bool:
+    return (np.array_equal(np.stack([r.bscandisp for r in results]), want.bscandisp.cpu().numpy())
+            and torch.equal(torch.stack([r.bscandb for r in results]), want.bscandb)
+            and torch.equal(torch.stack([r.bscan for r in results]), want.bscan))
+
+
+def host_parts(s, batch: np.ndarray, replay: bool) -> dict:
+    """Median host ms per group of each part of one ``process_group`` of
+    ``batch`` on the CUDA fast path, the parts timed one after the other
+    as process_group runs them: the route and key (``_group_step``), the
+    copy into the pinned staging buffer (``np.copyto``), the H2D copy's
+    enqueue, the step (eager: its launches; replay: the graph's launch and
+    the outputs' clones), the D2H of the uint8 displays (which waits for
+    the device) and the per-group bookkeeping (``_emit_group_results``)."""
+    dtype = torch.from_numpy(batch[:0]).dtype
+    groups, avg = len(batch) // s.averagestoggle, s.averagestoggle
+    s.process_group(batch)                           # the staging buffer and the graph
+    pinned, _ = s._staging[(batch.shape, batch.dtype)]
+    samples: dict = {}
+    for _ in range(BREAKDOWN_RUNS):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        key, state, step = s._group_step(batch.shape, dtype, groups, avg)
+        t.append(time.perf_counter())
+        np.copyto(pinned.numpy(), batch)
+        t.append(time.perf_counter())
+        captured = s.graphs.lookup(key, state)
+        static = captured.inputs[0].copy_(pinned, non_blocking=True)
+        t.append(time.perf_counter())
+        outs, mags = captured.replay() if replay else step(static)
+        t.append(time.perf_counter())
+        disp = outs.bscandisp.cpu().numpy()
+        t.append(time.perf_counter())
+        s._emit_group_results(outs, disp, avg, None, mags)
+        t.append(time.perf_counter())
+        for name, a, b in zip(("route", "staging", "h2d_enqueue", "step", "d2h", "bookkeeping"),
+                              t, t[1:]):
+            samples.setdefault(name, []).append((b - a) * 1e3 / groups)
+    return {k: statistics.median(v) for k, v in samples.items()}
+
+
+def graphs_phase(cfg, calib, card_line: str, dev: torch.device) -> dict:
+    """Phase 19: the captured group steps (fdoct_tpu_torch.graphs).  For
+    each path of GRAPH_PATHS a session makes three process_group calls of
+    16 frames (2 groups): the first captures its graph (running the step
+    eagerly once), the next two replay it; each call's displays, dB and
+    linear B-scans equal the eager step on the same state bit for bit, and
+    the launch counts (set to 0 just before, read just after) are the
+    kernel's, launches-a-group for each of the 6 groups, and no other.
+    Prints each graph's pool.  Then, on 'base' 'default' and 'base'
+    'int8_direct': a threshold key and a 'b' capture between batches give the
+    eager step's outputs on the next group (the f32 graph kept, the int8
+    graph captured again for its threshold; both again after the capture).
+    Then the host-time breakdown of a 'base' 'default' group (host_parts),
+    eager and replayed, beside the one H2D copy of a number the parent's
+    display floor made per group; and group ms, device busy and idle of the
+    eager step and of the replay (time_session), in turns E R R E.
+    Returns the launches of the 8-bit paths by (kernel, operator)."""
+    from fdoct_tpu_torch.ops import kernels
+    from fdoct_tpu_torch.ops.kernels import LAUNCHES
+    from fdoct_tpu_torch.sources.synthetic import SyntheticSource
+
+    sources = {bits: SyntheticSource(height=cfg.height, width=cfg.width, lambda0=cfg.lambda0,
+                                     dlambda=cfg.lambdabw * 2.3548 / 4.0, noise=0.02,
+                                     seed=SEED + 3, bpp=bits) for bits in (8, 12)}
+    streams = {bits: src_.frames() for bits, src_ in sources.items()}
+    counts: dict = {}
+    for label, variant, changes, bits, name, op, per_group in GRAPH_PATHS:
+        s = graph_session(cfg, calib, variant, changes, sources[bits], dev)
+        a, b = (np.stack([next(streams[bits]) for _ in range(2 * cfg.averages)])
+                for _ in range(2))
+        kernels.reset_launches()
+        calls = [(a, s.process_group(a)), (b, s.process_group(b)), (a, s.process_group(a))]
+        torch.cuda.synchronize()
+        ran = {k: v for k, v in LAUNCHES.items() if v}
+        check(ran == {name: 6 * per_group}, f"graphs {label}: launches {ran} for 6 groups, "
+              f"not {name}: {6 * per_group}")
+        check(s.graphs.captures == 1 and len(s.graphs) == 1,
+              f"graphs {label}: {s.graphs.captures} captures")
+        for i, (frames_, results) in enumerate(calls):
+            check(same_outputs(results, eager_outputs(s, frames_)),
+                  f"graphs {label}: call {i} differs from the eager step")
+        (_, captured), = s.graphs.items()
+        if bits == 8:
+            counts[(name, op)] = counts.get((name, op), 0) + ran[name]
+        phase("graphs", f"{label}: 3 calls of 2 groups (a capture, 2 replays) bit-equal to the "
+              f"eager step; launches {ran}, a replay's {captured.launches}; pool "
+              f"{captured.pool_bytes / 2**20:.1f} MiB")
+        s.close()
+
+    # recapture: a threshold key and a 'b' capture between batches
+    src8 = sources[8]
+    for precision in ("default", "int8_direct"):
+        s = graph_session(cfg, calib, "base", {"matmul_precision": precision}, src8, dev)
+        a = np.stack([next(streams[8]) for _ in range(2 * cfg.averages)])
+        s.process_group(a)
+        s.key("]")
+        check(same_outputs(s.process_group(a), eager_outputs(s, a)),
+              f"graphs {precision}: the group after a threshold key differs from eager")
+        after_key = s.graphs.captures
+        check(after_key == (1 if precision == "default" else 2),
+              f"graphs {precision}: {after_key} captures after a threshold key")
+        s.key("b")
+        s.process_group(np.stack([src8.background()] * cfg.averages))   # the per-frame path
+        check(same_outputs(s.process_group(a), eager_outputs(s, a)),
+              f"graphs {precision}: the group after a 'b' capture differs from eager")
+        check(s.graphs.captures == after_key + 1,
+              f"graphs {precision}: no new capture after 'b'")
+        phase("graphs", f"base '{precision}': a threshold key ({after_key} captures) and a 'b' "
+              f"capture ({s.graphs.captures}) between batches; the next group bit-equal to "
+              f"the eager step each time")
+        s.close()
+
+    # where a 'base' 'default' group's host time goes, eager and replayed
+    s = graph_session(cfg, calib, "base", {}, src8, dev)
+    batches = [np.stack([next(streams[8]) for _ in range(2 * cfg.averages)]) for _ in range(4)]
+    parts = {mode: host_parts(s, batches[0], mode == "replay") for mode in ("eager", "replay")}
+    floor_copy = cuda_ms(lambda: torch.as_tensor(-30.0, dtype=torch.float32, device=dev))[0]
+    for mode, p in parts.items():
+        phase("graphs", f"base 'default' host ms per group, {mode}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in p.items()) + f"; sum {sum(p.values()):.4f} | {card_line}")
+    phase("graphs", f"the parent's display floor: one H2D copy of a number per group, "
+          f"{floor_copy:.4f} ms (CUDA events; torch.as_tensor(-30.0, device=cuda)) | {card_line}")
+
+    class Eager:
+        """process_group's fast path with the step called, not replayed."""
+
+        def process_group(self, batch):
+            groups, avg = len(batch) // s.averagestoggle, s.averagestoggle
+            _, _, step = s._group_step(batch.shape, torch.uint8, groups, avg)
+            outs, mags = step(s._to_device(batch))
+            return s._emit_group_results(outs, outs.bscandisp.cpu().numpy(), avg, None, mags)
+
+    turns = {}
+    for turn in ("E", "R", "R", "E"):
+        t = time_session(Eager() if turn == "E" else s, batches)
+        turns.setdefault(turn, []).append(t)
+    for turn, ts in turns.items():
+        phase("graphs", f"base 'default' Session.process_group per group, "
+              f"{'eager step' if turn == 'E' else 'replayed graph'} (turns E R R E): "
+              + " | ".join(describe_session(t) for t in ts) + f" | {card_line}")
+    s.close()
+    return counts
 
 
 def host_ms(fn, runs: int = 20) -> tuple[float, float]:

@@ -28,12 +28,19 @@ copy enters a timed run.  The rows, named as in bench.py:
   ``reconstruct_int8_direct(shift_u8_to_s8(frames), plan)`` (two s8
   ``_int_mm`` products, as the JAX code's two XLA products), ``form_bscan``;
 - host-inclusive (info, stderr only; bench.py:327-345): 8 groups of numpy
-  frames through ``.to(device)`` and the headline chain, on the host clock.
+  frames copied into the headline chain's input and the chain run, on the
+  host clock, after one untimed run on those 8 groups that captures it.
 
 Timing keeps bench.py's definition: the median of ``repeats`` runs at g1 and
 at g2 groups, per group = (t(g2) − t(g1)) / (g2 − g1).  The clock is a pair
 of CUDA events around each chained run (the host clock on the CPU, which
-only the tests use; ``"timer"`` says which).  An alongside row is published
+only the tests use; ``"timer"`` says which).  On the card each chained run
+is one replay of the chain's captured CUDA graph
+(:class:`fdoct_tpu_torch.graphs.CapturedStep`), the counterpart of
+bench.py's ``jax.jit`` of a ``lax.scan``: the graph reads the frames tensor
+itself and is captured at the first run on those frames, the warm-up run
+that ``measure`` leaves out of its samples (that run executes the chain
+eagerly), so one event pair surrounds one replay and no capture.  An alongside row is published
 only if the three checks of bench.py's ``per_group_paired`` pass (the
 medians difference positively, the reference's spread is at most 0.5, the
 ratio lies in [0.2, 3]); where bench.py leaves a failed row's keys out, the
@@ -75,6 +82,7 @@ import torch
 
 from fdoct_tpu_torch.calibration import Calibration
 from fdoct_tpu_torch.config import PipelineConfig
+from fdoct_tpu_torch.graphs import CapturedStep
 from fdoct_tpu_torch.int8direct import Int8DirectPlan, reconstruct_int8_direct, shift_u8_to_s8
 from fdoct_tpu_torch.ops import kernels
 from fdoct_tpu_torch.ops._build import BUILD_DIR, PACKAGE_ROOT
@@ -237,6 +245,8 @@ class Harness:
     background: torch.Tensor        # (rows, cols) float32, 128
     pi_frame: torch.Tensor          # (rows, cols) float32, 0
     plan: Int8DirectPlan            # the int8 rows' plan
+    #: the chains' CUDA graphs, one per chain and frames tensor
+    graphs: CapturedStep = dataclasses.field(default_factory=CapturedStep)
 
     @classmethod
     def create(cls, shape: Shape, device: torch.device | str) -> "Harness":
@@ -260,6 +270,19 @@ class Harness:
         mags = reconstruct_int8_direct(shift_u8_to_s8(frames), self.plan)
         return form_bscan(mags.sum(0), self.cfg, averages=self.shape.batch).bscandisp
 
+    def _replayed(self, chain: Callable[[torch.Tensor], torch.Tensor],
+                  all_frames: torch.Tensor) -> torch.Tensor:
+        """``chain(all_frames)``: called on the CPU; on the card the replay of
+        its CUDA graph, whose input is ``all_frames`` itself, captured at the
+        first call on those frames (which runs the chain eagerly)."""
+        if all_frames.device.type != "cuda":
+            return chain(all_frames)
+        key, state = (chain.__name__, tuple(all_frames.shape)), (all_frames,)
+        captured = self.graphs.lookup(key, state)
+        if captured is None:
+            return self.graphs.capture(key, state, chain, state)
+        return captured.replay()
+
     def _chained(self, step: Callable[[torch.Tensor], torch.Tensor],
                  all_frames: torch.Tensor) -> torch.Tensor:
         """Σ over the groups of the sum of each group's display, carried in a
@@ -269,22 +292,37 @@ class Harness:
             carry = carry + step(frames).sum()
         return carry
 
-    def scan_groups(self, all_frames: torch.Tensor) -> torch.Tensor:
-        """The headline: every group through :meth:`group_step`."""
+    def _scan_chain(self, all_frames: torch.Tensor) -> torch.Tensor:
         return self._chained(self.group_step, all_frames)
 
-    def int8_groups(self, all_frames: torch.Tensor) -> torch.Tensor:
+    def _int8_chain(self, all_frames: torch.Tensor) -> torch.Tensor:
         return self._chained(self.int8_step, all_frames)
 
-    def ref_groups(self, all_frames: torch.Tensor) -> torch.Tensor:
-        """The bare-matmul reference (bench.py:129-146): each group's frames
-        as bf16 times the bf16 operator pair, float32 sums."""
+    def _ref_chain(self, all_frames: torch.Tensor) -> torch.Tensor:
         op_re, op_im = self.calib.op_re_bf16, self.calib.op_im_bf16
         carry = torch.zeros((), dtype=torch.float32, device=all_frames.device)
         for frames in all_frames:
             z = frames.to(torch.bfloat16).reshape(-1, frames.shape[-1])
             carry = carry + _bf16_product_f32(z, op_re).sum() + _bf16_product_f32(z, op_im).sum()
         return carry
+
+    def _batched_chain(self, all_frames: torch.Tensor) -> torch.Tensor:
+        return self.batched_displays(all_frames).sum()
+
+    def _int8_batched_chain(self, all_frames: torch.Tensor) -> torch.Tensor:
+        return self.int8_batched_displays(all_frames).sum()
+
+    def scan_groups(self, all_frames: torch.Tensor) -> torch.Tensor:
+        """The headline: every group through :meth:`group_step`."""
+        return self._replayed(self._scan_chain, all_frames)
+
+    def int8_groups(self, all_frames: torch.Tensor) -> torch.Tensor:
+        return self._replayed(self._int8_chain, all_frames)
+
+    def ref_groups(self, all_frames: torch.Tensor) -> torch.Tensor:
+        """The bare-matmul reference (bench.py:129-146): each group's frames
+        as bf16 times the bf16 operator pair, float32 sums."""
+        return self._replayed(self._ref_chain, all_frames)
 
     def _displays(self, msum: torch.Tensor) -> torch.Tensor:
         return torch.stack([form_bscan(m, self.cfg, averages=self.shape.batch).bscandisp
@@ -303,10 +341,18 @@ class Harness:
         return self._displays(mags.sum(1))
 
     def batched_groups(self, all_frames: torch.Tensor) -> torch.Tensor:
-        return self.batched_displays(all_frames).sum()
+        return self._replayed(self._batched_chain, all_frames)
 
     def int8_batched(self, all_frames: torch.Tensor) -> torch.Tensor:
-        return self.int8_batched_displays(all_frames).sum()
+        return self._replayed(self._int8_batched_chain, all_frames)
+
+    def release_graphs(self, row: str) -> None:
+        """Logs the captured graphs' pools (stderr) and frees them with the
+        frames they hold."""
+        for (chain, shape), c in self.graphs.items():
+            _log(f"info: {row} graph {chain} on {shape[0]} groups: pool "
+                 f"{c.pool_bytes / 2**20:.1f} MiB, launches a replay {c.launches}")
+        self.graphs.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -405,6 +451,8 @@ def _alongside(out: dict, dropped: dict, row: str, fn, harness: Harness, g1: int
         _log(f"warn: {e} — row dropped")
         dropped[row] = str(e)
         return None
+    finally:
+        harness.release_graphs(row)
     rate_key, ratio_key = ROW_KEYS[row]
     out[rate_key] = round(shape.batch * shape.rows / per, 1)
     out[ratio_key] = round(ratio, 3)
@@ -427,6 +475,7 @@ def main(device: torch.device | str = "cuda", shape: Shape | None = None) -> int
     (h2, hs2), (r2, rs2) = measure(harness.scan_groups, frames2, shape.repeats,
                                    pair_with=harness.ref_groups)
     headline_launches = kernels.LAUNCHES["fused_recon_raw_accumulate"] - launched
+    harness.release_graphs("headline")
     del frames1, frames2
     if not h2 > h1 > 0:
         _log(f"FATAL: inconsistent scan (HEADLINE) timings t({shape.g1})={h1:.4f}s "
@@ -460,13 +509,17 @@ def main(device: torch.device | str = "cuda", shape: Shape | None = None) -> int
     # informational: frames from host memory through the headline chain
     host = np.random.default_rng(0).integers(0, 255, (HOST_GROUPS, shape.batch, shape.rows,
                                                       shape.cols)).astype(np.uint8)
+    frames = gen_frames(shape, HOST_GROUPS, device)
+    float(harness.scan_groups(frames))                     # on the card, the capture
     t0 = time.perf_counter()
-    float(harness.scan_groups(torch.from_numpy(host).to(device)))
+    frames.copy_(torch.from_numpy(host))
+    float(harness.scan_groups(frames))
     dt = time.perf_counter() - t0
+    harness.release_graphs("host-inclusive")
     _log(f"info: per-group {per_group * 1e3:.3f} ms on-device (scan shape, the headline); "
          f"host-inclusive streaming = {HOST_GROUPS * shape.batch * shape.rows / dt:.0f} "
-         f"ascans/s ({HOST_GROUPS} groups of numpy frames through .to({device.type}), host "
-         "clock)")
+         f"ascans/s ({HOST_GROUPS} groups of numpy frames copied to {device.type} and "
+         "chained, host clock)")
 
     base, why = cpp_baseline_ascans_per_sec(shape)
     if base is not None:

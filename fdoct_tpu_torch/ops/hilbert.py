@@ -19,13 +19,11 @@ def analytic_signal(x: torch.Tensor) -> torch.Tensor:
     in the real type of ``x``, so float32 rows stay complex64."""
     n = x.shape[-1]
     spec = torch.fft.fft(x.to(_complex(x.dtype)), dim=-1)
-    h = torch.zeros(n, dtype=x.dtype, device=x.device)
-    h[0] = 1.0
-    if n % 2 == 0:
-        h[n // 2] = 1.0
-        h[1:n // 2] = 2.0
-    else:
-        h[1:(n + 1) // 2] = 2.0
+    # 1 at DC (and at n/2 for even n), 2 on the positive bins, 0 elsewhere;
+    # built on the device from an index, with no copy from host memory
+    k = torch.arange(n, device=x.device)
+    h = torch.where(k < (n + 1) // 2, 2.0, 0.0)
+    h = torch.where((k == 0) | ((k == n // 2) & (n % 2 == 0)), 1.0, h).to(x.dtype)
     return torch.fft.ifft(spec * h, dim=-1)
 
 

@@ -55,7 +55,12 @@ def make_only_positive(x: torch.Tensor) -> torch.Tensor:
 
 
 def threshold_floor(x: torch.Tensor, thresh: float | torch.Tensor) -> torch.Tensor:
-    """Display floor ``max(x, thresh)`` (BscanFFT.cpp:1247)."""
+    """Display floor ``max(x, thresh)`` (BscanFFT.cpp:1247).  A number is
+    the kernel's argument, not a tensor made from it: on the card that would
+    be a copy from host memory, which synchronises and which a CUDA graph
+    cannot capture."""
+    if not torch.is_tensor(thresh):
+        return torch.clamp_min(x, thresh)
     return torch.maximum(x, torch.as_tensor(thresh, dtype=x.dtype, device=x.device))
 
 
@@ -63,7 +68,7 @@ def clamp_pixel(x: torch.Tensor, value: float, row: int = 5, col: int = 5) -> to
     """Pin pixel (row, col) to ``value`` so the display scale is absolute
     (the 'q' key, BscanFFT.cpp:1248-1253)."""
     out = x.clone()
-    out[..., row, col] = value
+    out[..., row, col].fill_(value)       # a fill, not a copy of a host scalar
     return out
 
 

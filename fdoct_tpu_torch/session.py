@@ -19,6 +19,12 @@ device.  The ``saveframes`` ring costs a launch per frame instead
 ``matmul_precision='int8_direct'`` and a config the folding supports, the
 captures fold into an :class:`~fdoct_tpu_torch.int8direct.Int8DirectPlan`
 and each group is one launch of the int8 B-scan kernel plus a small tail.
+The batch's step is a pure function, :func:`session_group_pipeline` or
+:func:`session_group_pipeline_int8` (the JAX package's one-dispatch
+programs); on the CPU the session calls it, on CUDA it replays the step's
+captured CUDA graph (:mod:`fdoct_tpu_torch.graphs`), so a batch is one
+replay instead of some twenty Python launches a group.  The per-frame path
+and the mesh path run eagerly (``graphs.EAGER_ROUTES``).
 
 Variants 'base', 'sim', 'dark', 'peak' and 'spinj'.  The ring buffers keep
 their frames and magnitudes on the device; a save ('s'), a plugin or
@@ -41,6 +47,7 @@ import numpy as np
 import torch
 
 from fdoct_tpu_torch.calibration import Calibration
+from fdoct_tpu_torch.graphs import EAGER_ROUTES, CapturedStep
 from fdoct_tpu_torch.int8direct import (
     Int8DirectPlan, int8_bscan_outputs, int8_direct_supported, reconstruct_int8_direct,
     shift_u8_to_s8,
@@ -56,7 +63,8 @@ from fdoct_tpu_torch.parallel.sharded import (
     local_block,
 )
 from fdoct_tpu_torch.pipeline import (
-    BscanOutputs, form_bscan, preprocess, raw_kernel_applies, reconstruct_group, reconstruct_group_frames,
+    BscanOutputs, as_torch_dtype, form_bscan, preprocess, raw_kernel_applies, reconstruct_group,
+    reconstruct_group_frames,
 )
 from fdoct_tpu_torch.plugins import ROIPlugin, VibrometryPlugin
 from fdoct_tpu_torch.sinks import RunWriter
@@ -181,6 +189,11 @@ class Session:
         # (shape, dtype) of host frames → (pinned staging buffer, event of
         # its last copy to the card); CUDA sessions only
         self._staging: dict[tuple, tuple[torch.Tensor, torch.cuda.Event]] = {}
+        # the f32 step's display floor: a device scalar written before each
+        # step, so that a captured graph reads the current bscanthreshold
+        self._thresh = torch.zeros((), dtype=dt, device=self.device)
+        # the captured group steps (CUDA sessions only), one per key
+        self.graphs = CapturedStep()
         # the vibrometry key set is the peak variant's; every other variant
         # carries the flagship app's ROI analytics (printAvgROI,
         # BscanFFT.cpp:99-171), toggled by 'e'
@@ -448,13 +461,17 @@ class Session:
             self.max_intensity = int((raw.int() if wide else raw).max())
             self._say(f"fps = {reading:.0f}  Max Intensity = {self.max_intensity}")
 
-    def _to_device(self, frames) -> torch.Tensor:
+    def _to_device(self, frames, out: torch.Tensor | None = None) -> torch.Tensor:
         """Frames on the session's device.  A tensor there is used as it is;
         a pinned host tensor (the caller keeps it unchanged until the session
         next synchronises, as ``process_group`` does at its display copy) is
         copied with ``non_blocking``; host frames bound for CUDA go through a
-        page-locked staging buffer kept per shape and dtype."""
+        page-locked staging buffer kept per shape and dtype.  With ``out``
+        (a captured step's static input, on CUDA) the frames are copied into
+        it, from the staging buffer for host frames."""
         if torch.is_tensor(frames):
+            if out is not None:
+                return out.copy_(frames, non_blocking=frames.is_pinned())
             return frames.to(self.device, non_blocking=frames.is_pinned())
         host = np.asarray(frames)
         if self.device.type != "cuda":
@@ -466,7 +483,10 @@ class Session:
         pinned, copied = self._staging[key]
         copied.synchronize()                 # its previous copy has landed
         np.copyto(pinned.numpy(), host)
-        dev = pinned.to(self.device, non_blocking=True)
+        if out is not None:
+            dev = out.copy_(pinned, non_blocking=True)
+        else:
+            dev = pinned.to(self.device, non_blocking=True)
         copied.record(torch.cuda.current_stream(self.device))
         return dev
 
@@ -673,10 +693,11 @@ class Session:
         each averaging group is one group-kernel launch (``averages``
         launches with ``saveframes``, whose ring keeps each frame's
         magnitudes) plus the display chain, and only the uint8 displays leave
-        the device; otherwise (a pending capture, a triggered capture,
-        mid-group entry, manual averaging, output rebinning, a batch not
-        divisible by the averaging count, strict-sim) it runs :meth:`process`
-        frame by frame, and says why once."""
+        the device; on CUDA the batch is one replay of the step's captured
+        graph (:meth:`_replay`).  Otherwise (a pending capture, a triggered
+        capture, mid-group entry, manual averaging, output rebinning, a
+        batch not divisible by the averaging count, strict-sim) it runs
+        :meth:`process` frame by frame, and says why once."""
         cfg = self.cfg
         n = len(frames)
         avg = self.averagestoggle
@@ -684,43 +705,86 @@ class Session:
         if why is not None:
             self._say_once(f"slow:{why}", f"fast path disengaged ({why}) — per-frame dispatches"
                            + ("; mesh unused" if self.mesh is not None else ""))
+            self._say_eager("per-frame")
             return [r for f in frames if (r := self.process(f)) is not None]
 
         self._tick_fps(frames[-1], n=n)
-        if self.mesh is not None:
-            host = frames if torch.is_tensor(frames) else np.asarray(frames)
-            if self._mesh_ok(host, avg):
-                return self._process_group_mesh(host, n // avg, avg)
-        farr = self._to_device(frames)
-        if farr.ndim == 4:
-            # a single-plane select keeps exact uint8 counts, so colour
-            # frames ride int8-direct too; a channel sum is float
-            farr = channel_select(farr, cfg.channelnum)
-        if cfg.saveinterferograms:
-            farr = farr.clone()            # the ring keeps its own copy, not the caller's
-        groups = n // avg
-        frame_mags = None
-        if self._use_int8_direct(farr[0]):
-            s8 = shift_u8_to_s8(farr.contiguous())
-            outs = self._int8_groups(s8, groups, avg)
-            if cfg.saveframes:
-                frame_mags = reconstruct_int8_direct(s8, self._int8_plan())
+        host = frames if torch.is_tensor(frames) else np.asarray(frames)
+        if self.mesh is not None and self._mesh_ok(host, avg):
+            self._say_eager("mesh")
+            return self._process_group_mesh(host, n // avg, avg)
+        key, state, step = self._group_step(tuple(host.shape), as_torch_dtype(host.dtype),
+                                            n // avg, avg)
+        if self.device.type == "cuda":
+            farr, (outs, frame_mags) = self._replay(host, key, state, step)
         else:
-            outs = []
-            frame_mags = [] if cfg.saveframes else None
-            pi, dark = self._group_pi_dark(farr)
-            for g in range(groups):
-                args = (farr[g * avg:(g + 1) * avg], self.data_yb, pi, self.calib,
-                        cfg, self.method, dark)
-                if cfg.saveframes:
-                    total, mags = reconstruct_group_frames(*args)
-                    frame_mags.extend(mags)
-                else:
-                    total = reconstruct_group(*args)
-                outs.append(form_bscan(total, cfg, avg, bscanthreshold=self.bscanthreshold,
-                                       eps=1e-5))
-        disp = torch.stack([o.bscandisp for o in outs]).cpu().numpy()
-        return self._emit_group_results(outs, disp, avg, farr, frame_mags)
+            farr = self._to_device(host)
+            outs, frame_mags = step(farr)
+        raw = None
+        if cfg.saveinterferograms:
+            # the ring keeps its own copy, not the caller's nor the graph's input
+            raw = (channel_select(farr, cfg.channelnum) if farr.ndim == 4 else farr).clone()
+        return self._emit_group_results(outs, outs.bscandisp.cpu().numpy(), avg, raw,
+                                        frame_mags)
+
+    def _say_eager(self, route: str) -> None:
+        """On CUDA, says once that ``route`` of :data:`graphs.EAGER_ROUTES`
+        runs eagerly."""
+        if self.device.type == "cuda":
+            self._say_once(f"eager:{route}", f"CUDA graphs: the {EAGER_ROUTES[route]}")
+
+    def _group_step(self, shape: tuple, dtype: torch.dtype, groups: int,
+                    avg: int) -> tuple[tuple, tuple, Callable]:
+        """(key, state, step) of a batch of frames of ``shape`` and ``dtype``:
+        ``step(frames)`` → (stacked :class:`BscanOutputs`, per-frame
+        magnitudes or None), :func:`session_group_pipeline_int8` or
+        :func:`session_group_pipeline` on this session's state.  ``key`` is
+        what the JAX programs' ``static_argnames`` and retracing key on (the
+        route, the int8 display floor's value, which its kernel takes by
+        value, and the frames' shape and type); ``state`` the tensors the step
+        reads, to be compared with ``is``.  The f32 step reads the display
+        floor from the device scalar ``_thresh``, written here."""
+        cfg, method = self.cfg, self.method
+        probe = torch.empty(shape, dtype=dtype, device="meta")       # the frames' route
+        if probe.ndim == 4:
+            probe = channel_select(probe, cfg.channelnum)
+        static = (shape, dtype, groups, avg, cfg)
+
+        def select(raw):
+            return channel_select(raw, cfg.channelnum) if raw.ndim == 4 else raw
+
+        if self._use_int8_direct(probe[0]):
+            plan, thresh = self._int8_plan(), float(self.bscanthreshold)
+
+            def step(raw):
+                return session_group_pipeline_int8(select(raw), plan, thresh, cfg, groups, avg,
+                                                   eps=1e-5, keep_frames=cfg.saveframes)
+            return ("int8", thresh, *static), (plan,), step
+        pi, dark = self._group_pi_dark(probe)
+        yb, yd, calib, thresh = self.data_yb, self.data_yd, self.calib, self._thresh
+        thresh.fill_(self.bscanthreshold)
+
+        def step(raw):
+            outs, mags, _ = session_group_pipeline(
+                raw, yb, pi, yd, thresh, calib, cfg, groups, avg, method, dark is not None,
+                eps=1e-5, keep_frames=cfg.saveframes)
+            return outs, mags
+        return ("f32", method, dark is not None, *static), (yb, pi, dark), step
+
+    def _replay(self, host, key: tuple, state: tuple, step: Callable):
+        """(the frames on the card, ``step``'s outputs) for the batch
+        ``host``: the frames copied into the static input of ``key``'s
+        captured graph and the graph replayed; at the first batch of a key,
+        or after a capture rebinds a tensor of ``state``, the graph is
+        captured (that call runs the step eagerly once)."""
+        captured = self.graphs.lookup(key, state)
+        if captured is not None:
+            static = self._to_device(host, out=captured.inputs[0])
+            return static, captured.replay()
+        static = torch.empty(tuple(host.shape), dtype=as_torch_dtype(host.dtype),
+                             device=self.device)
+        self._to_device(host, out=static)
+        return static, self.graphs.capture(key, state, step, (static,))
 
     # ------------------------------------------------------------------
     # the batched path on a device mesh
@@ -788,48 +852,34 @@ class Session:
                 mags.append(gather_frames(extra[0], self.mesh))
         # one all-gather and one copy to the host for every group's display
         whole = gather_rows(torch.stack(blocks), self.mesh)      # (groups, 3, ndisp, oph)
-        outs = [BscanOutputs(bscan=w[0], bscandb=w[1], bscandisp=w[2].to(torch.uint8))
-                for w in whole]
-        disp = whole[:, 2].to(torch.uint8).cpu().numpy()
-        return self._emit_group_results(outs, disp, avg, raw,
+        outs = BscanOutputs(bscan=whole[:, 0], bscandb=whole[:, 1],
+                            bscandisp=whole[:, 2].to(torch.uint8))
+        return self._emit_group_results(outs, outs.bscandisp.cpu().numpy(), avg, raw,
                                         torch.cat(mags) if cfg.saveframes else None)
 
-    def _int8_groups(self, s8: torch.Tensor, groups: int, avg: int) -> list:
-        """The int8-direct group step: one ``int8_bscan_display_fused``
-        launch per group plus its tail.  ``clampupper``, which the fused
-        kernel does not take, runs the plain chain,
-        ``form_bscan(reconstruct_int8_direct(...).sum(0))``."""
-        plan = self._int8_plan()
-        if not self.cfg.clampupper:
-            return [int8_bscan_outputs(s8[g * avg:(g + 1) * avg], plan, self.bscanthreshold,
-                                       avg, compat=self.cfg.compat, eps=1e-5)
-                    for g in range(groups)]
-        return [form_bscan(reconstruct_int8_direct(s8[g * avg:(g + 1) * avg], plan).sum(dim=0),
-                           self.cfg, avg, bscanthreshold=self.bscanthreshold, eps=1e-5)
-                for g in range(groups)]
-
-    def _emit_group_results(self, outs, disp: np.ndarray, avg: int, farr: torch.Tensor,
-                            frame_mags) -> list[BscanResult]:
-        """Per-group host bookkeeping, state advancing exactly as that many
-        per-frame group completions would: the ring fills (saveframes,
-        saveinterferograms; BscanFFT.cpp:961-984), the J-lockin subtraction
-        and its saves (1257-1282), the plugins, the ring toggle (1482-1488).
-        Only the uint8 displays (and the subtracted ones) come to the host."""
+    def _emit_group_results(self, outs: BscanOutputs, disp: np.ndarray, avg: int,
+                            raw: torch.Tensor | None, frame_mags) -> list[BscanResult]:
+        """Per-group host bookkeeping of a batch's stacked outputs, state
+        advancing exactly as that many per-frame group completions would:
+        the ring fills (saveframes, saveinterferograms with the frames
+        ``raw``; BscanFFT.cpp:961-984), the J-lockin subtraction and its
+        saves (1257-1282), the plugins, the ring toggle (1482-1488).  Only
+        the uint8 displays (and the subtracted ones) come to the host."""
         sub_db = sub_disp = None
         if self.jlockin and self.jscansave is not None and self.variant != "sim":
-            sub_db, sub_disp = jlockin_batch(torch.stack([o.bscan for o in outs]),
-                                             self.jscansave, self.bscanthreshold, self.cfg)
+            sub_db, sub_disp = jlockin_batch(outs.bscan, self.jscansave, self.bscanthreshold,
+                                             self.cfg)
             sub_disp = sub_disp.cpu().numpy()
             sub_db = to_host(sub_db) if self.sink is not None else None
         results = []
-        for g, out in enumerate(outs):
+        for g in range(len(disp)):
             ring = self._active_ring()
             sl = slice(g * avg, (g + 1) * avg)
             if self.cfg.saveinterferograms:
-                ring["raw"][:] = list(farr[sl])
+                ring["raw"][:] = list(raw[sl])
             if frame_mags is not None:
                 ring["bscan"][:] = list(frame_mags[sl])
-            result = BscanResult(bscan=out.bscan, bscandb=out.bscandb, bscandisp=disp[g],
+            result = BscanResult(bscan=outs.bscan[g], bscandb=outs.bscandb[g], bscandisp=disp[g],
                                  index=self.indexi)
             if sub_disp is not None:
                 result.sub_disp = sub_disp[g]
@@ -1005,7 +1055,9 @@ class Session:
                 self.manualaccum = torch.zeros_like(self.manualaccum)
 
     def close(self) -> None:
-        """The sink's parameter footer, then the sink's data file."""
+        """Frees the captured graphs; the sink's parameter footer, then the
+        sink's data file."""
+        self.graphs.clear()
         if self.sink is not None:
             self.sink.parameter_footer(self.cfg, self.bscanthreshold)
             self.sink.close()
@@ -1021,3 +1073,72 @@ def jlockin_batch(bscan_stack: torch.Tensor, jscansave: torch.Tensor, threshold:
     sub_db = to_db(positive, eps=0.0, compat=cfg.compat)
     disp = normalize_minmax(threshold_floor(sub_db, threshold), 0.0, 1.0, axis=(-2, -1))
     return sub_db, to_uint8(disp)
+
+
+def _stack_outputs(outs: list[BscanOutputs]) -> BscanOutputs:
+    """One BscanOutputs of (groups, ndisp, oph) stacks, as a ``lax.scan``
+    stacks its per-group outputs."""
+    return BscanOutputs(*(torch.stack(field) for field in zip(*outs)))
+
+
+def session_group_pipeline(raw: torch.Tensor, yb: torch.Tensor, yp: torch.Tensor,
+                           yd: torch.Tensor, threshold: torch.Tensor, calib: Calibration, cfg,
+                           groups: int, averages: int, method: str, dark: bool, eps: float,
+                           keep_frames: bool = False, keep_binned: bool = False):
+    """``groups`` whole averaging groups of frames ``raw`` ((groups·averages,
+    H, W), or (…, 3) colour frames, whose channel is selected first), the
+    counterpart of ``_session_group_pipeline`` (session.py:1108-1156 of the
+    JAX package), its ``lax.scan`` a loop over the groups: per group
+    :func:`~fdoct_tpu_torch.pipeline.reconstruct_group` (one group-kernel
+    launch; :func:`~fdoct_tpu_torch.pipeline.reconstruct_group_frames`, one
+    per frame, with ``keep_frames``) on background ``yb``, π ``yp`` and,
+    with ``dark``, the dark frame ``yd``, then
+    :func:`~fdoct_tpu_torch.pipeline.form_bscan` at the display floor
+    ``threshold``, a 0-d tensor on the frames' device.  No host
+    synchronisation, so that a CUDA graph can capture it.
+
+    Returns (stacked BscanOutputs, (groups·averages, oph, ndisp) per-frame
+    magnitudes or None, (groups·averages, oph, opw) preprocessed frames
+    (minus ``yd`` with ``dark``) or None)."""
+    if raw.ndim == 4:
+        raw = channel_select(raw, cfg.channelnum)
+    dark_frame = yd if dark else None
+    outs, mags, binned = [], [], []
+    for g in range(groups):
+        fr = raw[g * averages:(g + 1) * averages]
+        if keep_frames:
+            total, m = reconstruct_group_frames(fr, yb, yp, calib, cfg, method, dark_frame)
+            mags.extend(m)
+        else:
+            total = reconstruct_group(fr, yb, yp, calib, cfg, method, dark_frame)
+        outs.append(form_bscan(total, cfg, averages, bscanthreshold=threshold, eps=eps))
+        if keep_binned:
+            y = preprocess(fr, cfg)
+            binned.append(y - yd.to(y.dtype) if dark else y)
+    return (_stack_outputs(outs), torch.stack(mags) if keep_frames else None,
+            torch.cat(binned) if keep_binned else None)
+
+
+def session_group_pipeline_int8(raw_u8: torch.Tensor, plan: Int8DirectPlan, threshold: float,
+                                cfg, groups: int, averages: int, eps: float,
+                                keep_frames: bool = False):
+    """The int8-direct counterpart, of ``_session_group_pipeline_int8``
+    (session.py:1159-1184 of the JAX package): per group one launch of
+    ``int8_bscan_display_fused`` and its tail
+    (:func:`~fdoct_tpu_torch.int8direct.int8_bscan_outputs`);
+    ``clampupper``, which that kernel does not take, runs the plain chain
+    ``form_bscan(reconstruct_int8_direct(...).sum(0))``.  ``threshold`` is a
+    number: the kernel takes it by value, so a captured graph holds it.  No
+    host synchronisation.  Returns (stacked BscanOutputs, per-frame
+    magnitudes or None)."""
+    s8 = shift_u8_to_s8(raw_u8.contiguous())
+    if cfg.clampupper:
+        outs = [form_bscan(reconstruct_int8_direct(s8[g * averages:(g + 1) * averages],
+                                                   plan).sum(dim=0),
+                           cfg, averages, bscanthreshold=threshold, eps=eps)
+                for g in range(groups)]
+    else:
+        outs = [int8_bscan_outputs(s8[g * averages:(g + 1) * averages], plan, threshold,
+                                   averages, compat=cfg.compat, eps=eps)
+                for g in range(groups)]
+    return _stack_outputs(outs), reconstruct_int8_direct(s8, plan) if keep_frames else None

@@ -32,6 +32,7 @@ from fdoct_tpu.pipeline import form_bscan as jax_form_bscan
 from fdoct_tpu.pipeline import reconstruct as jax_reconstruct
 from fdoct_tpu_torch import bench, cli
 from fdoct_tpu_torch.calibration import Calibration
+from fdoct_tpu_torch.graphs import NoHostSync
 from fdoct_tpu_torch.int8direct import Int8DirectPlan
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -129,6 +130,23 @@ def test_chained_runs_carry_every_display(pair):
     assert float(harness.scan_groups(all_frames)) == want
     want8 = sum(int(harness.int8_step(f).sum()) for f in all_frames)
     assert float(harness.int8_groups(all_frames)) == want8
+
+
+@pytest.mark.parametrize("chain", ["_scan_chain", "_int8_chain", "_ref_chain", "_batched_chain",
+                                   "_int8_batched_chain"])
+def test_chains_make_no_host_synchronisation(pair, chain):
+    """On the card each chained row is one replay of its chain's CUDA graph,
+    the counterpart of bench.py's ``jax.jit`` of a ``lax.scan``; a graph
+    captures a chain that reads no device value on the host, which
+    NoHostSync shows here.  The row's method gives the chain's value."""
+    harness = pair[3]
+    all_frames = torch.as_tensor(frames(2, seed=5))
+    with NoHostSync():
+        got = getattr(harness, chain)(all_frames)
+    assert got.ndim == 0
+    row = {"_scan_chain": "scan_groups", "_int8_chain": "int8_groups", "_ref_chain": "ref_groups",
+           "_batched_chain": "batched_groups", "_int8_batched_chain": "int8_batched"}[chain]
+    assert float(getattr(harness, row)(all_frames)) == float(got)
 
 
 def test_reference_product_keeps_float32_sums(pair):
