@@ -5,6 +5,9 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --mesh-turns [--tree DIR]`` runs only phase 16's
+mesh group times, of the checkout DIR: see :func:`mesh_turns`.)
+
 Phases, each printed on its own line; any failure raises and exits non-zero:
 
 1. device  — needs CUDA (there is no CPU branch); prints the card's name and
@@ -200,10 +203,20 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    1, dB rtol 1e-5, atol 1e-4.  The F = 512 volume, 'default' and
    'int8_direct', on the mesh (gather_full) and with mesh=None, turns P C C
    P, device ms (CUDA events) and peak device memory above the frames, equal
-   within 1e-6 of the peak.  Then `live --frames 64 --batch 8 --mesh 1x1` (8
-   kernel 1 launches) and `cscan --frames 64 --mesh 1x1` (none), each opening
-   and closing its own world of one, and dryrun_multichip(1, "cuda") (one
-   spawned nccl rank at the flagship, each check within 2e-2 dB).
+   within 1e-6 of the peak, and the host time that enqueues each volume's
+   launches.  The mesh session's CUDA graphs (mesh_graph_phase): for
+   'base' 'default' and 'highest', 'sim', 'dark', 'int8_direct' and
+   saveframes, three batches of 2 groups, the first capturing the batch's
+   graph with its NCCL collectives, the next two replaying it, each
+   bit-equal to the eager step (session_mesh_pipeline[_int8]) with its
+   launches and collective bytes, each graph's pool printed; a threshold
+   key (no new capture) and a 'b' capture (a new one); a 'base' 'default'
+   mesh group's host time in parts, eager and replayed, and group ms,
+   device busy and idle share, turns E R R E.  Then `live --frames 64
+   --batch 8 --mesh 1x1` (8 kernel 1 launches) and `cscan --frames 64 --mesh
+   1x1` (none), each opening and closing its own world of one, and
+   dryrun_multichip(1, "cuda") (one spawned nccl rank at the flagship, each
+   check within 2e-2 dB).
 17. kernel1_u16 — kernel 1 on 16-bit frames (u16_phases): both u16
    instances against their plain versions and the float64 product, at the
    flagship on the full 16-bit range and on Mono16 frames and at RAGGED
@@ -220,7 +233,8 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    for each session path of PERF.md §5 (GRAPH_PATHS: 'base' and 'sim' at
    'default' and 'highest', 'base' and 'dark' at 'int8_direct', 'dark'
    'default', 'peak' 'highest', 'base' with both rings, the 12-bit 'base'
-   at 'default' and 'highest') three process_group calls of 2 groups, the
+   at 'default' and 'highest', and 'base' 'default' on a 1 x 1 mesh in a
+   world of one) three process_group calls of 2 groups, the
    first capturing the step's CUDA graph (it runs the step eagerly once),
    the next two replaying it: every display, dB and linear B-scan equal to
    the eager step (session_group_pipeline[_int8]) on the same state bit for
@@ -234,7 +248,8 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    and idle share of the eager step and of the replay, turns E R R E.
 
 On CUDA every session path of phases 4-18 that takes process_group's fast
-path replays its captured graph (the per-frame and mesh paths run eagerly),
+path replays its captured graph, the mesh's too (the per-frame path runs
+eagerly),
 and `fdoct-torch bench`'s chained rows replay theirs: their times are the
 graphs'.
 
@@ -1919,6 +1934,7 @@ def mesh_phase(cfg, calib, src, frames, card_line: str, dev: torch.device) -> di
                       f"mesh median {statistics.median(ms['mesh']):.3f} ms (min "
                       f"{min(ms['mesh']):.3f}); mesh profiled: {describe_breakdown(t)} | "
                       f"{card_line}")
+            meshed.close()                   # its graphs go before the world's communicators
 
         # int8_direct on the mesh: JAX's two s8 products and the tail, no kernel 3
         i8cfg = cfg.replace(matmul_precision="int8_direct", donotnormalize=True)
@@ -1939,6 +1955,9 @@ def mesh_phase(cfg, calib, src, frames, card_line: str, dev: torch.device) -> di
               f"single-device session (kernel 3): max uint8 diff {u8} (limit 1), dB worst "
               f"{db_share:.3e} of tol (rtol 1e-5, atol 1e-4)")
         check(ran == {} and u8 <= 1 and db_share <= 1.0, "mesh int8_direct session")
+        meshed.close()
+        for key, n in mesh_graph_phase(cfg, calib, mesh, card_line, dev).items():
+            counts[key] = counts.get(key, 0) + n
 
         # the F = 512 volume on the mesh beside the single-device volume
         clean = SyntheticSource(height=cfg.height, width=cfg.width, lambda0=cfg.lambda0,
@@ -1975,6 +1994,13 @@ def mesh_phase(cfg, calib, src, frames, card_line: str, dev: torch.device) -> di
                 t[who].append(cuda_ms(one if who == "single" else meshed_vol, runs=5,
                                       warmup=1)[0])
             check(not any(LAUNCHES.values()), f"volume {precision}: launches {dict(LAUNCHES)}")
+            enqueue = {"single": host_enqueue_ms(one), "mesh": host_enqueue_ms(meshed_vol)}
+            phase("mesh", f"volume {precision}: host ms to enqueue one volume's launches (the "
+                  f"device idle before, median of 5) single {enqueue['single']:.3f}, mesh "
+                  f"{enqueue['mesh']:.3f}: "
+                  f"{enqueue['single'] / statistics.median(t['single']):.4f} and "
+                  f"{enqueue['mesh'] / statistics.median(t['mesh']):.4f} of the device median "
+                  f"| {card_line}")
             phase("mesh", f"volume {precision} F={CSCAN_FRAMES} on the mesh (gather_full) vs "
                   f"mesh=None, turns P C C P: device median single "
                   f"{' / '.join(f'{x:.3f}' for x in t['single'])} ms, mesh "
@@ -2005,6 +2031,126 @@ def mesh_phase(cfg, calib, src, frames, card_line: str, dev: torch.device) -> di
     report = dryrun_multichip(1, "cuda")
     phase("mesh", f"dryrun_multichip(1, 'cuda') in {time.perf_counter() - t0:.1f} s (a spawned "
           f"rank, nccl): {json.dumps(report)}")
+    return counts
+
+
+def host_enqueue_ms(fn, runs: int = 5) -> float:
+    """Median host-clock ms of ``runs`` calls of ``fn`` up to its return,
+    the device idle before each and synchronised after: the time the call's
+    launches take to enqueue (what a captured graph would save)."""
+    samples = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        samples.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(samples)
+
+
+def counted(fn):
+    """``fn()``, then the kernel launches and collective bytes it added
+    (both counts set to 0 just before, read just after)."""
+    from fdoct_tpu_torch.ops import kernels
+    from fdoct_tpu_torch.parallel.mesh import COLLECTIVE_BYTES, reset_collective_bytes
+
+    kernels.reset_launches()
+    reset_collective_bytes()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, {k: v for k, v in kernels.LAUNCHES.items() if v},
+            {k: v for k, v in COLLECTIVE_BYTES.items() if v})
+
+
+def mesh_graph_phase(cfg, calib, mesh, card_line: str, dev: torch.device) -> dict:
+    """Phase 16's CUDA graphs of the mesh session (``Session(mesh=)`` on a
+    1 x 1 mesh, ``_mesh_step``): for each path of MESH_GRAPH_PATHS three
+    process_group calls of 2 groups, the first capturing the batch's graph
+    with its NCCL collectives (its step runs eagerly once on the capture's
+    side stream), the next two replaying it; each call's displays, dB and
+    linear B-scans equal to the eager step (``session_mesh_pipeline[_int8]``)
+    on the same state bit for bit, and its launches and collective bytes
+    (counts set to 0 just before, read just after) the eager step's.  Then
+    a threshold key and a 'b' capture between batches at 'default' and
+    'int8_direct' (both keep their graph at the key: the floor is a device
+    scalar; both capture again after 'b'); then the host time of a 'base'
+    'default' mesh group in parts (host_parts), eager and replayed, beside
+    the H2D copy of a number the parent's mesh path made per batch; and the
+    group ms, device busy and idle of the eager step and of the replay
+    (time_session), turns E R R E.  Returns the launches of each (kernel,
+    operator)."""
+    from fdoct_tpu_torch.sources.synthetic import SyntheticSource
+
+    src = SyntheticSource(height=cfg.height, width=cfg.width, lambda0=cfg.lambda0,
+                          dlambda=cfg.lambdabw * 2.3548 / 4.0, noise=0.02, seed=SEED + 5)
+    stream = src.frames()
+
+    def batch():
+        return np.stack([next(stream) for _ in range(2 * cfg.averages)])
+
+    counts: dict = {}
+    for label, variant, changes, name, op, per_group in MESH_GRAPH_PATHS:
+        s = graph_session(cfg, calib, variant, changes, src, dev, mesh=mesh)
+        a, b = batch(), batch()
+        ran = []
+        for i, frames_ in enumerate((a, b, a)):
+            results, launched, moved = counted(lambda f=frames_: s.process_group(f))
+            want, want_launched, want_moved = counted(lambda f=frames_: eager_outputs(s, f))
+            check(same_outputs(results, want), f"mesh graphs {label}: call {i} differs from "
+                  "the eager step")
+            check((launched, moved) == (want_launched, want_moved),
+                  f"mesh graphs {label}: call {i} launched {launched}, moved {moved}; the eager "
+                  f"step {want_launched}, {want_moved}")
+            check(launched == ({name: 2 * per_group} if name else {}),
+                  f"mesh graphs {label}: launches {launched} for 2 groups")
+            ran.append(launched)
+        check(s.graphs.captures == 1 and len(s.graphs) == 1,
+              f"mesh graphs {label}: {s.graphs.captures} captures")
+        check(not any(k.startswith(("mesh:", "slow:", "eager:")) for k in s._said_once),
+              f"mesh graphs {label} left the replayed mesh path: {s.status}")
+        (key, captured), = s.graphs.items()
+        if name:
+            counts[(name, op)] = counts.get((name, op), 0) + sum(r[name] for r in ran)
+        phase("mesh graphs", f"{label} ({key[0]}): 3 calls of 2 groups (a capture, 2 replays) "
+              f"bit-equal to the eager step, each with the eager step's launches {ran[-1]} and "
+              f"collective bytes {moved}; a replay's {captured.launches}, "
+              f"{captured.collective_bytes}; pool {captured.pool_bytes / 2**20:.1f} MiB")
+        s.close()
+
+    for precision in ("default", "int8_direct"):
+        s = graph_session(cfg, calib, "base", {"matmul_precision": precision}, src, dev,
+                          mesh=mesh)
+        a = batch()
+        s.process_group(a)
+        s.key("]")
+        check(same_outputs(s.process_group(a), eager_outputs(s, a)) and s.graphs.captures == 1,
+              f"mesh graphs {precision}: the batch after a threshold key")
+        s.key("b")
+        s.process_group(np.stack([src.background()] * cfg.averages))   # the per-frame path
+        check(same_outputs(s.process_group(a), eager_outputs(s, a)) and s.graphs.captures == 2,
+              f"mesh graphs {precision}: the batch after a 'b' capture")
+        phase("mesh graphs", f"base '{precision}': a threshold key (1 capture) and a 'b' capture "
+              f"(2) between batches; the next batch bit-equal to the eager step each time")
+        s.close()
+
+    s = graph_session(cfg, calib, "base", {}, src, dev, mesh=mesh)
+    batches = [batch() for _ in range(4)]
+    parts = {mode: host_parts(s, batches[0], mode == "replay") for mode in ("eager", "replay")}
+    floor_copy = cuda_ms(lambda: torch.tensor(-30.0, dtype=torch.float32, device=dev))[0]
+    for mode, p in parts.items():
+        phase("mesh graphs", f"base 'default' mesh host ms per group, {mode}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in p.items()) + f"; sum {sum(p.values()):.4f} | {card_line}")
+    phase("mesh graphs", f"the parent's mesh display floor: one H2D copy of a number per batch, "
+          f"{floor_copy:.4f} ms (CUDA events; torch.tensor(-30.0, device=cuda)) | {card_line}")
+    turns = {}
+    for turn in ("E", "R", "R", "E"):
+        turns.setdefault(turn, []).append(time_session(EagerStep(s) if turn == "E" else s,
+                                                       batches))
+    for turn, ts in turns.items():
+        phase("mesh graphs", f"base 'default' mesh Session.process_group per group, "
+              f"{'eager step' if turn == 'E' else 'replayed graph'} (turns E R R E): "
+              + " | ".join(describe_session(t) for t in ts) + f" | {card_line}")
+    s.close()
     return counts
 
 
@@ -2312,30 +2458,71 @@ GRAPH_PATHS = [
     ("12-bit base 'default'", "base", {"bpp": 12}, 12, "fused_recon_raw_accumulate", "u16", 1),
     ("12-bit base 'highest'", "base", {"bpp": 12, "matmul_precision": "highest"}, 12,
      "fused_recon_raw_accumulate", "u16", 1),
+    ("mesh 1x1 base 'default'", "base", {"mesh": True}, 8, "fused_recon_raw_accumulate", "bf16",
+     1),
+]
+#: phase 16's replayed mesh paths: (label, variant, config changes, kernel,
+#: operator, launches a group; no kernel: int8 on the mesh is two _int_mm)
+MESH_GRAPH_PATHS = [
+    ("base 'default'", "base", {}, "fused_recon_raw_accumulate", "bf16", 1),
+    ("base 'highest'", "base", {"matmul_precision": "highest"}, "fused_recon_raw_accumulate",
+     "f32", 1),
+    ("sim 'default'", "sim", {"donotnormalize": False}, "fused_recon_accumulate", "bf16", 1),
+    ("dark 'default'", "dark", {}, "fused_recon_raw_accumulate", "bf16", 1),
+    ("base 'int8_direct'", "base", {"matmul_precision": "int8_direct"}, None, "s8", 0),
+    ("base saveframes 'default'", "base", {"saveframes": True}, "fused_recon_raw_accumulate",
+     "bf16", 8),
 ]
 #: samples of each part of the host-time breakdown
 BREAKDOWN_RUNS = 20
 
 
-def graph_session(cfg, calib, variant: str, changes: dict, src, dev: torch.device):
-    """A flagship session whose calibration frames are set as its captures
-    set them: the source's background (at least 1) and pi frame, and a dark
-    frame of 2 counts for the dark variant."""
+def graph_session(cfg, calib, variant: str, changes: dict, src, dev: torch.device, mesh=None):
+    """A flagship session (on ``mesh`` if given) whose calibration frames
+    are set as its captures set them: the source's background (at least 1)
+    and pi frame, and a dark frame of 2 counts for the dark variant."""
     from fdoct_tpu_torch.session import Session
 
-    s = Session(cfg.replace(**changes), device=dev, variant=variant, calib=calib)
+    s = Session(cfg.replace(**changes), device=dev, variant=variant, calib=calib, mesh=mesh)
     s.data_yb = torch.as_tensor(np.maximum(src.background(), 1)).to(dev, torch.float32)
     s.data_yp = torch.as_tensor(src.pi_frame()).to(dev, torch.float32)
     s.data_yd = torch.full_like(s.data_yp, 2.0)
     return s
 
 
+def eager_step(s, batch: np.ndarray):
+    """(stacked outputs, frame magnitudes or None) of the session's batch
+    step for ``batch``, called eagerly, not replayed: on one device
+    ``session_group_pipeline[_int8]`` on the frames, on a mesh
+    ``session_mesh_pipeline[_int8]`` on the rank's blocks, each copied to
+    the card through the session's pinned staging."""
+    from fdoct_tpu_torch.parallel.sharded import batch_block
+
+    dtype = torch.from_numpy(batch[:0]).dtype
+    groups, avg = len(batch) // s.averagestoggle, s.averagestoggle
+    if s.mesh is None:
+        _, _, step = s._group_step(batch.shape, dtype, groups, avg)
+        return step(s._to_device(batch))
+    _, _, step = s._mesh_step(batch.shape, dtype, groups, avg)
+    return step(s._to_device(batch_block(batch, s.mesh, groups)))
+
+
 def eager_outputs(s, batch: np.ndarray):
-    """The stacked outputs of the session's group step for ``batch``,
-    called eagerly (``session_group_pipeline[_int8]``), not replayed."""
-    _, _, step = s._group_step(batch.shape, torch.from_numpy(batch[:0]).dtype,
-                               len(batch) // s.averagestoggle, s.averagestoggle)
-    return step(torch.as_tensor(batch).to(s.device))[0]
+    """The stacked outputs of :func:`eager_step`."""
+    return eager_step(s, batch)[0]
+
+
+class EagerStep:
+    """A session's process_group with its batch step called eagerly, not
+    replayed: what the route ran before its graph."""
+
+    def __init__(self, s):
+        self.s = s
+
+    def process_group(self, batch):
+        outs, mags = eager_step(self.s, batch)
+        return self.s._emit_group_results(outs, outs.bscandisp.cpu().numpy(),
+                                          self.s.averagestoggle, None, mags)
 
 
 def same_outputs(results: list, want) -> bool:
@@ -2347,22 +2534,29 @@ def same_outputs(results: list, want) -> bool:
 def host_parts(s, batch: np.ndarray, replay: bool) -> dict:
     """Median host ms per group of each part of one ``process_group`` of
     ``batch`` on the CUDA fast path, the parts timed one after the other
-    as process_group runs them: the route and key (``_group_step``), the
-    copy into the pinned staging buffer (``np.copyto``), the H2D copy's
-    enqueue, the step (eager: its launches; replay: the graph's launch and
+    as process_group runs them: the route and key (``_group_step``, on a
+    mesh ``_mesh_step``), the copy into the pinned staging buffer
+    (``np.copyto``; on a mesh of the rank's blocks, a strided view), the H2D
+    copy's enqueue, the step (eager: its launches; replay: the graph's launch and
     the outputs' clones), the D2H of the uint8 displays (which waits for
     the device) and the per-group bookkeeping (``_emit_group_results``)."""
+    from fdoct_tpu_torch.parallel.sharded import batch_block
+
     dtype = torch.from_numpy(batch[:0]).dtype
     groups, avg = len(batch) // s.averagestoggle, s.averagestoggle
+    route = s._group_step if s.mesh is None else s._mesh_step
     s.process_group(batch)                           # the staging buffer and the graph
-    pinned, _ = s._staging[(batch.shape, batch.dtype)]
+
+    def host():                                      # what process_group stages
+        return batch if s.mesh is None else batch_block(batch, s.mesh, groups)
+    pinned, _ = s._staging[(host().shape, batch.dtype)]
     samples: dict = {}
     for _ in range(BREAKDOWN_RUNS):
         torch.cuda.synchronize()
         t = [time.perf_counter()]
-        key, state, step = s._group_step(batch.shape, dtype, groups, avg)
+        key, state, step = route(batch.shape, dtype, groups, avg)
         t.append(time.perf_counter())
-        np.copyto(pinned.numpy(), batch)
+        np.copyto(pinned.numpy(), host())
         t.append(time.perf_counter())
         captured = s.graphs.lookup(key, state)
         static = captured.inputs[0].copy_(pinned, non_blocking=True)
@@ -2381,8 +2575,9 @@ def host_parts(s, batch: np.ndarray, replay: bool) -> dict:
 
 def graphs_phase(cfg, calib, card_line: str, dev: torch.device) -> dict:
     """Phase 19: the captured group steps (fdoct_tpu_torch.graphs).  For
-    each path of GRAPH_PATHS a session makes three process_group calls of
-    16 frames (2 groups): the first captures its graph (running the step
+    each path of GRAPH_PATHS (the last a session on a 1 x 1 mesh in a world
+    of one with nccl) a session makes three process_group calls of 16
+    frames (2 groups): the first captures its graph (running the step
     eagerly once), the next two replay it; each call's displays, dB and
     linear B-scans equal the eager step on the same state bit for bit, and
     the launch counts (set to 0 just before, read just after) are the
@@ -2398,6 +2593,7 @@ def graphs_phase(cfg, calib, card_line: str, dev: torch.device) -> dict:
     Returns the launches of the 8-bit paths by (kernel, operator)."""
     from fdoct_tpu_torch.ops import kernels
     from fdoct_tpu_torch.ops.kernels import LAUNCHES
+    from fdoct_tpu_torch.parallel import WorldOfOne, make_mesh
     from fdoct_tpu_torch.sources.synthetic import SyntheticSource
 
     sources = {bits: SyntheticSource(height=cfg.height, width=cfg.width, lambda0=cfg.lambda0,
@@ -2406,7 +2602,10 @@ def graphs_phase(cfg, calib, card_line: str, dev: torch.device) -> dict:
     streams = {bits: src_.frames() for bits, src_ in sources.items()}
     counts: dict = {}
     for label, variant, changes, bits, name, op, per_group in GRAPH_PATHS:
-        s = graph_session(cfg, calib, variant, changes, sources[bits], dev)
+        changes = dict(changes)
+        world = WorldOfOne("cuda") if changes.pop("mesh", False) else None
+        mesh = None if world is None else make_mesh(1, 1, device_type="cuda")
+        s = graph_session(cfg, calib, variant, changes, sources[bits], dev, mesh=mesh)
         a, b = (np.stack([next(streams[bits]) for _ in range(2 * cfg.averages)])
                 for _ in range(2))
         kernels.reset_launches()
@@ -2426,7 +2625,9 @@ def graphs_phase(cfg, calib, card_line: str, dev: torch.device) -> dict:
         phase("graphs", f"{label}: 3 calls of 2 groups (a capture, 2 replays) bit-equal to the "
               f"eager step; launches {ran}, a replay's {captured.launches}; pool "
               f"{captured.pool_bytes / 2**20:.1f} MiB")
-        s.close()
+        s.close()                            # its graphs go before the world's communicators
+        if world is not None:
+            world.close()
 
     # recapture: a threshold key and a 'b' capture between batches
     src8 = sources[8]
@@ -2462,18 +2663,9 @@ def graphs_phase(cfg, calib, card_line: str, dev: torch.device) -> dict:
     phase("graphs", f"the parent's display floor: one H2D copy of a number per group, "
           f"{floor_copy:.4f} ms (CUDA events; torch.as_tensor(-30.0, device=cuda)) | {card_line}")
 
-    class Eager:
-        """process_group's fast path with the step called, not replayed."""
-
-        def process_group(self, batch):
-            groups, avg = len(batch) // s.averagestoggle, s.averagestoggle
-            _, _, step = s._group_step(batch.shape, torch.uint8, groups, avg)
-            outs, mags = step(s._to_device(batch))
-            return s._emit_group_results(outs, outs.bscandisp.cpu().numpy(), avg, None, mags)
-
     turns = {}
     for turn in ("E", "R", "R", "E"):
-        t = time_session(Eager() if turn == "E" else s, batches)
+        t = time_session(EagerStep(s) if turn == "E" else s, batches)
         turns.setdefault(turn, []).append(t)
     for turn, ts in turns.items():
         phase("graphs", f"base 'default' Session.process_group per group, "
@@ -2800,5 +2992,107 @@ def analysis_phase(cfg, calib, calib64, card_line: str, dev: torch.device) -> No
               f"{name} disagrees with float64 numpy")
 
 
+def eager_all_reduce_ms(mesh) -> float:
+    """Median host ms of an eager all-reduce of 4 bytes over 'data', to its
+    end on the device: what each of the command line's per-batch broadcasts
+    pays, beside a communicator that a graph also holds or not."""
+    import torch.distributed as dist
+
+    from fdoct_tpu_torch.parallel import mesh_device
+
+    x = torch.zeros(1, device=mesh_device(mesh))
+    return host_ms(lambda: (dist.all_reduce(x, group=mesh.get_group("data")),
+                            torch.cuda.synchronize()))[0]
+
+
+def mesh_turns(tree: Path) -> int:
+    """``python3 chip_smoke.py --mesh-turns [--tree DIR]``: phase 16's mesh
+    group times of the checkout DIR (default: this file's), measured by this
+    file's code, so that one call can time two commits in turns (parent,
+    change, change, parent; unpack the parent with ``git archive <commit> |
+    tar -x -C build/parent``).  It uses only what every commit of the port
+    since the mesh has: ``Session(mesh=)``, ``WorldOfOne``, ``make_mesh``,
+    ``Calibration.create``, ``SyntheticSource``, the launch and
+    collective-byte counters.  For 'base' at 'default' and 'highest' on a
+    world of one with nccl: a single-device session and a 1 x 1 mesh session
+    on the same calibration frames, 4 batches of 2 flagship groups; the
+    single-device group ms before the mesh session's first batch and an
+    eager 4-byte all-reduce's ms before it and after the turns; one
+    batch's launches and collective bytes (counts set to 0 just before,
+    read just after); the SHA-256 of both sessions' outputs (uint8
+    displays, dB and linear B-scans) over the 4 batches, equal across the
+    trees where their outputs are bit-equal; the host-clock ms per group of
+    each, turns single, mesh, mesh, single; the mesh session's profiled
+    breakdown; its graphs' pools (none where the mesh runs eagerly).  One
+    JSON line per precision, the card's name and power limit in each."""
+    import hashlib
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this test needs a GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(tree.resolve()))
+    import fdoct_tpu_torch
+    from fdoct_tpu_torch.bench_resident import card_line as card
+    from fdoct_tpu_torch.calibration import Calibration
+    from fdoct_tpu_torch.config import PipelineConfig
+    from fdoct_tpu_torch.ops import _build
+    from fdoct_tpu_torch.parallel import WorldOfOne, make_mesh
+    from fdoct_tpu_torch.session import Session
+    from fdoct_tpu_torch.sources.synthetic import SyntheticSource
+    check(Path(fdoct_tpu_torch.__file__).resolve().is_relative_to(tree.resolve()),
+          f"imported {fdoct_tpu_torch.__file__}, not the tree {tree}")
+    check("jax" not in sys.modules, "the port imported jax")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, card_line = torch.device("cuda"), card()
+    _build.load()
+    cfg = PipelineConfig(**FLAGSHIP)
+    calib = Calibration.create(cfg, dev)
+    src = SyntheticSource(height=cfg.height, width=cfg.width, lambda0=cfg.lambda0,
+                          dlambda=cfg.lambdabw * 2.3548 / 4.0, noise=0.02, seed=SEED)
+    frames = src.frames()
+    batches = [np.stack([next(frames) for _ in range(2 * cfg.averages)]) for _ in range(4)]
+    yb = torch.as_tensor(np.maximum(src.background(), 1)).to(dev, torch.float32)
+    yp = torch.as_tensor(src.pi_frame()).to(dev, torch.float32)
+    with WorldOfOne("cuda"):
+        mesh = make_mesh(1, 1, device_type="cuda")
+        for precision in ("default", "highest"):
+            sessions = {}
+            for who, m in (("single", None), ("mesh", mesh)):
+                sessions[who] = s = Session(cfg.replace(matmul_precision=precision), device=dev,
+                                            calib=calib, mesh=m)
+                s.data_yb, s.data_yp = yb, yp
+            line = {"tree": str(tree), "precision": precision, "card": card_line,
+                    "eager_all_reduce_ms": [eager_all_reduce_ms(mesh)],
+                    "single_group_ms_before_the_mesh": statistics.median(
+                        host_group_ms(sessions["single"], batches))}
+            for who, s in sessions.items():
+                digest = hashlib.sha256()
+                for b in batches:
+                    for r in s.process_group(b):
+                        for x in (r.bscandisp, r.bscandb.cpu().numpy(), r.bscan.cpu().numpy()):
+                            digest.update(np.ascontiguousarray(x).tobytes())
+                _, launched, moved = counted(lambda s=s: s.process_group(batches[0]))
+                line[who] = {"outputs_sha256": digest.hexdigest(), "launches_a_batch": launched,
+                             "collective_bytes_a_batch": moved}
+            for who in ("single", "mesh", "mesh", "single"):
+                line[who].setdefault("group_ms_turns", []).append(
+                    statistics.median(host_group_ms(sessions[who], batches)))
+            line["mesh"]["profiled"] = device_breakdown(
+                lambda: [sessions["mesh"].process_group(b) for b in batches], 2 * len(batches))
+            line["mesh"]["graph_pools_mib"] = [c.pool_bytes / 2**20
+                                               for _, c in sessions["mesh"].graphs.items()]
+            line["eager_all_reduce_ms"].append(eager_all_reduce_ms(mesh))
+            for s in sessions.values():
+                s.close()                    # its graphs go before the world's communicators
+            print(json.dumps(line), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if "--mesh-turns" in sys.argv[1:]:
+        args = sys.argv[1:]
+        sys.exit(mesh_turns(Path(args[args.index("--tree") + 1]) if "--tree" in args
+                            else Path(__file__).resolve().parent))
     sys.exit(main())

@@ -22,9 +22,10 @@ it, after the recipe of ``torch.cuda.graphs``:
   overwrites: :meth:`Captured.replay` returns clones, one copy of each
   output tensor per call;
 - the kernel wrappers count their launches in Python
-  (``ops.kernels.LAUNCHES``), which a replay does not run: the capture
-  records each graph's counts, takes them back out (nothing ran), and every
-  replay adds them.
+  (``ops.kernels.LAUNCHES``), and the mesh's collectives the bytes they move
+  (``parallel.mesh.COLLECTIVE_BYTES``), which a replay does not run: the
+  capture records each graph's counts, takes them back out (nothing ran),
+  and every replay adds them.
 
 A key is what ``jax.jit`` keys a program on: the static arguments and the
 inputs' shapes and types.  The tensors a graph reads besides its inputs (the
@@ -46,6 +47,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from fdoct_tpu_torch.ops import kernels
+from fdoct_tpu_torch.parallel.mesh import COLLECTIVE_BYTES
 
 #: the graphs a CapturedStep keeps: a session uses one a route and frame
 #: shape in use, bench's chains four a row
@@ -56,8 +58,6 @@ MAX_GRAPHS = 8
 EAGER_ROUTES = {
     "per-frame": ("per-frame path runs eagerly (not captured): its accumulator and "
                   "captures change frame by frame"),
-    "mesh": ("mesh path runs eagerly (not captured): its NCCL collectives are not "
-             "captured in CUDA graphs"),
 }
 
 
@@ -76,6 +76,15 @@ class NoHostSync(TorchDispatchMode):
         if func.overloadpacket.__name__ in self.FORBIDDEN:
             raise RuntimeError(f"host synchronisation in a step: {func}")
         return func(*args, **(kwargs or {}))
+
+
+def _taken_back(counter: dict[str, int], before: dict[str, int]) -> dict[str, int]:
+    """What ``counter`` gained since ``before``, taken back out of it: a
+    capture records that work into its graph and runs none of it."""
+    gained = {k: v - before[k] for k, v in counter.items() if v != before[k]}
+    for k, n in gained.items():
+        counter[k] -= n
+    return gained
 
 
 def _clone_outputs(tree: Any) -> Any:
@@ -98,14 +107,18 @@ class Captured:
     inputs: tuple                   # the static inputs, written before each replay
     outputs: Any                    # the static outputs, overwritten by each replay
     launches: dict[str, int]        # kernel launches of one replay, by wrapper
+    collective_bytes: dict[str, int]  # bytes one replay hands to collectives, by kind
     pool_bytes: int                 # device memory its capture reserved (its pool)
 
     def replay(self) -> Any:
         """Replays the graph on the current stream and returns clones of its
-        outputs; adds its launches to ``ops.kernels.LAUNCHES``."""
+        outputs; adds its launches to ``ops.kernels.LAUNCHES`` and its bytes
+        to ``parallel.mesh.COLLECTIVE_BYTES``."""
         self.graph.replay()
-        for name, n in self.launches.items():
-            kernels.LAUNCHES[name] += n
+        for counter, counts in ((kernels.LAUNCHES, self.launches),
+                                (COLLECTIVE_BYTES, self.collective_bytes)):
+            for name, n in counts.items():
+                counter[name] += n
         return _clone_outputs(self.outputs)
 
 
@@ -157,16 +170,15 @@ class CapturedStep:
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        before = dict(kernels.LAUNCHES)
+        launched, moved = dict(kernels.LAUNCHES), dict(COLLECTIVE_BYTES)
         graph = torch.cuda.CUDAGraph()
-        # thread_local: another thread's CUDA calls (a viewer's copies) may
-        # go on while this one captures
+        # thread_local: another thread's CUDA calls (a viewer's copies, the
+        # NCCL watchdog's event queries) may go on while this one captures
         with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
             outputs = fn(*inputs)
-        launches = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
-        for name, n in launches.items():
-            kernels.LAUNCHES[name] -= n             # recorded into the graph, not run
-        self._graphs[key] = Captured(graph, tuple(state), tuple(inputs), outputs, launches,
+        self._graphs[key] = Captured(graph, tuple(state), tuple(inputs), outputs,
+                                     _taken_back(kernels.LAUNCHES, launched),
+                                     _taken_back(COLLECTIVE_BYTES, moved),
                                      torch.cuda.memory_reserved(dev) - reserved)
         self.captures += 1
         return result

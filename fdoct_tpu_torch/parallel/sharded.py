@@ -59,7 +59,7 @@ from fdoct_tpu_torch.parallel.mesh import (
     mesh_device, nbytes,
 )
 from fdoct_tpu_torch.pipeline import (
-    apodize_ratio, ascan_mags, preprocess, ratio_group_sum, raw_kernel_applies,
+    BscanOutputs, apodize_ratio, ascan_mags, preprocess, ratio_group_sum, raw_kernel_applies,
     reconstruct_group,
 )
 
@@ -82,6 +82,19 @@ def local_block(frames, mesh: DeviceMesh):
     b = _block(frames.shape[0], axis_size(mesh, "data"), axis_index(mesh, "data"), "frames")
     h = _block(frames.shape[-2], axis_size(mesh, "ascan"), axis_index(mesh, "ascan"), "rows")
     return frames[b, h]
+
+
+def batch_block(frames, mesh: DeviceMesh, groups: int):
+    """This rank's blocks of a (groups·avg, H, W) batch of ``groups``
+    averaging groups, where they lie (a strided view), as (groups, b_loc,
+    h_loc, W): :func:`local_block` of each group.  A group's frames split
+    over 'data' within the group, so rank d holds frames g·avg + d·b_loc …
+    g·avg + (d+1)·b_loc of group g; that is not ``local_block`` of the whole
+    batch."""
+    avg = frames.shape[0] // groups
+    b = _block(avg, axis_size(mesh, "data"), axis_index(mesh, "data"), "frames")
+    h = _block(frames.shape[-2], axis_size(mesh, "ascan"), axis_index(mesh, "ascan"), "rows")
+    return frames.reshape(groups, avg, *frames.shape[1:])[:, b, h]
 
 
 def shard_frames(frames, mesh: DeviceMesh) -> torch.Tensor:
@@ -295,7 +308,9 @@ def sharded_bscan_step_int8(frames: torch.Tensor, plan, cfg, mesh: DeviceMesh):
 # differ from the offline steps in two ways, as in the JAX package: the live
 # threshold is an argument (a number or a 0-d tensor, so '['/']' change it
 # without a rebuild), and they return the (linear, dB, uint8) triple, plus
-# each frame's magnitudes and the binned frames on request.
+# each frame's magnitudes and the binned frames on request.  The session
+# runs a batch's groups through session_mesh_pipeline[_int8], which it
+# captures on CUDA in one graph with the collectives.
 # ---------------------------------------------------------------------------
 
 
@@ -335,6 +350,56 @@ def build_session_bscan_step_int8(mesh: DeviceMesh, plan, cfg, batch: int,
         return (bscan, db, to_uint8(disp01)) + ((mags,) if keep_frames else ())
 
     return step
+
+
+def _mesh_batch(run, frames: torch.Tensor, groups: int, mesh: DeviceMesh, keep_frames: bool):
+    """``run`` (a session step of one group) on each group's (b_loc, h_loc,
+    W) slice of the rank's (groups·b_loc, h_loc, W) ``frames``, then every
+    group's (bscan, dB, display) gathered over 'ascan' in one all-gather
+    and, with ``keep_frames``, each group's frame magnitudes over both axes."""
+    b_loc = frames.shape[0] // groups
+    blocks, mags = [], []
+    for g in range(groups):
+        bscan, db, disp, *extra = run(frames[g * b_loc:(g + 1) * b_loc])
+        blocks.append(torch.stack([bscan, db, disp.to(bscan.dtype)]))
+        if keep_frames:
+            mags.append(gather_frames(extra[0], mesh))
+    whole = gather_rows(torch.stack(blocks), mesh)          # (groups, 3, ndisp, oph)
+    outs = BscanOutputs(bscan=whole[:, 0], bscandb=whole[:, 1],
+                        bscandisp=whole[:, 2].to(torch.uint8))
+    return outs, torch.cat(mags) if keep_frames else None
+
+
+def session_mesh_pipeline(frames: torch.Tensor, yb: torch.Tensor, yp: torch.Tensor,
+                          yd: torch.Tensor, thresh: torch.Tensor, calib: Calibration, cfg,
+                          mesh: DeviceMesh, groups: int, averages: int, method: str, dark: bool,
+                          keep_frames: bool = False):
+    """A batch of ``groups`` averaging groups on the mesh, the mesh
+    counterpart of ``session.session_group_pipeline`` and of the JAX
+    session's one dispatch a group of its jitted ``shard_map`` step
+    (``_jitted_session_bscan_step``): :func:`build_session_bscan_step` on
+    each group's slice of the rank's (groups·b_loc, h_loc, W) ``frames``
+    (:func:`batch_block`), the display floor read from the 0-d tensor
+    ``thresh``, then one all-gather of every group's display.  Returns
+    (stacked whole-B-scan ``BscanOutputs``, every frame's whole (groups·
+    averages, oph, ndisp) magnitudes or None), the same on every rank.  No
+    host synchronisation and nothing decided from data, so that a CUDA
+    graph can capture it with its collectives."""
+    step = build_session_bscan_step(mesh, calib, cfg, method, averages, dark=dark,
+                                    keep_frames=keep_frames)
+    return _mesh_batch(lambda fr: step(fr, yb, yp, yd, thresh), frames, groups, mesh,
+                       keep_frames)
+
+
+def session_mesh_pipeline_int8(frames: torch.Tensor, plan, thresh: torch.Tensor, cfg,
+                               mesh: DeviceMesh, groups: int, averages: int,
+                               keep_frames: bool = False):
+    """The int8-direct counterpart of :func:`session_mesh_pipeline` (JAX's
+    ``_jitted_session_bscan_step_int8``): :func:`build_session_bscan_step_int8`
+    on each group's slice.  It ends in :func:`display_tail`, not in the
+    fused int8 kernel, so its floor is a device scalar like the f32 step's."""
+    step = build_session_bscan_step_int8(mesh, plan, cfg, averages, keep_frames=keep_frames)
+    return _mesh_batch(lambda fr: step(fr, thresh), frames, groups, mesh, keep_frames)
 
 
 # ---------------------------------------------------------------------------

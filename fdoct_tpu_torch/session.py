@@ -23,8 +23,9 @@ The batch's step is a pure function, :func:`session_group_pipeline` or
 :func:`session_group_pipeline_int8` (the JAX package's one-dispatch
 programs); on the CPU the session calls it, on CUDA it replays the step's
 captured CUDA graph (:mod:`fdoct_tpu_torch.graphs`), so a batch is one
-replay instead of some twenty Python launches a group.  The per-frame path
-and the mesh path run eagerly (``graphs.EAGER_ROUTES``).
+replay instead of some twenty Python launches a group.  So does the mesh
+path, with its collectives in the graph.  The per-frame path runs eagerly
+(``graphs.EAGER_ROUTES``).
 
 Variants 'base', 'sim', 'dark', 'peak' and 'spinj'.  The ring buffers keep
 their frames and magnitudes on the device; a save ('s'), a plugin or
@@ -59,8 +60,7 @@ from fdoct_tpu_torch.ops import (
 from fdoct_tpu_torch.ops.fft import lowpass_rowwise
 from fdoct_tpu_torch.parallel.mesh import axis_size, mesh_device
 from fdoct_tpu_torch.parallel.sharded import (
-    build_session_bscan_step, build_session_bscan_step_int8, gather_frames, gather_rows,
-    local_block,
+    batch_block, session_mesh_pipeline, session_mesh_pipeline_int8,
 )
 from fdoct_tpu_torch.pipeline import (
     BscanOutputs, as_torch_dtype, form_bscan, preprocess, raw_kernel_applies, reconstruct_group,
@@ -711,7 +711,6 @@ class Session:
         self._tick_fps(frames[-1], n=n)
         host = frames if torch.is_tensor(frames) else np.asarray(frames)
         if self.mesh is not None and self._mesh_ok(host, avg):
-            self._say_eager("mesh")
             return self._process_group_mesh(host, n // avg, avg)
         key, state, step = self._group_step(tuple(host.shape), as_torch_dtype(host.dtype),
                                             n // avg, avg)
@@ -815,47 +814,75 @@ class Session:
             return False
         return True
 
-    def _process_group_mesh(self, farr, groups: int, avg: int) -> list[BscanResult]:
-        """Each group through the sharded session step on this rank's block
-        (only the block is copied to the device), then every group's display
-        gathered over 'ascan' in one all-gather and copied to the host at
-        once (and with ``saveframes`` each frame's magnitudes over both
-        axes), so that the per-group bookkeeping of
+    def _mesh_step(self, shape: tuple, dtype: torch.dtype, groups: int,
+                   avg: int) -> tuple[tuple, tuple, Callable]:
+        """(key, state, step) of a batch of frames of ``shape`` and ``dtype``
+        on the mesh, as :meth:`_group_step` for one device: ``step(blocks)``
+        → (stacked whole-B-scan :class:`BscanOutputs`, every frame's
+        magnitudes or None) from the rank's (groups, b_loc, h_loc, W) blocks
+        (:func:`~fdoct_tpu_torch.parallel.sharded.batch_block`),
+        :func:`~fdoct_tpu_torch.parallel.sharded.session_mesh_pipeline_int8`
+        or :func:`~fdoct_tpu_torch.parallel.sharded.session_mesh_pipeline`.
+        Both end in the mesh's display tail, so both read the display floor
+        from the device scalar ``_thresh``, written here, and the key holds
+        no threshold.
+
+        A captured mesh graph holds collectives, so every rank must capture
+        and replay the same graphs in the same order, or they deadlock.  It
+        does: the key and the state change only through the frames' shape,
+        keys, config edits and captures, and every rank sees the same ones
+        at the same batch (one process_group call on every rank for each
+        batch; the command line broadcasts rank 0's keys and edits and
+        frames, ``cli._from_lead``), so a rank captures, rebinds and evicts
+        where every other rank does."""
+        cfg, mesh, thresh = self.cfg, self.mesh, self._thresh
+        thresh.fill_(self.bscanthreshold)
+        layout = (axis_size(mesh, "data"), axis_size(mesh, "ascan"))
+        static = (shape, dtype, groups, avg, cfg, layout)
+        keep = cfg.saveframes
+
+        def frames(blocks):                  # the steps' (groups·b_loc, h_loc, W) input
+            return blocks.reshape(-1, *blocks.shape[2:])
+
+        if self._use_int8_direct(torch.empty(shape[1:], dtype=dtype, device="meta")):
+            plan = self._int8_plan()
+
+            def step(blocks):
+                return session_mesh_pipeline_int8(frames(blocks), plan, thresh, cfg, mesh, groups,
+                                                  avg, keep_frames=keep)
+            return ("mesh-int8", *static), (plan,), step
+        yb, yp, yd, calib = self.data_yb, self.data_yp, self.data_yd, self.calib
+        method, dark = self.method, self.variant == "dark"
+
+        def step(blocks):
+            return session_mesh_pipeline(frames(blocks), yb, yp, yd, thresh, calib, cfg, mesh,
+                                         groups, avg, method, dark, keep_frames=keep)
+        return ("mesh-f32", method, dark, *static), (yb, yp, yd), step
+
+    def _process_group_mesh(self, host, groups: int, avg: int) -> list[BscanResult]:
+        """The batch through the sharded session steps on this rank's
+        blocks (:func:`~fdoct_tpu_torch.parallel.sharded.batch_block`: one
+        strided copy into pinned memory, one H2D, only the blocks), each
+        group's display gathered over 'ascan' in one all-gather and copied
+        to the host at once (and with ``saveframes`` each frame's magnitudes
+        over both axes), so that the per-group bookkeeping of
         :meth:`_emit_group_results` sees what the single-device path gives
-        it.  The f32 step launches what the single-device group step
+        it.  On CUDA the batch is one replay of its captured graph, the
+        collectives in it (:meth:`_replay`); on the CPU (gloo) the step runs
+        eagerly.  The f32 step launches what the single-device group step
         launches on the block; the int8 step runs JAX's two s8 products (no
         fused int8 kernel: its display epilogue would precede the 'data'
         sum)."""
         cfg = self.cfg
-        thresh = torch.tensor(self.bscanthreshold, dtype=self.data_yb.dtype, device=self.device)
-        first = farr[0] if torch.is_tensor(farr) else torch.from_numpy(np.asarray(farr[0]))
-        if self._use_int8_direct(first):
-            step = build_session_bscan_step_int8(self.mesh, self._int8_plan(), cfg, avg,
-                                                 keep_frames=cfg.saveframes)
-
-            def run(fr):
-                return step(fr, thresh)
+        key, state, step = self._mesh_step(tuple(host.shape), as_torch_dtype(host.dtype),
+                                           groups, avg)
+        blocks = batch_block(host, self.mesh, groups)
+        if self.device.type == "cuda":
+            _, (outs, mags) = self._replay(blocks, key, state, step)
         else:
-            step = build_session_bscan_step(self.mesh, self.calib, cfg, self.method, avg,
-                                            dark=self.variant == "dark",
-                                            keep_frames=cfg.saveframes)
-
-            def run(fr):
-                return step(fr, self.data_yb, self.data_yp, self.data_yd, thresh)
-        raw = self._to_device(farr).clone() if cfg.saveinterferograms else None
-        blocks, mags = [], []
-        for g in range(groups):
-            bscan, db, disp, *extra = run(self._to_device(
-                local_block(farr[g * avg:(g + 1) * avg], self.mesh)))
-            blocks.append(torch.stack([bscan, db, disp.to(bscan.dtype)]))
-            if cfg.saveframes:
-                mags.append(gather_frames(extra[0], self.mesh))
-        # one all-gather and one copy to the host for every group's display
-        whole = gather_rows(torch.stack(blocks), self.mesh)      # (groups, 3, ndisp, oph)
-        outs = BscanOutputs(bscan=whole[:, 0], bscandb=whole[:, 1],
-                            bscandisp=whole[:, 2].to(torch.uint8))
-        return self._emit_group_results(outs, outs.bscandisp.cpu().numpy(), avg, raw,
-                                        torch.cat(mags) if cfg.saveframes else None)
+            outs, mags = step(self._to_device(blocks))
+        raw = self._to_device(host).clone() if cfg.saveinterferograms else None
+        return self._emit_group_results(outs, outs.bscandisp.cpu().numpy(), avg, raw, mags)
 
     def _emit_group_results(self, outs: BscanOutputs, disp: np.ndarray, avg: int,
                             raw: torch.Tensor | None, frame_mags) -> list[BscanResult]:

@@ -2,15 +2,16 @@
 tests/test_torch_multihost.py spawn.
 
 Usage: ``python tests/torch_mesh_worker.py RANK WORLD STORE INPUTS OUTDIR
-[LAYOUT ...]``, each LAYOUT ``DxA`` (default 4x1 2x2 1x4).  Joins the world
-over a ``FileStore`` at STORE, reads the inputs the test wrote (frames,
-calibration frames, int8 plans as the JAX package folds them), runs every
-case of the port's mesh functions on each layout and writes this rank's
-local blocks to ``OUTDIR/rank{RANK}.npz`` under ``{layout}/{case}/{name}``.
-The test process holds them to the JAX functions on a JAX mesh of the same
-layout.  ``... RANK WORLD STORE --cli RUNS`` runs the command lines of the
-json list RUNS in the world instead (:func:`run_cli`).  Imports torch and
-the port only.
+[--graphs] [LAYOUT ...]``, each LAYOUT ``DxA`` (default 4x1 2x2 1x4).  Joins
+the world over a ``FileStore`` at STORE, reads the inputs the test wrote
+(frames, calibration frames, int8 plans as the JAX package folds them), runs
+every case of the port's mesh functions on each layout (with ``--graphs``,
+the session's batch steps instead, :func:`run_graph_layout`) and writes
+this rank's local blocks to ``OUTDIR/rank{RANK}.npz`` under
+``{layout}/{case}/{name}``.  The test process holds them to the JAX
+functions on a JAX mesh of the same layout.  ``... RANK WORLD STORE --cli
+RUNS`` runs the command lines of the json list RUNS in the world instead
+(:func:`run_cli`).  Imports torch and the port only.
 """
 
 from __future__ import annotations
@@ -27,12 +28,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from fdoct_tpu_torch.calibration import Calibration  # noqa: E402
 from fdoct_tpu_torch.config import PipelineConfig  # noqa: E402
+from fdoct_tpu_torch.graphs import NoHostSync  # noqa: E402
 from fdoct_tpu_torch.int8direct import Int8DirectPlan  # noqa: E402
 from fdoct_tpu_torch.parallel import (  # noqa: E402
-    build_session_bscan_step, build_session_bscan_step_int8, make_mesh, shard_frames,
+    build_session_bscan_step, build_session_bscan_step_int8, gather_rows, make_mesh, shard_frames,
     sharded_bscan_step, sharded_bscan_step_int8, sharded_cscan_volume, sharded_cscan_volume_int8,
 )
 from fdoct_tpu_torch.parallel.mesh import COLLECTIVE_BYTES, reset_collective_bytes  # noqa: E402
+from fdoct_tpu_torch.parallel.sharded import (  # noqa: E402
+    batch_block, gather_frames, local_block, session_mesh_pipeline, session_mesh_pipeline_int8,
+)
 from fdoct_tpu_torch.session import Session  # noqa: E402
 from fdoct_tpu_torch.streaming import run_streaming  # noqa: E402
 
@@ -43,6 +48,20 @@ CFG8 = dict(CFG64, dtype="float32", matmul_precision="int8_direct")
 SESSION_CFG = dict(width=64, height=16, averages=8, numfftpoints=128, numdisplaypoints=40,
                    dtype="float32", donotnormalize=True)
 MEDIAN_KS = (3, 5, 7)
+#: the session's batch steps on the mesh (tests/test_torch_mesh_graphs.py):
+#: 3 groups of CFG64's frames in float32, each case's changes to the config
+#: and to the step's arguments
+GRAPH_GROUPS = 3
+GRAPH_CASES = {
+    "default": {},
+    "highest": {"matmul_precision": "highest"},
+    "dark": {"dark": True},
+    "normalise": {"donotnormalize": False, "thresh": -np.inf},   # as the 'sim' session
+    "median5": {"mediann": 5},
+    "keep_frames": {"keep_frames": True},
+    "int8": {"matmul_precision": "int8_direct"},
+    "int8_keep_frames": {"matmul_precision": "int8_direct", "keep_frames": True},
+}
 
 
 def plan_from(inp: dict, prefix: str) -> Int8DirectPlan:
@@ -152,6 +171,68 @@ def run_layout(mesh, layout: str, inp: dict, out: dict) -> None:
     put("stream_cscan", vol=vols[0])
 
 
+def eager_batch(run, frames, groups: int, avg: int, mesh, keep_frames: bool):
+    """A batch as ``Session._process_group_mesh`` ran it before its graph:
+    each group's ``local_block`` through the one-group step ``run``, then one
+    all-gather of the displays (and each group's frames' magnitudes)."""
+    blocks, mags = [], []
+    for g in range(groups):
+        bscan, db, disp, *extra = run(torch.as_tensor(local_block(frames[g * avg:(g + 1) * avg],
+                                                                  mesh)))
+        blocks.append(torch.stack([bscan, db, disp.to(bscan.dtype)]))
+        if keep_frames:
+            mags.append(gather_frames(extra[0], mesh))
+    whole = gather_rows(torch.stack(blocks), mesh)
+    return (whole[:, 0], whole[:, 1], whole[:, 2].to(torch.uint8),
+            torch.cat(mags) if keep_frames else None)
+
+
+def run_graph_layout(mesh, layout: str, inp: dict, out: dict) -> None:
+    """Each case of :data:`GRAPH_CASES`: the batch step
+    (``session_mesh_pipeline[_int8]``) on the rank's blocks of the
+    ``GRAPH_GROUPS`` groups of ``frames24``, under ``NoHostSync``, and the
+    per-group eager loop (:func:`eager_batch`), each with the collective
+    bytes it moved."""
+    t = torch.as_tensor
+    frames = inp["frames24"]
+    yb, yp, yd = (t(inp[k]).float() for k in ("bg", "pi24", "yd"))
+    avg = CFG64["averages"]
+    for case, change in GRAPH_CASES.items():
+        change = dict(change)
+        thresh = torch.tensor(change.pop("thresh", -30.0))
+        dark, keep = change.pop("dark", False), change.pop("keep_frames", False)
+        cfg = PipelineConfig(**{**CFG64, "dtype": "float32", **change})
+        block = t(batch_block(frames, mesh, GRAPH_GROUPS))
+        block = block.reshape(-1, *block.shape[2:])            # (groups·b_loc, h_loc, W)
+        reset_collective_bytes()
+        if cfg.matmul_precision == "int8_direct":
+            plan = plan_from(inp, "plan24/")
+            with NoHostSync():
+                outs, mags = session_mesh_pipeline_int8(block, plan, thresh, cfg, mesh,
+                                                        GRAPH_GROUPS, avg, keep_frames=keep)
+            step = build_session_bscan_step_int8(mesh, plan, cfg, avg, keep_frames=keep)
+            args = (thresh,)
+        else:
+            calib = Calibration.create(cfg, "cpu")
+            with NoHostSync():
+                outs, mags = session_mesh_pipeline(block, yb, yp, yd, thresh, calib, cfg, mesh,
+                                                   GRAPH_GROUPS, avg, "fused", dark,
+                                                   keep_frames=keep)
+            step = build_session_bscan_step(mesh, calib, cfg, "fused", avg, dark=dark,
+                                            keep_frames=keep)
+            args = (yb, yp, yd, thresh)
+        got = dict(bscan=outs.bscan, db=outs.bscandb, disp=outs.bscandisp,
+                   **({"mags": mags} if keep else {}),
+                   **{f"bytes_{k}": v for k, v in COLLECTIVE_BYTES.items()})
+        reset_collective_bytes()
+        want = eager_batch(lambda fr: step(fr, *args), frames, GRAPH_GROUPS, avg, mesh, keep)
+        got.update({f"eager_{k}": v for k, v in zip(("bscan", "db", "disp", "mags"), want)
+                    if v is not None})
+        got.update({f"eager_bytes_{k}": v for k, v in COLLECTIVE_BYTES.items()})
+        for name, a in got.items():
+            out[f"{layout}/{case}/{name}"] = a.numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
 def run_cli(rank: int, runs: list[list[str]]) -> list[dict]:
     """Each argv of ``runs`` through the port's command line in this world,
     ``{rank}`` in it replaced by the rank.  ``cli._make_source`` is what
@@ -253,9 +334,12 @@ def main() -> int:
         with np.load(inputs) as z:
             inp = dict(z)
         out: dict = {}
-        for layout in sys.argv[6:] or ["4x1", "2x2", "1x4"]:
+        cases, layouts = run_layout, sys.argv[6:]
+        if layouts[:1] == ["--graphs"]:
+            cases, layouts = run_graph_layout, layouts[1:]
+        for layout in layouts or ["4x1", "2x2", "1x4"]:
             d, a = (int(v) for v in layout.split("x"))
-            run_layout(make_mesh(d, a, device_type="cpu"), layout, inp, out)
+            cases(make_mesh(d, a, device_type="cpu"), layout, inp, out)
         np.savez(Path(outdir) / f"rank{rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
