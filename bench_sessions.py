@@ -17,25 +17,33 @@ functions are chip_smoke.py's.
 Flagship: 8 frames of 512 x 2048 u8 per group, 512 depths, the operator of
 ``Calibration.create``, synthetic frames (seed 0), TF32 off.  Measured:
 
-- kernels: the four instances of the two group kernels (raw u8 frames or an
-  f32 ratio, against a bf16 or an f32 operator), CUDA events, median of 20
-  single calls ("ms") and of 20 samples of 10 back-to-back calls
-  ("ms_b2b"); for the f32 operator also the worst error against the
-  float64 product of the same f32 ratio and operator, as a share of
-  rtol = atol/max = 1e-4 ("f64_share"), beside the same share of cuBLAS
-  f32 (TF32 off) and of the TF32 control (TF32 on); and the resident
-  kernel (bf16 operator) the same way, with its device time per call from
-  a ``torch.profiler`` pass ("device_us", median of 20 calls);
-- sessions: ``base`` (the raw kernel) and ``sim`` with ``donotnormalize``
-  off (the ratio kernel), each at 'default' (bf16 operator on CUDA) and at
-  'highest' (f32 operator), and ``base`` at 'int8_direct' (the int8
-  kernel), by ``chip_smoke.time_session``: host-clock ms per group of
-  ``process_group`` on batches of 16 frames (2 groups), then per group the
-  device's busy time, its idle share, the H2D copies and the group kernel
-  from a ``torch.profiler`` pass; and the SHA-256 of the outputs (uint8
-  display, linear and dB B-scans) of one more batch, so that two trees'
-  outputs can be compared bit for bit.  ``--kernels-only`` skips them: a
-  development aid for comparing variants of a kernel's source.
+- kernels (KERNELS): kernel 1 on the u8 frames and on the same counts << 4
+  as Mono16 frames, and kernel 2 on the f32 ratio the 'sim' route forms,
+  with a bf16 and (u8, ratio) an f32 operator; the resident kernel; and the
+  three bf16 instances on the first frame alone (a group of one, as the
+  per-frame and saveframes routes launch them).  Per instance: CUDA
+  events, median of 20 single calls ("ms") and of 20 samples of 10
+  back-to-back calls ("ms_b2b"); the kernel's device time from a
+  ``torch.profiler`` pass ("device_us", median of 20 calls); the host time
+  to enqueue one call with the device drained ("host_us", median of 50:
+  the wrapper's checks, tensor maps and launch); for the f32 operator also
+  the worst error against the float64 product of the same f32 ratio and
+  operator, as a share of rtol = atol/max = 1e-4 ("f64_share"), beside the
+  same share of cuBLAS f32 (TF32 off) and of the TF32 control (TF32 on);
+- sessions (SESSIONS): ``base`` (the raw kernel) and ``sim`` with
+  ``donotnormalize`` off (the ratio kernel), each at 'default' (bf16
+  operator on CUDA) and at 'highest' (f32 operator), ``base`` at
+  'int8_direct' (the int8 kernel), ``base`` on 12-bit frames (uint16; the
+  raw kernel's u16 instances) at 'default' and 'highest', and ``base``
+  'default' with ``saveframes`` (the per-frame magnitudes: eight launches
+  of kernel 1 a group, one frame each), by ``chip_smoke.time_session``:
+  host-clock ms per group of ``process_group`` on batches of 16 frames (2
+  groups), then per group the device's busy time, its idle share, the H2D
+  copies and the group kernels from a ``torch.profiler`` pass; and the
+  SHA-256 of the outputs (uint8 display, linear and dB B-scans) of one
+  more batch, so that two trees' outputs can be compared bit for bit.
+  ``--kernels-only`` skips them: the way to time a variant of a kernel's
+  source (a copy of the package with the ``.cu`` edited, ``--tree``).
 
 Prints one JSON object per line (the card's name and power limit in each)
 and exits non-zero without CUDA.
@@ -54,11 +62,47 @@ import torch
 
 from chip_smoke import (
     B2B, FLAGSHIP, SEED, TOL, captured_session, compare, cuda_ms, device_us, f64_product,
-    tf32_control, time_session,
+    host_enqueue_ms, tf32_control, time_session,
 )
 
-SESSIONS = [("base", "default"), ("base", "highest"), ("sim", "default"), ("sim", "highest"),
-            ("base", "int8_direct")]
+#: (variant, matmul_precision, bits a pixel of the synthetic camera, other config)
+SESSIONS = [("base", "default", 8, {}), ("base", "highest", 8, {}), ("sim", "default", 8, {}),
+            ("sim", "highest", 8, {}), ("base", "int8_direct", 8, {}), ("base", "default", 12, {}),
+            ("base", "highest", 12, {}), ("base", "default", 8, {"saveframes": True})]
+
+
+def kernel_inputs(cfg, calib, src, frames, dev) -> dict:
+    """The flagship's kernel inputs: one group of u8 frames ("raw") and the
+    same counts << 4 as Mono16 ("raw16"), pi, inv_background, the f32 ratio
+    the 'sim' route forms ("yr"), and the operators ("bf16", "f32")."""
+    from fdoct_tpu_torch.pipeline import apodize_ratio, preprocess
+
+    batch = np.stack([next(frames) for _ in range(cfg.averages)])
+    raw = torch.as_tensor(batch).to(dev)
+    bg = torch.as_tensor(np.maximum(src.background(), 1)).to(dev, torch.float32)
+    pi = torch.as_tensor(src.pi_frame()).to(dev, torch.float32)
+    yr = apodize_ratio(preprocess(raw, cfg), bg, pi, cfg.replace(donotnormalize=False))
+    return {"raw": raw, "raw16": torch.as_tensor(batch.astype(np.uint16) << 4).to(dev),
+            "pi": pi, "inv": (1.0 / bg).contiguous(), "yr": yr.contiguous(),
+            "bf16": (calib.op_re_bf16, calib.op_im_bf16), "f32": (calib.op_re, calib.op_im)}
+
+
+def kernel_calls(kernels, x: dict) -> dict:
+    """(wrapper, frames, operator, group size) -> a call of it on ``x``."""
+    raw, yr = kernels.fused_recon_raw_accumulate, kernels.fused_recon_accumulate
+    calls = {}
+    for B in (8, 1):
+        for op in ("bf16", "f32") if B == 8 else ("bf16",):
+            m = x[op]
+            calls[("fused_recon_raw_accumulate", "u8", op, B)] = \
+                lambda m=m, B=B: raw(x["raw"][:B], x["pi"], x["inv"], *m)
+            if op == "bf16":
+                calls[("fused_recon_raw_accumulate", "u16", op, B)] = \
+                    lambda m=m, B=B: raw(x["raw16"][:B], x["pi"], x["inv"], *m)
+            calls[("fused_recon_accumulate", "f32", op, B)] = lambda m=m, B=B: yr(x["yr"][:B], *m)
+    calls[("fused_recon_resident", "u8", "bf16", 8)] = lambda: kernels.fused_recon_resident(
+        x["raw"], x["pi"], x["inv"], *x["bf16"])
+    return calls
 
 
 def main(argv=None) -> int:
@@ -79,7 +123,6 @@ def main(argv=None) -> int:
     from fdoct_tpu_torch.calibration import Calibration
     from fdoct_tpu_torch.config import PipelineConfig
     from fdoct_tpu_torch.ops import kernels
-    from fdoct_tpu_torch.pipeline import apodize_ratio, preprocess
     from fdoct_tpu_torch.session import Session
     from fdoct_tpu_torch.sources.synthetic import SyntheticSource
     if not Path(fdoct_tpu_torch.__file__).resolve().is_relative_to(tree):
@@ -95,49 +138,40 @@ def main(argv=None) -> int:
 
     cfg = PipelineConfig(**FLAGSHIP)
     calib = Calibration.create(cfg, dev)
-    src = SyntheticSource(height=cfg.height, width=cfg.width, lambda0=cfg.lambda0,
-                          dlambda=cfg.lambdabw * 2.3548 / 4.0, noise=0.02, seed=SEED)
-    frames = src.frames()
+    sources = {bpp: SyntheticSource(height=cfg.height, width=cfg.width, lambda0=cfg.lambda0,
+                                    dlambda=cfg.lambdabw * 2.3548 / 4.0, noise=0.02,
+                                    seed=SEED + (bpp != 8), bpp=bpp) for bpp in (8, 12)}
+    streams = {bpp: s.frames() for bpp, s in sources.items()}
 
     # the group kernels --------------------------------------------------
-    batch = torch.as_tensor(np.stack([next(frames) for _ in range(cfg.averages)])).to(dev)
-    bg = torch.as_tensor(np.maximum(src.background(), 1)).to(dev, torch.float32)
-    pi = torch.as_tensor(src.pi_frame()).to(dev, torch.float32)
-    inv = (1.0 / bg).contiguous()
-    yr = apodize_ratio(preprocess(batch, cfg), bg, pi,
-                       cfg.replace(donotnormalize=False)).contiguous()
-    ratios = {"fused_recon_raw_accumulate": (batch.float() - pi) * inv,
-              "fused_recon_accumulate": yr}
-    ops = {"bf16": (calib.op_re_bf16, calib.op_im_bf16), "f32": (calib.op_re, calib.op_im)}
+    x = kernel_inputs(cfg, calib, sources[8], streams[8], dev)
+    ratios = {"fused_recon_raw_accumulate": (x["raw"].float() - x["pi"]) * x["inv"],
+              "fused_recon_accumulate": x["yr"]}
     tol = TOL["f32"]
-    for op_name, op in ops.items():
-        for name, fn in (("fused_recon_raw_accumulate",
-                          lambda op=op: kernels.fused_recon_raw_accumulate(batch, pi, inv, *op)),
-                         ("fused_recon_accumulate",
-                          lambda op=op: kernels.fused_recon_accumulate(yr, *op))):
-            acc = {}
-            if op_name == "f32":
-                x32 = ratios[name]
-                want = f64_product(x32, *op)
-                atol = tol * float(want.abs().max())
-                readings = {"f64_share": fn(),
-                            "cublas_f32_f64_share":
-                                kernels.fused_recon_accumulate_reference(x32, *op),
-                            "tf32_control_f64_share": tf32_control(x32, *op)}
-                acc = {k: compare(v, want, tol, atol)["worst_share_of_tol"]
-                       for k, v in readings.items()}
-            emit(kind="kernel", name=name, operator=op_name, ms=cuda_ms(fn)[0],
-                 ms_b2b=cuda_ms(fn, per=B2B)[0], **acc)
-
-    resident = lambda: kernels.fused_recon_resident(batch, pi, inv, *ops["bf16"])   # noqa: E731
-    emit(kind="kernel", name="fused_recon_resident", operator="bf16", ms=cuda_ms(resident)[0],
-         ms_b2b=cuda_ms(resident, per=B2B)[0], device_us=device_us(resident))
+    for (name, frames_type, op_name, B), fn in kernel_calls(kernels, x).items():
+        acc = {}
+        if op_name == "f32":
+            op = x["f32"]
+            want = f64_product(ratios[name], *op)
+            atol = tol * float(want.abs().max())
+            readings = {"f64_share": fn(),
+                        "cublas_f32_f64_share":
+                            kernels.fused_recon_accumulate_reference(ratios[name], *op),
+                        "tf32_control_f64_share": tf32_control(ratios[name], *op)}
+            acc = {k: compare(v, want, tol, atol)["worst_share_of_tol"]
+                   for k, v in readings.items()}
+        emit(kind="kernel", name=name, frames=frames_type, operator=op_name, group=B,
+             ms=cuda_ms(fn)[0], ms_b2b=cuda_ms(fn, per=B2B)[0], device_us=device_us(fn),
+             host_us=host_enqueue_ms(fn, runs=50) * 1e3, **acc)
     if args.kernels_only:
         return 0
 
     # the sessions -------------------------------------------------------
-    for variant, precision in SESSIONS:
-        scfg = cfg.replace(matmul_precision=precision, donotnormalize=variant == "base")
+    for variant, precision, bpp, other in SESSIONS:
+        # 12-bit frames (uint16) from a source of their own, as chip_smoke.py phase 17 makes them
+        scfg = cfg.replace(matmul_precision=precision, donotnormalize=variant == "base", bpp=bpp,
+                           **other)
+        src, frames = sources[bpp], streams[bpp]
         s = captured_session(Session, scfg, variant, src, frames, calib, dev)
         batches = [np.stack([next(frames) for _ in range(16)]) for _ in range(4)]
         kernels.reset_launches()
@@ -148,7 +182,7 @@ def main(argv=None) -> int:
         for r in s.process_group(batches[0]):
             for part in (r.bscandisp, r.bscan.cpu().numpy(), r.bscandb.cpu().numpy()):
                 digest.update(part.tobytes())
-        emit(kind="session", variant=variant, precision=precision,
+        emit(kind="session", variant=variant, precision=precision, bpp=bpp, **other,
              launches_per_group=per_group, outputs_sha256=digest.hexdigest(), **t)
     return 0
 

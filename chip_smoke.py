@@ -14,12 +14,23 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    power limit and turns TF32 off for matmuls and cuDNN.
 2. build   — compiles csrc/fused_recon.cu and csrc/int8_bscan.cu with nvcc
    for sm_90a (one nvcc per source, in parallel) and prints ptxas's
-   registers, shared memory and spills per kernel.
+   registers, shared memory and spills per kernel, and for each of the six
+   warp-specialised kernels (fused_recon_ws_kernel<u8, u16, f32 input;
+   MULTI: more frames than are in flight>) its registers at launch, the
+   registers of each role after setmaxnreg and its spills (a spill is
+   reported, not refused).
 3. kernels — each instance of kernels 1-2 (raw u8 frames or an f32 ratio,
    against a float32 or a bfloat16 operator) against its plain PyTorch
    version on the card, at the flagship shape (8 frames of 512 x 2048 u8,
-   the flagship M from Calibration.create, 512 depths), at a ragged shape
-   and at the tensor-core schedule's edge shapes (ops.kernels.EDGE_SHAPES).
+   the flagship M from Calibration.create, 512 depths), at a ragged shape,
+   at RESIDENT_RAGGED and at the tensor-core schedule's edge shapes
+   (ops.kernels.EDGE_SHAPES), each bf16 line with the schedule the instance
+   took (ops.kernels.bf16_schedule: the warp-specialised TMA + wgmma one
+   where TMA can address the inputs, else mma.sync); the flagship and
+   RESIDENT_RAGGED must take wgmma.  At those two shapes each bf16 instance
+   is also run on the same values through a view one element off a 16-byte
+   boundary, which its C entry sends to mma.sync, and the two outputs must
+   be equal (torch.equal).
    Tolerance: float32 operator rtol 1e-4, atol 1e-4*max (3xTF32 against
    cuBLAS f32 with TF32 off); bfloat16 operator rtol 1e-5, atol 1e-5*max
    (TC_TOL: both round the same f32 ratio to bf16, so only the order of the
@@ -78,18 +89,19 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    call) and streamed (each call the next of 32 distinct groups, 256 MiB,
    more than the L2 holds), timed both ways as in phase 5, and the int8
    session by time_session.
-9. resident kernels — fused_recon_resident (wgmma + TMA) against its plain
-   version (the raw-input plain version with the operator rounded to bf16)
-   and against kernel 1's bf16 instance, at the flagship shape, the ragged
-   shape, a shape ragged in every tile of the wgmma schedule
-   (RESIDENT_RAGGED) and every EDGE_SHAPES entry, with a float32 and a
-   bfloat16 operator passed in (the wrapper casts to bf16), printing the
-   schedule each shape takes (the flagship and RESIDENT_RAGGED must take
-   "wgmma").  Tolerance rtol 1e-5, atol 1e-5*max: all three round the same
-   f32 ratio, so only the order of the f32 sums differs.  Each shape also
-   against the float64 product at BF16_F64_TOL, as in phase 3.  Times, both
-   ways as in phase 5: the kernel and its plain version hot and streamed
-   over 32 groups, and kernel 1 bf16 on the same sum.
+9. resident kernels — fused_recon_resident (its C entry runs kernel 1 u8
+   bf16's schedules) against its plain version (the raw-input plain version
+   with the operator rounded to bf16) and against kernel 1's bf16 instance
+   (bit for bit), at the flagship shape, the ragged shape, a shape ragged
+   in every tile of the wgmma schedule (RESIDENT_RAGGED) and every
+   EDGE_SHAPES entry, with a float32 and a bfloat16 operator passed in (the
+   wrapper casts to bf16), printing the schedule each shape takes (the
+   flagship and RESIDENT_RAGGED must take "wgmma").  Tolerance rtol 1e-5,
+   atol 1e-5*max: all three round the same f32 ratio, so only the order of
+   the f32 sums differs.  Each shape also against the float64 product at
+   BF16_F64_TOL, as in phase 3.  Times, both ways as in phase 5: the kernel
+   and its plain version hot and streamed over 32 groups, and kernel 1 bf16
+   on the same sum, beside the earlier resident kernel's recorded times.
 10. resident bench — fdoct_tpu_torch.bench_resident at the flagship: every
    reconstruction route of one group (f32, default, int8, int8_direct, plain
    bf16, kernels 1, 2 and the resident kernel), each within 5e-2 of the f32
@@ -219,8 +231,11 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    check within 2e-2 dB).
 17. kernel1_u16 — kernel 1 on 16-bit frames (u16_phases): both u16
    instances against their plain versions and the float64 product, at the
-   flagship on the full 16-bit range and on Mono16 frames and at RAGGED
-   (the element loads); their times; a 12-bit flagship 'base' session at
+   flagship on the full 16-bit range and on Mono16 frames, at RAGGED
+   (the element loads; mma.sync) and at RESIDENT_RAGGED, the bf16
+   instance's schedule printed (wgmma at the flagship and RESIDENT_RAGGED,
+   and there torch.equal to mma.sync through a misaligned view, as in
+   phase 3); their times; a 12-bit flagship 'base' session at
    'default' and 'highest' (one kernel 1 launch a group, no kernel 2;
    displays within 1 uint8 level of the kernel-2 route that 16-bit frames
    took before; group times of both routes, turns P C C P).
@@ -271,7 +286,9 @@ of the operator type (bf16 989 TFLOP/s, s8 1,979 TOPS; an f32 operator as
 three TF32 products at 495 TFLOP/s), computed from this run's inputs;
 "library_ms" is null (no single PyTorch call computes sum_b |x_b @ M|) and
 "product_ms" times the operator product alone; "mma" names the
-tensor-core instruction; the float32-operator entries add their worst
+tensor-core instruction and "schedule" the schedule the instance took at
+the flagship ("wgmma" or "mma.sync"), the bf16 entries with
+"bit_equal_to_mma_sync", the outcome of the misaligned-view checks; the float32-operator entries add their worst
 shares of F64_TOL and those of cuBLAS f32 and of the TF32 control, the
 bf16 entries theirs of BF16_F64_TOL and cuBLAS f32's (kernels 1-2 also the
 24- and 23-bit chains' at the flagship).  The line before it gives the
@@ -282,6 +299,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import re
 import statistics
 import sys
 import time
@@ -330,8 +348,17 @@ BF16_F64_TOL = 2e-6
 #: rtol = atol/max of the float64 session's B-scan against form_bscan of
 #: the float64 product: both run float64 products, in another order
 F64_SESSION_TOL = 1e-9
-MMA_BF16 = "mma.sync.m16n8k16.f32.bf16.bf16.f32"
-MMA_RESIDENT = "wgmma.mma_async.m64n256k16.f32.bf16.bf16 (A from registers, B by TMA)"
+#: the bf16 instances' schedule (the resident entry's too), where TMA can
+#: address the inputs; elsewhere they run MMA_SYNC_BF16, the same sums
+MMA_BF16 = ("wgmma.mma_async.m64n256k16.f32.bf16.bf16 (warp-specialised: a TMA producer "
+            "warpgroup, two consumer warpgroups, A and B from shared memory)")
+MMA_SYNC_BF16 = "mma.sync.m16n8k16.f32.bf16.bf16.f32"
+#: the parent's back-to-back flagship ms of the bf16 instances on the
+#: mma.sync schedule and of the earlier resident kernel (PERF.md §6,
+#: NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
+PARENT_B2B_MS = {("fused_recon_raw_accumulate", "bf16"): "0.1609-0.1699",
+                 ("fused_recon_accumulate", "bf16"): "0.1239-0.1255",
+                 "u16 bf16": "0.1705-0.1709", "fused_recon_resident": "0.0621-0.0647"}
 MMA_TF32X3 = ("mma.sync.m16n8k8.f32.tf32.tf32.f32 (3xTF32: lo.hi + hi.lo + hi.hi, each "
               "stage's sums added in round-to-nearest f32)")
 MMA = {("fused_recon_raw_accumulate", "bf16"): MMA_BF16,
@@ -685,6 +712,72 @@ def time_keys(t: dict, prefix: str = "") -> dict:
             f"{prefix}ms_b2b": t["kernel_b2b"][0], f"{prefix}plain_ms_b2b": t["plain_b2b"][0]}
 
 
+def schedule_of(x: torch.Tensor, ops, *terms: torch.Tensor) -> str:
+    """The schedule a bf16 instance takes for input rows ``x``, the operator
+    pair ``ops`` and (raw frames) pi and inv_background ``terms``: what its C
+    entry chooses before the launch (ops.kernels.bf16_schedule)."""
+    from fdoct_tpu_torch.ops.kernels import bf16_schedule
+    return bf16_schedule(x.dtype, x.shape[-1], ops[0].shape[1],
+                         [t.data_ptr() for t in (x, *ops, *terms)])
+
+
+def misaligned(x: torch.Tensor) -> torch.Tensor:
+    """The same values through a view one element past an aligned buffer:
+    not 16-byte aligned, so the bf16 instances take the mma.sync schedule."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    flat[1:] = x.flatten()
+    return flat[1:].view(x.shape)
+
+
+def bit_equal_schedules(run, x: torch.Tensor, ops, *terms: torch.Tensor) -> bool:
+    """Whether ``run(x)`` on the wgmma schedule equals ``run`` on the same
+    values through a misaligned view (the mma.sync schedule) bit for bit;
+    checks that each took the schedule it should."""
+    y = misaligned(x)
+    check(schedule_of(x, ops, *terms) == "wgmma", "the aligned input does not take wgmma")
+    check(schedule_of(y, ops, *terms) == "mma.sync", "the misaligned view does not take mma.sync")
+    got, want = run(x), run(y)
+    torch.cuda.synchronize()
+    return bool(torch.equal(got, want))
+
+
+def ptxas_summary(log: str, src: str | None = None) -> list[str]:
+    """One line per warp-specialised kernel of ptxas's -v output: its
+    registers at launch (every thread), the registers a thread of each role
+    takes after setmaxnreg (read from ws::PRODUCER_REGS and CONSUMER_REGS of
+    ``src``, the text of fused_recon.cu, by default this checkout's), shared
+    memory, stack and spills."""
+    src = src or (Path(__file__).resolve().parent / SOURCE).read_text()
+    roles = {k: (m.group(1) if (m := re.search(rf"constexpr int {k} = (\d+);", src)) else "?")
+             for k in ("PRODUCER_REGS", "CONSUMER_REGS")}
+    types = {"h": "u8", "t": "u16", "f": "f32"}
+    out, name, props = [], None, {}
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            continue
+        k = re.search(r"fused_recon_ws_kernelI([htf])Lb([01])E", name or "")
+        if not k:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            props["stack"], props["stores"], props["loads"] = m.groups()
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append(f"fused_recon_ws_kernel<{types[k.group(1)]}, MULTI={k.group(2)}>: "
+                       f"{m.group(1)} registers a thread at launch; after setmaxnreg the "
+                       f"producer warpgroup {roles['PRODUCER_REGS']}, the consumer warpgroups "
+                       f"{roles['CONSUMER_REGS']}; static smem {smem.group(1) if smem else 0} B "
+                       f"(the ring is dynamic); stack {props.get('stack')} B, spill stores "
+                       f"{props.get('stores')} B, loads {props.get('loads')} B"
+                       + (" (a spill: a finding)" if props.get("stores", "0") != "0" else ""))
+            name, props = None, {}
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -723,6 +816,10 @@ def main() -> int:
              .splitlines() if "registers" in ln or "spill" in ln or "entry function" in ln]
     phase("build", f"{build_s:.1f} s -> {_build.library_path().name}")
     for ln in ptxas:
+        phase("build", ln)
+    summary = ptxas_summary(_build.library_path().with_suffix(".log").read_text())
+    check(len(summary) == 6, f"ptxas reported {len(summary)} warp-specialised kernels, not 6")
+    for ln in summary:
         phase("build", ln)
 
     # 3. kernels against their plain versions ---------------------------
@@ -764,9 +861,18 @@ def main() -> int:
     f64_shares = {}                                  # name -> {shape: {reading: worst share}}
     bf16_f64 = {}                                    # the same for the bf16 instances
     errors = {}
-    problems = [("flagship", flag_in), ("ragged", rag_in)] + [
+    problems = [("flagship", flag_in), ("ragged", rag_in),
+                ("resident ragged", random_problem(RESIDENT_RAGGED, SEED + 3, dev))] + [
         (f"edge {label}", random_problem(shape, SEED + 2, dev))
         for label, shape in EDGE_SHAPES.items()]
+
+    def input_rows(inp, name):
+        """The instance's input rows and, for raw frames, pi and inv_background."""
+        if name == "fused_recon_raw_accumulate":
+            return inp["raw"], (inp["pi"], inp["inv"])
+        return inp["yr"], ()
+
+    bit_equal = {}                                   # (name, shape) -> wgmma == mma.sync
     for shape_name, inp in problems:
         for name, run in runners.items():
             for op in ("f32", "bf16"):
@@ -777,11 +883,32 @@ def main() -> int:
                 res = compare(got, want, tol, tol * float(want.abs().max()))
                 errors[(name, shape_name, op)] = res
                 shares.setdefault((name, op), {})[shape_name] = res["worst_share_of_tol"]
+                x, terms = input_rows(inp, name)
+                sched = schedule_of(x, inp[op], *terms) if op == "bf16" else "mma.sync"
                 phase("kernels", f"{name} {shape_name} {tuple(inp['raw'].shape)}->"
-                      f"{tuple(got.shape)} op={op}: max_abs_err {res['max_abs_err']:.3e}, "
-                      f"worst {res['worst_share_of_tol']:.3e} of tol (rtol=atol/max={tol})")
+                      f"{tuple(got.shape)} op={op} schedule {sched}: max_abs_err "
+                      f"{res['max_abs_err']:.3e}, worst {res['worst_share_of_tol']:.3e} of tol "
+                      f"(rtol=atol/max={tol})")
                 check(res["finite"] and res["worst_share_of_tol"] <= 1.0,
                       f"{name} {shape_name} {op} disagrees with its plain version")
+                check(sched == "wgmma" or op == "f32"
+                      or shape_name not in ("flagship", "resident ragged"),
+                      f"{name} {shape_name} bf16 takes the {sched} schedule, not wgmma")
+            if shape_name in ("flagship", "resident ragged"):
+                # the same values through a misaligned view: the mma.sync schedule
+                x, terms = input_rows(inp, name)
+                if name == "fused_recon_raw_accumulate":
+                    def run_x(x, inp=inp):
+                        return fused_recon_raw_accumulate(x, inp["pi"], inp["inv"], *inp["bf16"])
+                else:
+                    def run_x(x, inp=inp):
+                        return fused_recon_accumulate(x, *inp["bf16"])
+                bit_equal[(name, shape_name)] = eq = bit_equal_schedules(
+                    run_x, x, inp["bf16"], *terms)
+                phase("kernels", f"{name} {shape_name} op=bf16: the wgmma schedule against the "
+                      f"mma.sync schedule on the same values (a misaligned view): torch.equal "
+                      f"{eq}")
+                check(eq, f"{name} {shape_name}: the two bf16 schedules differ")
             # the f32 instance and cuBLAS f32 against the float64 product, and
             # the TF32 control that the limit must reject
             x32, ops32 = ratio32(inp, name), inp["f32"]
@@ -889,7 +1016,9 @@ def main() -> int:
         for op_name in ("bf16", "f32"):
             times[(name, op_name)] = t = timed_pair(lambda: run(flag_in, op_name),
                                                     lambda: run(flag_in, op_name, kernel=False))
-            phase("times", f"{name} flagship op={op_name}: {describe(t)} | {card_line}")
+            parent = (f" | the parent's mma.sync b2b {PARENT_B2B_MS[(name, op_name)]} ms "
+                      "(PERF.md §6)" if op_name == "bf16" else "")
+            phase("times", f"{name} flagship op={op_name}: {describe(t)}{parent} | {card_line}")
     n_in = flag_in["yr"].shape[-1]
     stack = {"f32": flag_in["yr"].reshape(-1, n_in)}
     stack["bf16"] = stack["f32"].to(torch.bfloat16)
@@ -954,6 +1083,10 @@ def main() -> int:
             entries.append({
                 "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
                 "launches": launches[(name, op)], "operator": op, "mma": MMA[(name, op)],
+                "schedule": (schedule_of(ins[0], flag_in[op], *ins[1:]) if op == "bf16"
+                             else "mma.sync"),
+                **({"bit_equal_to_mma_sync": all(v for (n, _), v in bit_equal.items()
+                                                 if n == name)} if op == "bf16" else {}),
                 "max_abs_err": errors[(name, "flagship", op)]["max_abs_err"],
                 "worst_share_of_tol": worst_shares(shares[(name, op)]), **f64,
                 **time_keys(times[(name, op)]),
@@ -1171,17 +1304,18 @@ def resident_phases(flag_in: dict, rag_in: dict, product: tuple, card_line: str,
     from fdoct_tpu_torch import bench_resident
     from fdoct_tpu_torch.ops import kernels
     from fdoct_tpu_torch.ops.kernels import (
-        EDGE_SHAPES, LAUNCHES, RESIDENT_TILE, fused_recon_raw_accumulate, fused_recon_resident,
-        fused_recon_resident_reference, resident_schedule,
+        EDGE_SHAPES, LAUNCHES, WGMMA_TILE, fused_recon_raw_accumulate, fused_recon_resident,
+        fused_recon_resident_reference,
     )
 
     name = "fused_recon_resident"
     tol = RESIDENT_TOL
 
     # 9. the kernel against its plain version, kernel 1 and float64 -----------
-    pairs, depths = RESIDENT_TILE
-    phase("resident kernels", f"wgmma schedule: blocks of {pairs} (row, frame) pairs x {depths} "
-          f"depths, {MMA_RESIDENT}; shapes TMA cannot address run kernel 1 bf16's mma.sync")
+    pairs, depths = WGMMA_TILE
+    phase("resident kernels", f"kernel 1 u8 bf16's schedules: blocks of {pairs} (row, frame) "
+          f"pairs x {depths} depths, {MMA_BF16}; shapes TMA cannot address run "
+          f"{MMA_SYNC_BF16}")
     problems = [("flagship", flag_in), ("ragged", rag_in),
                 ("ragged wgmma", random_problem(RESIDENT_RAGGED, SEED + 3, dev))] + [
         (f"edge {label}", random_problem(shape, SEED + 4, dev))
@@ -1189,11 +1323,14 @@ def resident_phases(flag_in: dict, rag_in: dict, product: tuple, card_line: str,
     flag_err, shares, f64 = None, {}, {}
     for shape_name, inp in problems:
         x = (inp["raw"], inp["pi"], inp["inv"])
-        sched = resident_schedule(*inp["raw"].shape, inp["bf16"][0].shape[1],
-                                  [t.data_ptr() for t in x + inp["bf16"]])
+        sched = schedule_of(inp["raw"], inp["bf16"], inp["pi"], inp["inv"])
         check(sched == "wgmma" or shape_name not in ("flagship", "ragged wgmma"),
               f"{name} {shape_name} takes the {sched} schedule, not wgmma")
         k1 = fused_recon_raw_accumulate(*x, *inp["bf16"])
+        same = bool(torch.equal(fused_recon_resident(*x, *inp["bf16"]), k1))
+        phase("resident kernels", f"{name} {shape_name}: equal to kernel 1 u8 bf16 bit for bit "
+              f"{same} (one schedule serves both entries)")
+        check(same, f"{name} {shape_name} differs from kernel 1 u8 bf16")
         for op in ("f32", "bf16"):
             got = fused_recon_resident(*x, *inp[op])
             torch.cuda.synchronize()
@@ -1233,7 +1370,8 @@ def resident_phases(flag_in: dict, rag_in: dict, product: tuple, card_line: str,
                           lambda: fused_recon_resident_reference(next(stream), *x16[1:]))
     k1_streamed = product_times(lambda: fused_recon_raw_accumulate(next(stream), *x16[1:]))
     del groups, stream
-    phase("resident kernels", f"{name} flagship op=bf16 hot: {describe(hot)} | {card_line}")
+    phase("resident kernels", f"{name} flagship op=bf16 hot: {describe(hot)} | the earlier "
+          f"resident kernel b2b {PARENT_B2B_MS[name]} ms (PERF.md §6) | {card_line}")
     phase("resident kernels", f"{name} flagship streamed over {STREAM_GROUPS} groups: "
           f"{describe(streamed)} | {card_line}")
     phase("resident kernels", f"kernel 1 bf16 on the same sum: hot median {k1_hot[0]:.4f} ms "
@@ -1255,9 +1393,8 @@ def resident_phases(flag_in: dict, rag_in: dict, product: tuple, card_line: str,
     check(launches[name] > 0, f"{name} was not launched by the resident bench")
     out = fused_recon_resident(*x16)
     return {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "launches": launches[name], "operator": "bf16", "mma": MMA_RESIDENT,
-            "schedule": resident_schedule(*x16[0].shape, x16[3].shape[1],
-                                          [t.data_ptr() for t in x16]),
+            "launches": launches[name], "operator": "bf16", "mma": MMA_BF16,
+            "schedule": schedule_of(x16[0], x16[3:], *x16[1:3]),
             "max_abs_err": flag_err,
             "worst_share_of_tol": worst_shares({k: v for (k, op), v in shares.items()
                                                 if op == "bf16"}),
@@ -2230,11 +2367,24 @@ def u16_phases(cfg, calib, products: dict, card_line: str, dev: torch.device) ->
     problems = {"flagship camera": {**u16_problem(cfg, "camera", dev), **ops},
                 "flagship mono16": {**u16_problem(cfg, "mono16", dev), **ops},
                 "ragged noise": u16_problem(cfg, "noise", dev, RAGGED),
-                "ragged mono16": u16_problem(cfg, "mono16", dev, RAGGED)}
-    errors, shares, f64 = {}, {}, {}
+                "ragged mono16": u16_problem(cfg, "mono16", dev, RAGGED),
+                "resident ragged mono16": u16_problem(cfg, "mono16", dev, RESIDENT_RAGGED)}
+    errors, shares, f64, bit_equal = {}, {}, {}, {}
     for shape_name, inp in problems.items():
         x = (inp["raw"], inp["pi"], inp["inv"])
         x32 = (inp["raw"].float() - inp["pi"]) * inp["inv"]
+        sched = schedule_of(inp["raw"], inp["bf16"], inp["pi"], inp["inv"])
+        phase("kernel1_u16", f"{name} u16 {shape_name} op=bf16 takes the {sched} schedule")
+        check(sched == "wgmma" or shape_name not in ("flagship camera", "resident ragged mono16"),
+              f"{name} u16 {shape_name} takes the {sched} schedule, not wgmma")
+        if shape_name in ("flagship camera", "resident ragged mono16"):
+            bit_equal[shape_name] = eq = bit_equal_schedules(
+                lambda r, inp=inp: fused_recon_raw_accumulate(r, inp["pi"], inp["inv"],
+                                                              *inp["bf16"]),
+                inp["raw"], inp["bf16"], inp["pi"], inp["inv"])
+            phase("kernel1_u16", f"{name} u16 {shape_name} op=bf16: the wgmma schedule against "
+                  f"the mma.sync schedule on the same values (a misaligned view): torch.equal {eq}")
+            check(eq, f"{name} u16 {shape_name}: the two bf16 schedules differ")
         for op in ("bf16", "f32"):
             got = fused_recon_raw_accumulate(*x, *inp[op])
             torch.cuda.synchronize()
@@ -2288,7 +2438,9 @@ def u16_phases(cfg, calib, products: dict, card_line: str, dev: torch.device) ->
     for op in ("bf16", "f32"):
         times[op] = t = timed_pair(lambda: fused_recon_raw_accumulate(*x16, *ops[op]),
                                    lambda: fused_recon_raw_accumulate_reference(*x16, *ops[op]))
-        phase("kernel1_u16", f"{name} u16 flagship op={op}: {describe(t)} | {card_line}")
+        parent = (f" | the parent's mma.sync b2b {PARENT_B2B_MS['u16 bf16']} ms (PERF.md §6)"
+                  if op == "bf16" else "")
+        phase("kernel1_u16", f"{name} u16 flagship op={op}: {describe(t)}{parent} | {card_line}")
 
     # the 12-bit session at 'default' and 'highest', counts at 0 around each
     src16 = SyntheticSource(height=cfg.height, width=cfg.width, lambda0=cfg.lambda0,
@@ -2357,7 +2509,10 @@ def u16_phases(cfg, calib, products: dict, card_line: str, dev: torch.device) ->
         entries.append({
             "name": name, "input": "u16", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[op], "operator": op,
-            "mma": MMA[(name, op)], "max_abs_err": errors[("flagship camera", op)],
+            "mma": MMA[(name, op)],
+            "schedule": schedule_of(x16[0], ops[op], *x16[1:]) if op == "bf16" else "mma.sync",
+            **({"bit_equal_to_mma_sync": all(bit_equal.values())} if op == "bf16" else {}),
+            "max_abs_err": errors[("flagship camera", op)],
             "worst_share_of_tol": max(shares[op].values()),
             **({"bf16_f64_tol": BF16_F64_TOL,
                 "worst_share_of_bf16_f64_tol": max(f64[op].values())} if op == "bf16" else

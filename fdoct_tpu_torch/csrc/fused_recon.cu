@@ -11,8 +11,8 @@
 //   * fdoct_recon_yr_f32_*  <- fused_recon_accumulate (_recon_kernel,
 //     pallas_kernels.py:275-308): x_b = yr[b], an f32 ratio that
 //     preprocess/normalization already made;
-//   * fdoct_recon_resident_u8_bf16 <- fused_recon_resident, the schedule at
-//     the end of the file.
+//   * fdoct_recon_resident_u8_bf16 <- fused_recon_resident
+//     (pallas_kernels.py:90-123): kernel 1 u8's sum with a bf16 operator.
 // The suffix names the operator type: f32, or bf16.  With a bf16 operator the
 // ratio is rounded to bf16 before the product (round to nearest even, as
 // torch's .to(torch.bfloat16)), matching the bf16 branch of
@@ -31,9 +31,12 @@
 // TFLOP/s) or 0.104 ms as three TF32 products on the tensor cores (495
 // TFLOP/s), the form taken here.
 //
-// The six raw and yr entry points run one mma.sync schedule,
-// fused_recon_tc_kernel<In, Op> below; the resident kernel runs its own
-// wgmma + TMA schedule at the end of the file.
+// Two schedules.  The f32-operator entries run the mma.sync template
+// fused_recon_tc_kernel<In, float> below.  The bf16-operator entries (and
+// the resident one) run the warp-specialised TMA + wgmma schedule,
+// fused_recon_ws_kernel<In, MULTI> further down, wherever TMA can address
+// their inputs (ws_applies), and fused_recon_tc_kernel<In, __nv_bfloat16>
+// elsewhere; both compute the same sums bit for bit.
 
 #include <algorithm>
 #include <cstddef>
@@ -53,11 +56,11 @@ __device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat16 v) { return __bfloat
 // fused_recon_tc_kernel<In, Op>: the group sum on the tensor cores, for raw
 // u8 or u16 frames (In = uint8_t or uint16_t, the ratio formed on chip) or
 // an f32 ratio stack (In = float), against a bf16 or an f32 operator (Op).
-// The C entry points:
+// The C entry points that launch it:
 //
-//   fdoct_recon_raw_u8_bf16   mma.sync.m16n8k16.f32.bf16.bf16.f32
-//   fdoct_recon_raw_u16_bf16  mma.sync.m16n8k16.f32.bf16.bf16.f32
-//   fdoct_recon_yr_f32_bf16   mma.sync.m16n8k16.f32.bf16.bf16.f32
+//   fdoct_recon_raw_u8_bf16   mma.sync.m16n8k16.f32.bf16.bf16.f32, where TMA
+//   fdoct_recon_raw_u16_bf16  cannot address the inputs (else the
+//   fdoct_recon_yr_f32_bf16   warp-specialised schedule below)
 //   fdoct_recon_raw_u8_f32    mma.sync.m16n8k8.f32.tf32.tf32.f32, 3xTF32
 //   fdoct_recon_raw_u16_f32   mma.sync.m16n8k8.f32.tf32.tf32.f32, 3xTF32
 //   fdoct_recon_yr_f32_f32    mma.sync.m16n8k8.f32.tf32.tf32.f32, 3xTF32
@@ -103,13 +106,14 @@ __device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat16 v) { return __bfloat
 // Either tile pass runs after the stage's barrier (every warp is then past
 // the previous stage's MMAs) and before one more.
 //
-// bf16 operator (KT = 64): A by ldmatrix, the depth-contiguous operator by
-// ldmatrix.trans, so the operator needs no repacking; rows are padded to 144
-// and 272 bytes so neither load has bank conflicts.  What bounds it: the
-// L2 -> SM traffic (the operator tile once per 64-pair tile, the frame rows
-// once per 64-depth tile: 384 MiB a flagship group for raw frames, 768 MiB
-// for a yr stack), the tile pass and two barriers a stage, not the tensor
-// cores (~11 % of the bf16 peak for the raw instance).
+// bf16 operator (KT = 64), the shapes TMA cannot address (the others run
+// the warp-specialised schedule below): A by ldmatrix, the depth-contiguous
+// operator by ldmatrix.trans, so the operator needs no repacking; rows are
+// padded to 144 and 272 bytes so neither load has bank conflicts.  What
+// bounds it: the L2 -> SM traffic (the operator tile once per 64-pair tile,
+// the frame rows once per 64-depth tile: 384 MiB a flagship group for raw
+// frames, 768 MiB for a yr stack), the tile pass and two barriers a stage,
+// not the tensor cores (~11 % of the bf16 peak for the raw instance).
 //
 // f32 operator, 3xTF32 (KT = 32).  Each f32 operand a is split as a = a_hi +
 // a_lo, a_hi its round to the nearest TF32 (ties away from zero) and a_lo the
@@ -459,237 +463,384 @@ int launch_tc(const void* x, const void* pi, const void* inv_bg, const void* op_
 }
 
 // ---------------------------------------------------------------------------
-// The resident schedule: fdoct_recon_resident_u8_bf16 <- fused_recon_resident
-// (_recon_resident_kernel, pallas_kernels.py:70-123).  The same sum as the
-// raw bf16 instance above, with the bf16 operator that the TPU kernel keeps
-// in VMEM for the whole grid while each frame streams through once.
+// The warp-specialised schedule (namespace ws) of the three bf16 instances:
 //
-// On Hopper the 4 MiB bf16 operator of the flagship (2 x 2048 x 512) stays
-// hot in the 50 MB L2, and what the schedule saves is the work around the
-// products: TMA moves every tile (no thread instruction or register per
-// byte), and wgmma takes its A operand, the bf16 ratio, straight from
-// registers, so the ratio never goes through shared memory and needs no
-// barrier of its own.
+//   fdoct_recon_raw_u8_bf16   In = uint8_t   <- fused_recon_raw_accumulate
+//   fdoct_recon_raw_u16_bf16  In = uint16_t  <- fused_recon_raw_accumulate
+//   fdoct_recon_yr_f32_bf16   In = float     <- fused_recon_accumulate
 //
-//   * Block tile: 128 (row, frame) pairs (tc::pair_row / pair_frame: pair
-//     m = row * F + frame, F = 1 << tc::frames_shift(B) frames in flight,
-//     so 16 rows x 8 frames at B >= 8) x 128 depths.  Two warpgroups of 64
-//     pairs each run wgmma.mma_async.m64n256k16.f32.bf16.bf16: N = 256 is
-//     re and im of the 128 depths, 128 f32 sums per thread.  The flagship
-//     grid is 4 depth tiles x 32 pair tiles = 128 blocks, one wave on 132
-//     SMs.  Groups of more than F frames run in chunks of F.
-//   * A from registers: lane (g, t) of warp w holds pairs 16w + g and 16w +
-//     g + 8 of its warpgroup (rows 2w and 2w + 1, frame g at F = 8).  Per
-//     16-sample step it reads its 8 u8 samples, pi and inv_background from
-//     the stage, forms the ratio op by op as tc_ratio_tile does ((raw - pi)
-//     * inv, each rounded to f32, then to bf16 to nearest even) and packs
-//     the four A registers.  pi and inv_background are the same for the 8
-//     g-lanes of a row: their loads broadcast.  The frames tile arrives
-//     pair-major ([row][frame][64 samples]) with TMA's 64-byte swizzle, so
-//     the 8 g-lanes' sample loads fall on 8 distinct bank groups.
-//   * B, the operator, by TMA into a 128-byte-swizzled ring of RES_STAGES
-//     stages, MN-major (the operator is depth-contiguous as Calibration
-//     builds it): per 64-sample stage re and im as four 64 x 64 boxes (a
-//     128-byte swizzle limits a box's row to 64 bf16).  With the frames
-//     (64 B x 128 pairs), pi and inv_background (R rows x 64 f32 each) a
-//     stage is 48 KiB at B >= 8; 4 stages, 192 KiB.  One mbarrier per stage
-//     counts the TMA bytes in (full), one counts the 8 warps out (empty).
-//     Thread 0 issues the loads: a stage's slot is reloaded as soon as the
-//     wgmmas of the stage before have been waited for, so RES_STAGES - 1
-//     stages are in flight behind the one being multiplied.
-//   * Per 16-sample step one wgmma is committed and the previous one waited
-//     for (wgmma.wait_group 1), the A registers double-buffered.  ptxas
-//     still serialises the wgmmas (C7513: an A register is written while a
-//     wgmma is in flight) and waits for each right after it is issued, so
-//     one warpgroup forms its ratio while the other's wgmma runs, not its
-//     own.  Forming a stage's four fragments before four back-to-back
-//     wgmmas avoids the serialisation but measured no faster (PERF.md).
-//     Each block loads its own operator tiles: a cluster of 2 that
-//     multicast each tile to both SMs measured 17 % slower (PERF.md).
-//   * Epilogue: after the last stage of a chunk of frames, |re + i im| is
-//     added to the thread's frame slot (tc::add_magnitude's rounding); after
-//     the last chunk the slots of a row are summed with tc::sum_frame_slots'
-//     shuffles (the wgmma accumulator has the mma.sync (g, t) row map) and
-//     one lane stores.  No atomics, deterministic.
+// (pallas_kernels.py:126-160, 275-308), and of fdoct_recon_resident_u8_bf16,
+// which computes kernel 1 u8's sum with a bf16 operator (fused_recon_resident,
+// pallas_kernels.py:90-123).  The same sums as the mma.sync instances above,
+// bit for bit: the same bf16 A operand (the ratio formed op by op as
+// tc_ratio_tile forms it, or the f32 ratio rounded with
+// __float2bfloat16_rn), k16 steps in the same order into one f32
+// accumulator per chunk of frames, and tc::add_magnitude / the frame-slot
+// butterfly of tc::sum_frame_slots after it.
 //
-// Ragged edges cost nothing: TMA fills elements outside a tensor with zero,
-// so rows past ``rows`` and samples past n_in give a zero ratio and zero
-// operator rows, depths past ndisp zero columns; pairs of frames past B are
-// zeroed in registers.  TMA needs n_in % 16 == 0, ndisp % 8 == 0 and 16-byte
-// aligned bases (resident_wgmma_applies); other shapes run the mma.sync
-// schedule launch_tc<uint8_t, __nv_bfloat16> from the same C entry
-// (ops.kernels.resident_schedule mirrors the rule).
+// What bounds it.  The products, 17.2 GFLOP a flagship group, take 17.4 us
+// at the dense bf16 peak; the compulsory traffic (8-32 MiB of frames or
+// ratio, 8 MiB of pi and inv_background, 4 MiB of operator) 4-13 us at
+// 3.35 TB/s.  What the mma.sync schedule spends on top of that, and what
+// this design does about each:
+//   * staging by every thread (cp.async, an address and a register per 16
+//     bytes): TMA moves every tile, issued by one thread of a producer
+//     warpgroup that does nothing else.  It waits on the ring's "empty"
+//     mbarriers and arms the "full" ones, so the consumers never wait for a
+//     slot to be reloaded, and it gives most of its registers to them
+//     (setmaxnreg: 40 a thread against the consumers' 232; 128 x 40 + 256 x
+//     232 <= 65,536);
+//   * the L2 -> SM traffic (384 MiB a flagship group for raw u8 frames at
+//     64 x 64 tiles): a block is 128 (row, frame) pairs x 128 depths, so a
+//     flagship group moves 128 MiB of operator (32 pair tiles x 4 MiB) and
+//     64 MiB of frames, pi and inv_background (4 depth tiles x 16 MiB); a
+//     u16 group 96 MiB of frames and pi / inv_background, a yr group 128
+//     MiB of ratio;
+//   * mma.sync's small tiles and two block-wide barriers a stage: two
+//     consumer warpgroups each issue wgmma.mma_async.m64n256k16 (64 pairs x
+//     re and im of 128 depths, 128 f32 sums a thread) on A and B in shared
+//     memory, four back to back a 64-sample stage, and synchronise only
+//     within their warpgroup;
+//   * the A tile: each consumer warpgroup forms its 64 pairs' bf16 ratio once
+//     a stage into a K-major tile with the 128-byte swizzle (16-byte chunk c
+//     of row r at chunk c ^ (r & 7)), double-buffered, while its previous
+//     stage's wgmmas run.  Forming A in registers while a wgmma that reads
+//     other A registers is in flight made ptxas serialise the wgmmas
+//     (C7513); shared memory has no such hazard.  The stores are made
+//     visible to wgmma by fence.proxy.async and a named barrier over the
+//     warpgroup; a first named barrier makes sure every warp of it is past
+//     the wgmmas that last read the buffer.  The counts become f32 by a
+//     byte permute and an add (ws_count), not by a conversion instruction.
+// Measured on an NVIDIA H100 (PERF.md; bench_sessions.py, ws_trace.py):
+// ~45 us of device time a flagship group of u8 or u16 frames, ~37 us of an
+// f32 ratio, 2.1-2.6x the bound; ~43 us for a group of one frame.  The
+// loads alone take ~15 us (the L2 -> SM traffic is not what bounds it), the
+// consumers' path alone the whole time: per stage a consumer warp spends ~40 % of its
+// cycles forming its A values, ~25 % waiting for the stage to land and
+// ~20 % storing the tile behind its fence and barriers.  A in registers
+// formed a stage ahead (wgmma's RS form) and clusters of two blocks that
+// multicast the operator measured 30 % slower.
 //
-// The least time: the products, 17.2 GFLOP a flagship group, 17.4 us at the
-// dense bf16 peak, against L2 -> SM traffic of 128 MiB of operator (32 pair
-// tiles x 4 MiB) and 64 MiB of frames, pi and
-// inv_background (4 depth tiles x 16 MiB), where kernel 1 bf16 moves 384 MiB.
-// Measured on an NVIDIA H100 80GB HBM3 at 700 W it takes ~58 us, and the
-// products are not what bounds it: without any wgmma, without the ratio's
-// formation or without the TMA traffic it still takes 41-53 us, and the
-// stage loop with none of the three ~28 us (PERF.md).
+// The block tile and the pairs.  Pair m = row * F + frame (tc::pair_row /
+// pair_frame) with F = 8 frames in flight at every number of frames B
+// (ws::FS), so a block holds R = 16 rows and 512 rows are 4 depth tiles x
+// 32 row tiles = 128 blocks, one wave on 132 SMs, whatever B is.  A group
+// of fewer than 8 frames (one frame a launch on the per-frame and
+// saveframes routes) takes zero frames: TMA fills them without reading
+// memory and no A value is formed for them, and the wgmmas multiply their
+// zeros on tensor cores that would otherwise idle.  Fewer frames in flight
+// would give B = 1 fewer blocks of the same work each: two frames (F = 2,
+// 32 blocks) took 70 us a launch against 43 us at F = 8 (PERF.md).  Groups
+// of more than 8 frames run in chunks of 8 (MULTI: |re + i im| is then
+// added to a frame slot per chunk in 64 more registers a thread; a group
+// of at most 8 frames adds it once, after the last stage, into the
+// accumulators themselves).
+//
+// The ring.  A stage holds KT = 64 samples: the operator as four 64 x 64
+// bf16 boxes (re 0-63, re 64-127, im 0-63, im 64-127), MN-major with the
+// 128-byte swizzle; the input rows pair-major ([row][frame][64 samples]
+// through a 3-D tensor map of dims (sample, frame, row)), unswizzled (a
+// warp reads whole rows); for raw frames pi and inv_background
+// [16][64] f32.  48 KiB (u8), 56 KiB (u16) or 64 KiB (f32) a stage; beside
+// two A tiles of 8 KiB per consumer warpgroup, 4 (u8) or 3 (u16, f32)
+// stages fit in 227 KB.  TMA fills elements outside a tensor with zero, so
+// rows past ``rows``, frames past B, samples past n_in and depths past
+// ndisp cost no memory traffic.
+//
+// The epilogue.  The wgmma accumulator has the mma.sync (g, t) row map: lane
+// (g, t) of consumer warp w holds pairs 16 (w & 3) + g and + 8 of its
+// warpgroup, depths 8j + 2t + (e & 1), re in acc[0..63], im in acc[64..127].
+// The F frame slots of a row lie in lanes 4 * slot apart; they are summed by
+// tc::sum_frame_slots' butterfly and the slot-0 lanes store.  No atomics,
+// deterministic.
+//
+// TMA needs 16-byte row strides (n_in % 16 for u8, % 8 for u16, % 4 for f32,
+// ndisp % 8) and 16-byte aligned bases (ws_applies); every other shape runs
+// the mma.sync template launch_tc<In, __nv_bfloat16> from the same C entry,
+// chosen before the launch (ops.kernels.bf16_schedule mirrors the rule).
 
-namespace res {
-constexpr int BM = 128;            // (row, frame) pairs per block: two warpgroups of 64
-constexpr int BN = 128;            // depths per block; N = 256 with re and im
-constexpr int KT = 64;             // spectral samples per stage
+namespace ws {
+constexpr int BM = 128;             // (row, frame) pairs per block: two consumer warpgroups of 64
+constexpr int BN = 128;             // depths per block; N = 256 with re and im
+constexpr int KT = 64;              // spectral samples per stage: four k16 steps
 constexpr int MAX_STAGES = 4;
-constexpr int THREADS = 256;
+constexpr int THREADS = 384;        // warpgroups 0-1 consume (wgmma), warpgroup 2 produces (TMA)
+constexpr int PRODUCER_REGS = 40;   // setmaxnreg of the producer warpgroup
+constexpr int CONSUMER_REGS = 232;  // and of the consumers: 128 x 40 + 256 x 232 <= 65,536
 constexpr int OP_BOX = KT * 64 * 2;           // one 64-sample x 64-depth bf16 box
 constexpr int OP_BYTES = 4 * OP_BOX;          // re 0-63 | re 64-127 | im 0-63 | im 64-127
-constexpr int FRAME_BYTES = BM * KT;          // u8 [pair][sample], 64-byte swizzle
+constexpr int A_BYTES = 64 * KT * 2;          // a warpgroup's bf16 A tile, 64 pairs x KT
+constexpr int A_TILES = 4;                    // two a consumer warpgroup
 constexpr int SMEM_LIMIT = 232448;            // shared memory a block may take
 constexpr int SMEM_EXTRA = 1024 + 2 * MAX_STAGES * 8;   // 1,024-byte alignment + barriers
-static_assert(FRAME_BYTES % 1024 == 0 && OP_BOX % 1024 == 0, "1,024-byte aligned regions");
+static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 256 <= 65536, "the register file");
+static_assert(OP_BOX % 1024 == 0 && A_BYTES % 1024 == 0, "1,024-byte aligned regions");
 
-// One stage: operator | frames | pi [R][KT] f32 | inv_background [R][KT] f32,
-// R = BM / F rows; a multiple of 1,024 bytes for every R.
-__host__ __device__ constexpr int stage_bytes(int R) {
-  return OP_BYTES + FRAME_BYTES + 2 * R * KT * static_cast<int>(sizeof(float));
+template <typename In> __host__ __device__ constexpr bool raw() {
+  return !std::is_same<In, float>::value;
 }
-}  // namespace res
 
-// The A fragment of 16-sample step kk of a landed stage: pairs m0 (a[0],
-// a[2]) and m1 = m0 + 8 (a[1], a[3]), rows r0 and r1 of the block, samples
-// 16kk + 2t, +1 (a[0], a[1]) and +8, +9 (a[2], a[3]).  Pairs of frames past
-// B (live false) are zero.
-__device__ __forceinline__ void res_ratio_fragment(uint32_t (&a)[4], const uint8_t* stage, int kk,
-                                                   int m0, int r0, int r1, int t, int R,
-                                                   bool live) {
-  const uint8_t* frames = stage + res::OP_BYTES;
-  const float* pi_s = reinterpret_cast<const float*>(frames + res::FRAME_BYTES);
-  const float* inv_s = pi_s + R * res::KT;
+// The input rows of a stage, [pair][KT] In.
+template <typename In> __host__ __device__ constexpr int in_bytes() {
+  return BM * KT * static_cast<int>(sizeof(In));
+}
+// One stage: operator | input rows | pi [R][KT] f32 | inv_background [R][KT]
+// f32 (raw frames only), R = BM / F rows; a multiple of 1,024 bytes.
+template <typename In> __host__ __device__ constexpr int stage_bytes(int R) {
+  return OP_BYTES + in_bytes<In>() + (raw<In>() ? 2 * R * KT * static_cast<int>(sizeof(float)) : 0);
+}
+
+// log2 of the frames in flight, at every number of frames.
+constexpr int FS = 3;
+}  // namespace ws
+
+// An integer count c < 2^23 as f32, exactly: the bits 0x4B000000 | c are the
+// float 2^23 + c, and subtracting 2^23 is exact.  A byte permute and an add
+// in the FP32 pipes, where a conversion instruction (I2F) runs at a quarter
+// of their rate or less; the forming of the A tile is bound by that rate.
+__device__ __forceinline__ float ws_count(uint32_t word, uint32_t selector) {
+  return __fsub_rn(__uint_as_float(__byte_perm(word, 0x4B000000u, selector)), 8388608.f);
+}
+
+// Eight samples 8c..8c+7 of pair m of a landed stage, as f32: the ratio
+// formed from raw counts, pi and inv_background ((raw - pi) * inv, each
+// rounded to f32 as torch rounds it), or the f32 ratio itself.  p and v
+// hold the pair's row of pi and inv_background (raw frames only).
+template <typename In>
+__device__ __forceinline__ void ws_samples(float (&y)[8], const uint8_t* in, int m, int c,
+                                           const float (&p)[8], const float (&v)[8]) {
+  float x[8];
+  if constexpr (sizeof(In) == 1) {
+    // byte j of a word -> 0x4B0000bb: selector nibbles j, 4, 5, 7
+    const uint2 w = *reinterpret_cast<const uint2*>(in + m * ws::KT + 8 * c);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int m = m0 + 8 * h, r = h ? r1 : r0;
-    // 64-byte swizzle: the 16-byte chunk of a 64-byte row XOR bits 7-8 of its address
-    const uint8_t* x = frames + m * res::KT + (((kk ^ (m >> 1)) & 3) << 4) + 2 * t;
-    const uint32_t lo = *reinterpret_cast<const uint16_t*>(x);
-    const uint32_t hi = *reinterpret_cast<const uint16_t*>(x + 8);
-    const int k = r * res::KT + 16 * kk + 2 * t;
-    const float2 p0 = *reinterpret_cast<const float2*>(pi_s + k);
-    const float2 p1 = *reinterpret_cast<const float2*>(pi_s + k + 8);
-    const float2 v0 = *reinterpret_cast<const float2*>(inv_s + k);
-    const float2 v1 = *reinterpret_cast<const float2*>(inv_s + k + 8);
-    float y[4] = {__fmul_rn(__fsub_rn(static_cast<float>(lo & 0xffu), p0.x), v0.x),
-                  __fmul_rn(__fsub_rn(static_cast<float>(lo >> 8), p0.y), v0.y),
-                  __fmul_rn(__fsub_rn(static_cast<float>(hi & 0xffu), p1.x), v1.x),
-                  __fmul_rn(__fsub_rn(static_cast<float>(hi >> 8), p1.y), v1.y)};
-    if (!live) y[0] = y[1] = y[2] = y[3] = 0.f;
-    a[h] = bf16_bits(__float2bfloat16_rn(y[0])) | bf16_bits(__float2bfloat16_rn(y[1])) << 16;
-    a[2 + h] = bf16_bits(__float2bfloat16_rn(y[2])) | bf16_bits(__float2bfloat16_rn(y[3])) << 16;
+    for (int j = 0; j < 4; ++j) {
+      x[j] = ws_count(w.x, 0x7540u + j);
+      x[4 + j] = ws_count(w.y, 0x7540u + j);
+    }
+  } else if constexpr (sizeof(In) == 2) {
+    // the low and the high half of a word -> 0x4B00hhhh
+    const uint4 w = *reinterpret_cast<const uint4*>(in + m * ws::KT * 2 + 16 * c);
+    const uint32_t h[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x[2 * j] = ws_count(h[j], 0x7410u);
+      x[2 * j + 1] = ws_count(h[j], 0x7432u);
+    }
+  } else {
+    const float4 a = *reinterpret_cast<const float4*>(in + m * ws::KT * 4 + 32 * c);
+    const float4 b = *reinterpret_cast<const float4*>(in + m * ws::KT * 4 + 32 * c + 16);
+    y[0] = a.x, y[1] = a.y, y[2] = a.z, y[3] = a.w, y[4] = b.x, y[5] = b.y, y[6] = b.z, y[7] = b.w;
+  }
+  if constexpr (ws::raw<In>()) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) y[j] = __fmul_rn(__fsub_rn(x[j], p[j]), v[j]);
   }
 }
 
-__global__ void __launch_bounds__(res::THREADS, 1)
-fused_recon_resident_kernel(const __grid_constant__ CUtensorMap raw_map,
-                            const __grid_constant__ CUtensorMap pi_map,
-                            const __grid_constant__ CUtensorMap inv_map,
-                            const __grid_constant__ CUtensorMap re_map,
-                            const __grid_constant__ CUtensorMap im_map, float* __restrict__ out,
-                            int B, int rows, int n_in, int ndisp, int fs, int nst) {
-  extern __shared__ uint8_t res_smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(res_smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  const int R = res::BM >> fs;
-  const int sbytes = res::stage_bytes(R);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + nst * sbytes);
-  uint64_t* empty = full + res::MAX_STAGES;
+// Warpgroup wg's A tile of one landed stage, formed by its thread t: chunk c
+// = t & 7 (samples 8c..8c+7) of the tile's rows 4u..4u+3, u = t >> 3, so
+// that a warp writes whole 128-byte rows and four frames of one row share
+// one load of pi and inv_background.  PARTIAL (a chunk of fewer than eight
+// frames): pairs of frames at or past ``frames`` are zero, and nothing is
+// read for them; a thread's four pairs are frames 0-3 or 4-7 of one row, so
+// the live ones come first and the first of them reads the row.
+template <typename In, bool PARTIAL>
+__device__ __forceinline__ void ws_form_a(uint32_t (&a)[4][4], const uint8_t* stage, int wg, int t,
+                                          int fs, int R, int frames) {
+  const uint8_t* in = stage + ws::OP_BYTES;
+  const float* pi_s = reinterpret_cast<const float*>(in + ws::in_bytes<In>());
+  const float* inv_s = pi_s + R * ws::KT;
+  const int c = t & 7, u = t >> 3;
+  float p[8], v[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = 64 * wg + 4 * u + i;
+    if (PARTIAL && tc::pair_frame(m, fs) >= frames) {
+      a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0u;
+      continue;
+    }
+    if constexpr (ws::raw<In>()) {
+      if (i == 0 || tc::pair_frame(m, fs) == 0) {   // a new row: its pi and inv_background
+        const float* pr = pi_s + tc::pair_row(m, fs) * ws::KT + 8 * c;
+        const float* vr = inv_s + tc::pair_row(m, fs) * ws::KT + 8 * c;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float4 q = *reinterpret_cast<const float4*>(pr + 4 * h);
+          const float4 w = *reinterpret_cast<const float4*>(vr + 4 * h);
+          p[4 * h] = q.x, p[4 * h + 1] = q.y, p[4 * h + 2] = q.z, p[4 * h + 3] = q.w;
+          v[4 * h] = w.x, v[4 * h + 1] = w.y, v[4 * h + 2] = w.z, v[4 * h + 3] = w.w;
+        }
+      }
+    }
+    float y[8];
+    ws_samples<In>(y, in, m, c, p, v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {   // two samples rounded to nearest even in one instruction
+      const __nv_bfloat162 pair = __floats2bfloat162_rn(y[2 * j], y[2 * j + 1]);
+      a[i][j] = *reinterpret_cast<const uint32_t*>(&pair);
+    }
+  }
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.y * R, col0 = blockIdx.x * res::BN;
-  const int nk = (n_in + res::KT - 1) / res::KT;
+// Stores what ws_form_a formed into the 128-byte-swizzled K-major tile a_s.
+__device__ __forceinline__ void ws_store_a(uint8_t* a_s, const uint32_t (&a)[4][4], int t) {
+  const int c = t & 7, u = t >> 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * u + i;
+    *reinterpret_cast<uint4*>(a_s + r * 128 + ((c ^ (r & 7)) << 4)) =
+        make_uint4(a[i][0], a[i][1], a[i][2], a[i][3]);
+  }
+}
+
+// |re + i im| of the 64 (pair, depth) sums of a thread's accumulators; into
+// ``mag`` (added to it, tc::add_magnitude's rounding).
+__device__ __forceinline__ void ws_add_magnitudes(float (&mag)[64], const float (&acc)[128]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) tc::add_magnitude(mag[i], acc[i], acc[64 + i]);
+}
+
+// The epilogue of a consumer thread: the F frame slots of each of its 64
+// sums m[0..63] (lanes 4 * slot apart) summed as tc::sum_frame_slots sums
+// them, then stored by the slot-0 lanes.
+template <int N>
+__device__ __forceinline__ void ws_store_sums(float (&m)[N], float* __restrict__ out, int m0,
+                                              int frame, int fs, int row0, int col0, int rows,
+                                              int ndisp, int tq) {
+  for (int off = 4; off < (4 << fs); off <<= 1)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) m[i] += __shfl_xor_sync(0xffffffffu, m[i], off);
+  if (frame != 0) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + tc::pair_row(m0 + 8 * h, fs);
+    if (r >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = col0 + j * 8 + 2 * tq + e;
+        if (d < ndisp) out[static_cast<size_t>(r) * ndisp + d] = m[4 * j + 2 * h + e];
+      }
+  }
+}
+
+template <typename In, bool MULTI>
+__global__ void __launch_bounds__(ws::THREADS, 1)
+fused_recon_ws_kernel(const __grid_constant__ CUtensorMap in_map,
+                      const __grid_constant__ CUtensorMap pi_map,
+                      const __grid_constant__ CUtensorMap inv_map,
+                      const __grid_constant__ CUtensorMap re_map,
+                      const __grid_constant__ CUtensorMap im_map, float* __restrict__ out, int B,
+                      int rows, int n_in, int ndisp, int nst) {
+  extern __shared__ uint8_t ws_smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(ws_smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  constexpr int fs = ws::FS, R = ws::BM >> fs;
+  const int sbytes = ws::stage_bytes<In>(R);
+  uint8_t* a_tiles = smem + nst * sbytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(a_tiles + ws::A_TILES * ws::A_BYTES);
+  uint64_t* empty = full + ws::MAX_STAGES;
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int row0 = blockIdx.y * R, col0 = blockIdx.x * ws::BN;
+  const int nk = (n_in + ws::KT - 1) / ws::KT;
   const int total = nk * ((B + (1 << fs) - 1) >> fs);    // stages of all chunks of frames
 
   if (tid == 0) {
     for (int s = 0; s < nst; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);
+      mbar_init(&empty[s], 8);       // the eight consumer warps
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  // thread 0: the copies of stage ``it`` into its slot, once the slot's
-  // previous stage has been released by every warp
-  const auto issue = [&](int it) {
-    const int s = it % nst;
-    uint8_t* st = smem + s * sbytes;
-    const int k0 = (it % nk) * res::KT, b0 = (it / nk) << fs;
-    if (it >= nst) mbar_wait(&empty[s], (it / nst - 1) & 1);
-    mbar_expect_tx(&full[s], sbytes);
-    tma_load_3d(st + res::OP_BYTES, &raw_map, &full[s], k0, b0, row0);
-    tma_load_2d(st + res::OP_BYTES + res::FRAME_BYTES, &pi_map, &full[s], k0, row0);
-    tma_load_2d(st + res::OP_BYTES + res::FRAME_BYTES + R * res::KT * 4, &inv_map, &full[s], k0,
-                row0);
+  if (wg == 2) {
+    // the producer: one thread issues every copy of stage it into slot it %
+    // nst once the slot's previous stage has been released
+    setmaxnreg_dec<ws::PRODUCER_REGS>();
+    if (tid == 256) {
+      for (int it = 0, s = 0, ph = 0, kt = 0, b0 = 0; it < total; ++it) {
+        uint8_t* st = smem + s * sbytes;
+        if (it >= nst) mbar_wait(&empty[s], ph ^ 1);
+        mbar_expect_tx(&full[s], sbytes);
+        const int k0 = kt * ws::KT;
 #pragma unroll
-    for (int h = 0; h < 4; ++h)
-      tma_load_2d(st + h * res::OP_BOX, h < 2 ? &re_map : &im_map, &full[s], col0 + (h & 1) * 64,
-                  k0);
-  };
-  if (tid == 0)
-    for (int it = 0; it < nst && it < total; ++it) issue(it);
-  __syncwarp();
+        for (int h = 0; h < 4; ++h)
+          tma_load_2d(st + h * ws::OP_BOX, h < 2 ? &re_map : &im_map, &full[s],
+                      col0 + (h & 1) * 64, k0);
+        tma_load_3d(st + ws::OP_BYTES, &in_map, &full[s], k0, b0, row0);
+        if constexpr (ws::raw<In>()) {
+          uint8_t* pi_s = st + ws::OP_BYTES + ws::in_bytes<In>();
+          tma_load_2d(pi_s, &pi_map, &full[s], k0, row0);
+          tma_load_2d(pi_s + R * ws::KT * 4, &inv_map, &full[s], k0, row0);
+        }
+        if (++s == nst) s = 0, ph ^= 1;
+        if (++kt == nk) kt = 0, b0 += 1 << fs;
+      }
+    }
+    return;
+  }
 
-  const int m0 = (warp >> 2) * 64 + (warp & 3) * 16 + g;   // this lane's pairs: m0, m0 + 8
+  // the consumers: warpgroup wg multiplies pairs 64 wg .. 64 wg + 63
+  setmaxnreg_inc<ws::CONSUMER_REGS>();
+  const int t = tid & 127, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int m0 = wg * 64 + (warp & 3) * 16 + g;            // this lane's pairs: m0, m0 + 8
   const int frame = tc::pair_frame(m0, fs);                // the same for m0 + 8
-  const int r0 = tc::pair_row(m0, fs), r1 = tc::pair_row(m0 + 8, fs);
   float acc[128];
-  float mag[64];                     // [j][e]: re/im columns j*8 + 2t + (e & 1), row g + 8*(e >> 1)
+  float mag[MULTI ? 64 : 1];
 #pragma unroll
   for (int i = 0; i < 128; ++i) acc[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) mag[i] = 0.f;
-  uint32_t a[2][4] = {};
-  for (int it = 0; it < total; ++it) {
-    const int s = it % nst, kt = it % nk;
+  for (int i = 0; i < (MULTI ? 64 : 1); ++i) mag[i] = 0.f;
+  uint8_t* a_mine = a_tiles + wg * 2 * ws::A_BYTES;
+  for (int it = 0, s = 0, ph = 0, kt = 0, b0 = 0; it < total; ++it) {
     const uint8_t* st = smem + s * sbytes;
-    const bool live = ((it / nk) << fs) + frame < B;
-    const uint32_t b_base = smem_addr(st);
-    mbar_wait(&full[s], (it / nst) & 1);
+    uint8_t* a_s = a_mine + (it & 1) * ws::A_BYTES;
+    mbar_wait(&full[s], ph);
+    uint32_t a[4][4];
+    if (B - b0 < (1 << fs))            // the group's last chunk, short of eight frames
+      ws_form_a<In, true>(a, st, wg, t, fs, R, B - b0);
+    else
+      ws_form_a<In, false>(a, st, wg, t, fs, R, B - b0);
+    named_barrier_sync(1 + wg, 128);   // every warp is past the wgmmas that read a_s last
+    ws_store_a(a_s, a, t);
+    fence_proxy_async();
+    named_barrier_sync(1 + wg, 128);   // the A tile is whole
+    const uint32_t a_addr = smem_addr(a_s), b_addr = smem_addr(st);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      res_ratio_fragment(a[kk & 1], st, kk, m0, r0, r1, t, R, live);
-      wgmma_fence();
-      wgmma_m64n256k16_rs(acc, a[kk & 1],
-                          wgmma_desc_mn_sw128(b_base + kk * 16 * 128, res::OP_BOX, 1024),
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n256k16_ss(acc, wgmma_desc_k_sw128(a_addr + kk * 32),
+                          wgmma_desc_mn_sw128(b_addr + kk * 16 * 128, ws::OP_BOX, 1024),
                           kt > 0 || kk > 0);
-      wgmma_commit();
-      wgmma_wait<1>();               // the step before is done: its A registers are free
-      wgmma_hold(a[(kk + 1) & 1]);
-      if (kk == 0 && it > 0) {       // ... and with it every wgmma of stage it - 1
-        const int ps = (it - 1) % nst;
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&empty[ps]);
-        if (tid == 0 && it - 1 + nst < total) issue(it - 1 + nst);
-        __syncwarp();
-      }
+    wgmma_commit();
+    wgmma_wait<1>();                   // the stage before is done: release its slot
+    if (it > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s == 0 ? nst - 1 : s - 1]);
     }
-    if (kt == nk - 1) {              // the last stage of a chunk of frames
+    if (kt == nk - 1) {                // the last stage of a chunk of frames
       wgmma_wait<0>();
       wgmma_hold(acc);
-#pragma unroll
-      for (int i = 0; i < 64; ++i) tc::add_magnitude(mag[i], acc[i], acc[64 + i]);
+      if constexpr (MULTI) ws_add_magnitudes(mag, acc);
     }
+    if (++s == nst) s = 0, ph ^= 1;
+    if (++kt == nk) kt = 0, b0 += 1 << fs;
   }
-  // the F frame slots of a row (lanes 4 * slot apart)
-  for (int off = 4; off < (4 << fs); off <<= 1)
+  if constexpr (MULTI) {
+    ws_store_sums(mag, out, m0, frame, fs, row0, col0, rows, ndisp, tq);
+  } else {                             // one chunk: the magnitudes in place of re
 #pragma unroll
-    for (int i = 0; i < 64; ++i) mag[i] += __shfl_xor_sync(0xffffffffu, mag[i], off);
-  if (frame == 0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = row0 + (h ? r1 : r0);
-      if (r >= rows) continue;
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int d = col0 + j * 8 + 2 * t + e;
-          if (d < ndisp) out[static_cast<size_t>(r) * ndisp + d] = mag[4 * j + 2 * h + e];
-        }
+    for (int i = 0; i < 64; ++i) {
+      float v = 0.f;
+      tc::add_magnitude(v, acc[i], acc[64 + i]);
+      acc[i] = v;
     }
+    ws_store_sums(acc, out, m0, frame, fs, row0, col0, rows, ndisp, tq);
   }
 }
 
@@ -731,57 +882,86 @@ bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Whether TMA can address the shapes and bases (else the mma.sync schedule
-// runs): 16-byte row strides of the u8 frames and of the bf16 operator, and
-// 16-byte aligned bases.
-bool resident_wgmma_applies(const void* raw, const void* pi, const void* inv_bg,
-                            const void* op_re, const void* op_im, int n_in, int ndisp) {
-  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  return n_in % 16 == 0 && ndisp % 8 == 0 && aligned(raw) && aligned(pi) && aligned(inv_bg) &&
-         aligned(op_re) && aligned(op_im);
+template <typename In> constexpr CUtensorMapDataType tma_type() {
+  return sizeof(In) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                         : sizeof(In) == 2 ? CU_TENSOR_MAP_DATA_TYPE_UINT16
+                                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 }
 
-int launch_resident(const void* raw, const void* pi, const void* inv_bg, const void* op_re,
-                    const void* op_im, void* out, int B, int rows, int n_in, int ndisp,
-                    void* stream) {
-  const int fs = tc::frames_shift(B);
-  const int R = res::BM >> fs;
+// Whether TMA can address the inputs of the bf16 instance on In (else the
+// mma.sync schedule runs): 16-byte row strides of the input rows (n_in % 16
+// for u8, % 8 for u16, % 4 for f32) and of the bf16 operator (ndisp % 8),
+// and 16-byte aligned bases.
+template <typename In>
+bool ws_applies(const void* x, const void* pi, const void* inv_bg, const void* op_re,
+                const void* op_im, int n_in, int ndisp) {
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  return n_in % (16 / static_cast<int>(sizeof(In))) == 0 && ndisp % 8 == 0 && aligned(x) &&
+         aligned(op_re) && aligned(op_im) &&
+         (!ws::raw<In>() || (aligned(pi) && aligned(inv_bg)));
+}
+
+template <typename In>
+int launch_ws(const void* x, const void* pi, const void* inv_bg, const void* op_re,
+              const void* op_im, void* out, int B, int rows, int n_in, int ndisp, void* stream) {
+  constexpr int fs = ws::FS, R = ws::BM >> fs;
   const int gy = (rows + R - 1) / R;
   if (gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const cuuint64_t n = static_cast<cuuint64_t>(n_in), nr = static_cast<cuuint64_t>(rows);
-  CUtensorMap maps[5];
-  // frames pair-major: dims (sample, frame, row), box 64 x F x R
-  const cuuint64_t raw_dims[3] = {n, static_cast<cuuint64_t>(B), nr};
-  const cuuint64_t raw_strides[2] = {nr * n, n};
-  const cuuint32_t raw_box[3] = {res::KT, static_cast<cuuint32_t>(1 << fs),
-                                 static_cast<cuuint32_t>(R)};
+  const cuuint64_t es = sizeof(In);
+  CUtensorMap maps[5] = {};
+  // the input rows pair-major: dims (sample, frame, row), box KT x F x R
+  const cuuint64_t in_dims[3] = {n, static_cast<cuuint64_t>(B), nr};
+  const cuuint64_t in_strides[2] = {nr * n * es, n * es};
+  const cuuint32_t in_box[3] = {ws::KT, static_cast<cuuint32_t>(1 << fs),
+                                static_cast<cuuint32_t>(R)};
   const cuuint64_t ratio_dims[2] = {n, nr}, ratio_strides[1] = {n * 4};
-  const cuuint32_t ratio_box[2] = {res::KT, static_cast<cuuint32_t>(R)};
+  const cuuint32_t ratio_box[2] = {ws::KT, static_cast<cuuint32_t>(R)};
   const cuuint64_t op_dims[2] = {static_cast<cuuint64_t>(ndisp), n};
   const cuuint64_t op_strides[1] = {static_cast<cuuint64_t>(ndisp) * 2};
-  const cuuint32_t op_box[2] = {64, res::KT};
-  if (!tensor_map(&maps[0], CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, raw, raw_dims, raw_strides,
-                  raw_box, CU_TENSOR_MAP_SWIZZLE_64B) ||
-      !tensor_map(&maps[1], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, pi, ratio_dims, ratio_strides,
-                  ratio_box, CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      !tensor_map(&maps[2], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, inv_bg, ratio_dims,
-                  ratio_strides, ratio_box, CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      !tensor_map(&maps[3], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, op_re, op_dims, op_strides,
-                  op_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !tensor_map(&maps[4], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, op_im, op_dims, op_strides,
-                  op_box, CU_TENSOR_MAP_SWIZZLE_128B))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int nst = std::min(res::MAX_STAGES,
-                           (res::SMEM_LIMIT - res::SMEM_EXTRA) / res::stage_bytes(R));
-  const int smem = nst * res::stage_bytes(R) + res::SMEM_EXTRA;
-  const cudaError_t rc = cudaFuncSetAttribute(fused_recon_resident_kernel,
-                                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cuuint32_t op_box[2] = {64, ws::KT};
+  bool ok = tensor_map(&maps[0], tma_type<In>(), 3, x, in_dims, in_strides, in_box,
+                       CU_TENSOR_MAP_SWIZZLE_NONE) &&
+            tensor_map(&maps[3], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, op_re, op_dims, op_strides,
+                       op_box, CU_TENSOR_MAP_SWIZZLE_128B) &&
+            tensor_map(&maps[4], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, op_im, op_dims, op_strides,
+                       op_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (ws::raw<In>())
+    ok = ok &&
+         tensor_map(&maps[1], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, pi, ratio_dims, ratio_strides,
+                    ratio_box, CU_TENSOR_MAP_SWIZZLE_NONE) &&
+         tensor_map(&maps[2], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, inv_bg, ratio_dims,
+                    ratio_strides, ratio_box, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int nst = std::min(ws::MAX_STAGES,
+                               (ws::SMEM_LIMIT - ws::SMEM_EXTRA - ws::A_TILES * ws::A_BYTES) /
+                                   ws::stage_bytes<In>(R));
+  static_assert(nst >= 2, "a ring of at least two stages");
+  const int smem = nst * ws::stage_bytes<In>(R) + ws::A_TILES * ws::A_BYTES + ws::SMEM_EXTRA;
+  const auto kernel = B > (1 << fs) ? fused_recon_ws_kernel<In, true>
+                                    : fused_recon_ws_kernel<In, false>;
+  const cudaError_t rc =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  fused_recon_resident_kernel<<<dim3((ndisp + res::BN - 1) / res::BN, gy), res::THREADS, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4], static_cast<float*>(out), B, rows, n_in, ndisp,
-      fs, nst);
+  kernel<<<dim3((ndisp + ws::BN - 1) / ws::BN, gy), ws::THREADS, smem,
+           static_cast<cudaStream_t>(stream)>>>(maps[0], maps[1], maps[2], maps[3], maps[4],
+                                                static_cast<float*>(out), B, rows, n_in, ndisp,
+                                                nst);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Every bf16 instance: the warp-specialised schedule where TMA can address
+// the inputs, else the mma.sync template; the choice is made from the
+// shapes and pointers, before the launch.
+template <typename In>
+int launch_bf16(const void* x, const void* pi, const void* inv_bg, const void* op_re,
+                const void* op_im, void* out, int B, int rows, int n_in, int ndisp,
+                void* stream) {
+  if (B < 1 || rows < 1 || n_in < 1 || ndisp < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (ws_applies<In>(x, pi, inv_bg, op_re, op_im, n_in, ndisp))
+    return launch_ws<In>(x, pi, inv_bg, op_re, op_im, out, B, rows, n_in, ndisp, stream);
+  return launch_tc<In, __nv_bfloat16>(x, pi, inv_bg, op_re, op_im, out, B, rows, n_in, ndisp,
+                                      stream);
 }
 
 }  // namespace
@@ -803,8 +983,8 @@ int fdoct_recon_raw_u8_f32(const void* raw, const void* pi, const void* inv_bg,
 int fdoct_recon_raw_u8_bf16(const void* raw, const void* pi, const void* inv_bg,
                             const void* op_re, const void* op_im, void* out,
                             int B, int rows, int n_in, int ndisp, void* stream) {
-  return launch_tc<uint8_t, __nv_bfloat16>(raw, pi, inv_bg, op_re, op_im, out, B, rows, n_in,
-                                           ndisp, stream);
+  return launch_bf16<uint8_t>(raw, pi, inv_bg, op_re, op_im, out, B, rows, n_in, ndisp,
+                              stream);
 }
 
 int fdoct_recon_raw_u16_f32(const void* raw, const void* pi, const void* inv_bg,
@@ -817,8 +997,8 @@ int fdoct_recon_raw_u16_f32(const void* raw, const void* pi, const void* inv_bg,
 int fdoct_recon_raw_u16_bf16(const void* raw, const void* pi, const void* inv_bg,
                              const void* op_re, const void* op_im, void* out,
                              int B, int rows, int n_in, int ndisp, void* stream) {
-  return launch_tc<uint16_t, __nv_bfloat16>(raw, pi, inv_bg, op_re, op_im, out, B, rows, n_in,
-                                            ndisp, stream);
+  return launch_bf16<uint16_t>(raw, pi, inv_bg, op_re, op_im, out, B, rows, n_in, ndisp,
+                               stream);
 }
 
 int fdoct_recon_yr_f32_f32(const void* yr, const void* op_re, const void* op_im, void* out,
@@ -829,21 +1009,16 @@ int fdoct_recon_yr_f32_f32(const void* yr, const void* op_re, const void* op_im,
 
 int fdoct_recon_yr_f32_bf16(const void* yr, const void* op_re, const void* op_im, void* out,
                             int B, int rows, int n_in, int ndisp, void* stream) {
-  return launch_tc<float, __nv_bfloat16>(yr, nullptr, nullptr, op_re, op_im, out, B, rows, n_in,
-                                         ndisp, stream);
+  return launch_bf16<float>(yr, nullptr, nullptr, op_re, op_im, out, B, rows, n_in, ndisp,
+                            stream);
 }
 
-// The resident schedule; op_re, op_im are bf16.  The wgmma + TMA schedule
-// where TMA can address the inputs (resident_wgmma_applies), else the
-// mma.sync schedule of fdoct_recon_raw_u8_bf16.
+// The resident kernel's sum (kernel 1 u8 with a bf16 operator; op_re,
+// op_im are bf16): the bf16 instances' schedule, as fdoct_recon_raw_u8_bf16.
 int fdoct_recon_resident_u8_bf16(const void* raw, const void* pi, const void* inv_bg,
                                  const void* op_re, const void* op_im, void* out,
                                  int B, int rows, int n_in, int ndisp, void* stream) {
-  if (B < 1 || rows < 1 || n_in < 1 || ndisp < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (!resident_wgmma_applies(raw, pi, inv_bg, op_re, op_im, n_in, ndisp))
-    return launch_tc<uint8_t, __nv_bfloat16>(raw, pi, inv_bg, op_re, op_im, out, B, rows, n_in,
-                                             ndisp, stream);
-  return launch_resident(raw, pi, inv_bg, op_re, op_im, out, B, rows, n_in, ndisp, stream);
+  return launch_bf16<uint8_t>(raw, pi, inv_bg, op_re, op_im, out, B, rows, n_in, ndisp, stream);
 }
 
 }  // extern "C"

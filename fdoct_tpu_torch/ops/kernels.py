@@ -5,19 +5,24 @@ Hopper counterparts of the four Pallas kernels of ``fdoct_tpu/ops/pallas_kernels
 - :func:`fused_recon_raw_accumulate`: Σ_b |((raw[b] − y_p)·(1/y_b)) @ M| from
   raw uint8 or uint16 frames, the ratio formed on the tile;
 - :func:`fused_recon_accumulate`: Σ_b |yr[b] @ M| from a float32 ratio stack;
-- :func:`fused_recon_resident`: the first with a bfloat16 operator, in the
-  schedule that reads each frame byte from device memory once;
+- :func:`fused_recon_resident`: the first with a bfloat16 operator (the TPU
+  kernel keeps it resident in VMEM);
 - :func:`int8_bscan_display_fused`: the int8-direct group step, s8 frames
   against a quantized operator with the display epilogue fused.
 
 The first three are ``csrc/fused_recon.cu``, the fourth is
 ``csrc/int8_bscan.cu``; :mod:`fdoct_tpu_torch.ops._build` builds both.  All
-run on the tensor cores: the first two and the fourth on ``mma.sync`` (bf16
-with a bfloat16 operator, three TF32 products (3xTF32) with a float32 one,
-s8 for the fourth), the resident kernel on ``wgmma`` fed by TMA
-(:func:`resident_schedule`).
-M = op_re + i·op_im is float32 or bfloat16; with bfloat16 the ratio is
-rounded to bfloat16 before the product and the sums stay float32; with
+run on the tensor cores.  With a bfloat16 operator (the 'default'
+precision on CUDA, and the resident kernel) the first three run one
+warp-specialised schedule: a producer warpgroup brings every tile by TMA
+into a ring of shared-memory stages, two consumer warpgroups form the bf16
+ratio once a stage into a shared-memory A tile and run ``wgmma``
+(m64n256k16) on it; where TMA cannot address the inputs they run the
+``mma.sync`` schedule (:func:`bf16_schedule` mirrors the C rule).  Both
+compute the same sums bit for bit.  With a float32 operator the first two
+run three TF32 products (3xTF32) on ``mma.sync``; the fourth runs ``mma.sync``
+s8.  M = op_re + i·op_im is float32 or bfloat16; with bfloat16 the ratio
+is rounded to bfloat16 before the product and the sums stay float32; with
 float32 each operand is split into two TF32 parts and the three largest
 cross products are summed in float32 (:func:`split_tf32`).  A wrapper
 given CPU tensors computes the plain version beside it (``*_reference``);
@@ -47,9 +52,9 @@ INT8_TILE = (32, 32)
 #: operator's n_in is padded to a multiple of it
 INT8_K_TILE = 64
 
-#: one block of the resident kernel's wgmma schedule: (row, frame) pairs x
-#: depths (res::BM, res::BN of csrc/fused_recon.cu)
-RESIDENT_TILE = (128, 128)
+#: one block of the bf16 instances' wgmma schedule: (row, frame) pairs x
+#: depths (ws::BM, ws::BN of csrc/fused_recon.cu)
+WGMMA_TILE = (128, 128)
 
 #: the edges of the tensor-core schedule (B, rows, n_in, ndisp), at which
 #: the tests and chip_smoke.py hold every instance to its plain version: rows
@@ -176,10 +181,16 @@ def fused_recon_raw_accumulate(raw: torch.Tensor, pi_frame: torch.Tensor,
     ``fused_recon_raw_accumulate`` (pallas_kernels.py:126-160).
     On CUDA a block holds all frames of its rows, forms their ratio on chip
     and stages pi_frame, inv_background and each operator tile once for all
-    of them.  With a bfloat16 operator the products run on the bf16 tensor
-    cores (``mma.sync`` m16n8k16, float32 sums); with a float32 operator on
-    the TF32 tensor cores as three products of the operands' TF32 parts
-    (``mma.sync`` m16n8k8, float32 sums; see :func:`split_tf32`).
+    of them.  With a bfloat16 operator the warp-specialised schedule runs
+    where TMA can address the inputs (:func:`bf16_schedule`): a producer
+    warpgroup brings the tiles by TMA, two consumer warpgroups form the
+    bf16 ratio into shared memory and run ``wgmma`` m64n256k16 (float32
+    sums); elsewhere ``mma.sync`` m16n8k16, the same sums bit for bit.  With
+    a float32 operator the products run on the TF32 tensor cores as three
+    products of the operands' TF32 parts (``mma.sync`` m16n8k8, float32
+    sums; see :func:`split_tf32`).  What bounds the bf16 form is the
+    tensor cores' rate beside the shared-memory traffic of the ratio tile
+    and the operator (``csrc/fused_recon.cu``).
     """
     B, rows, n_in = _check_stack(raw, "raw")
     if raw.dtype not in RAW_ENTRY:
@@ -202,10 +213,12 @@ def fused_recon_accumulate(yr: torch.Tensor, op_re: torch.Tensor,
     yr: (B, rows, n_in) float32 (float64 with a float64 operator, CPU only);
     op_re, op_im: (n_in, ndisp) float32 or bfloat16.  Returns (rows, ndisp).
     Replaces the TPU kernel ``fused_recon_accumulate``
-    (pallas_kernels.py:275-308).  On CUDA it runs the schedule of
+    (pallas_kernels.py:275-308).  On CUDA it runs the schedules of
     :func:`fused_recon_raw_accumulate` with the ratio read instead of
-    formed: rounded to bfloat16 for a bfloat16 operator, split into TF32
-    parts for a float32 one.
+    formed: rounded to bfloat16 for a bfloat16 operator (the
+    warp-specialised ``wgmma`` schedule where TMA can address the stack,
+    n_in % 4 == 0, else ``mma.sync``), split into TF32 parts for a float32
+    one.
     """
     B, rows, n_in = _check_stack(yr, "yr")
     ndisp = _check_operator(op_re, op_im, n_in, yr.device)
@@ -219,17 +232,20 @@ def fused_recon_accumulate(yr: torch.Tensor, op_re: torch.Tensor,
                    [yr, op_re, op_im], (B, rows, n_in, ndisp), op_re, out)
 
 
-def resident_schedule(B: int, rows: int, n_in: int, ndisp: int, ptrs) -> str:
-    """The schedule the resident kernel runs for these shapes and base
-    addresses (``ptrs``: the data pointers of raw, pi_frame, inv_background,
-    op_re and op_im), as the C entry chooses it: ``"wgmma"`` (TMA-fed
-    ``wgmma``) where TMA can address every input (n_in % 16 == 0, ndisp %
-    8 == 0, 16-byte aligned bases), else ``"mma.sync"`` (kernel 1 bf16's
-    schedule).  B and rows enter neither: ragged rows and any number of
+def bf16_schedule(dtype: torch.dtype, n_in: int, ndisp: int, ptrs) -> str:
+    """The schedule a bfloat16-operator instance runs for input rows of
+    ``dtype`` (uint8 or uint16 frames, float32 ratio), as its C entry
+    chooses it (``ws_applies`` of ``csrc/fused_recon.cu``) before the
+    launch: ``"wgmma"`` (the warp-specialised TMA + ``wgmma`` schedule)
+    where TMA can address every input, else ``"mma.sync"``.  TMA needs
+    16-byte row strides, n_in % 16 (uint8), % 8 (uint16) or % 4 (float32)
+    and ndisp % 8, and 16-byte aligned bases; ``ptrs`` are the data
+    pointers of the inputs, the operator's among them.  The number of
+    frames and rows enters neither rule: ragged rows and any number of
     frames run on both."""
-    del B, rows
+    per_16 = {torch.uint8: 16, torch.uint16: 8, torch.float32: 4}[dtype]
     aligned = all(int(p) % 16 == 0 for p in ptrs)
-    return "wgmma" if n_in % 16 == 0 and ndisp % 8 == 0 and aligned else "mma.sync"
+    return "wgmma" if n_in % per_16 == 0 and ndisp % 8 == 0 and aligned else "mma.sync"
 
 
 def fused_recon_resident_reference(raw, pi_frame, inv_background, op_re, op_im):
@@ -251,11 +267,10 @@ def fused_recon_resident(raw: torch.Tensor, pi_frame: torch.Tensor,
     type, as the TPU kernel casts them.  Returns (rows, ndisp) float32.
     Replaces the TPU kernel ``fused_recon_resident`` (pallas_kernels.py:90-123),
     whose operator stays in VMEM for the whole grid while each frame streams
-    through once.  On CUDA (``csrc/fused_recon.cu``) TMA brings operator,
-    frame, pi_frame and inv_background tiles into a shared-memory ring and
-    ``wgmma`` (m64n256k16, bf16, float32 sums) takes the bf16 ratio, formed
-    in registers, as its A operand; shapes TMA cannot address run kernel 1
-    bf16's ``mma.sync`` schedule (:func:`resident_schedule`).
+    through once.  On CUDA its C entry runs kernel 1 u8's bf16 schedules (the
+    warp-specialised TMA + ``wgmma`` one where :func:`bf16_schedule` says
+    ``"wgmma"``, else ``mma.sync``): on Hopper the operator stays hot in the
+    50 MB L2, and the same schedule serves both entries.
     """
     B, rows, n_in = _check_stack(raw, "raw")
     if raw.dtype != torch.uint8:

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Kernel 1's u8 instances and the resident kernel of one checkout, at fixed
-inputs: their outputs saved for a bit-for-bit comparison with another
-checkout's, and kernel 1's back-to-back times.  Needs a GPU.
+"""The group kernels' instances of one checkout (kernel 1 on u8 and u16
+frames and kernel 2, each with an f32 and a bf16 operator, and the resident
+kernel), at fixed inputs: their outputs saved for a bit-for-bit comparison
+with another checkout's.  Needs a GPU; bench_sessions.py times them.
 
     python3 kernel_outputs.py --tree DIR OUT.pt     # DIR: a checkout (default .)
     python3 kernel_outputs.py --compare A.pt B.pt   # exit 0 when every output is equal
@@ -10,14 +11,15 @@ Each tree builds its own kernels under its own ``build/``.  The inputs, made
 from a seed with numpy: u8 frames, pi and inv_background as
 ``chip_smoke.random_problem`` draws them, and random float32 operators (and
 their bf16 rounding), at the flagship (8 × 512 × 2048 → 512 depths),
-chip_smoke.py's RAGGED shape and every ``ops.kernels.EDGE_SHAPES`` entry.
-Compare two commits in one call, in turns: parent, change, change, parent.
+chip_smoke.py's RAGGED shape and every ``ops.kernels.EDGE_SHAPES`` entry;
+Mono16 frames (12-bit counts << 4) and a float32 ratio from the same
+generator.  Compare two commits in one call, in turns: parent, change,
+change, parent.
 """
 
 from __future__ import annotations
 
 import argparse
-import statistics
 import sys
 from pathlib import Path
 
@@ -25,25 +27,6 @@ import numpy as np
 import torch
 
 SHAPES = {"flagship": (8, 512, 2048, 512), "ragged": (3, 100, 300, 77)}
-B2B = 10
-RUNS = 20
-
-
-def b2b_ms(fn) -> tuple[float, float, float]:
-    """Median, min and max ms per call of RUNS samples of B2B back-to-back
-    calls, CUDA events, after 3 warm-up calls."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(RUNS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(B2B):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / B2B)
-    return statistics.median(times), min(times), max(times)
 
 
 def save(tree: Path, out: Path) -> None:
@@ -61,15 +44,16 @@ def save(tree: Path, out: Path) -> None:
         f32 = tuple(torch.as_tensor(rng.normal(size=(n_in, ndisp))).to(dev, torch.float32)
                     for _ in range(2))
         ops = {"f32": f32, "bf16": tuple(m.to(torch.bfloat16) for m in f32)}
+        raw16 = torch.as_tensor((rng.integers(0, 4096, (B, rows, n_in)) << 4)
+                                .astype(np.uint16)).to(dev)
+        yr = torch.as_tensor(rng.normal(size=(B, rows, n_in))).to(dev, torch.float32)
         for op, (mr, mi) in ops.items():
             outputs[f"{label} raw_u8_{op}"] = kernels.fused_recon_raw_accumulate(
                 raw, pi, inv, mr, mi).cpu()
+            outputs[f"{label} raw_u16_{op}"] = kernels.fused_recon_raw_accumulate(
+                raw16, pi, inv, mr, mi).cpu()
+            outputs[f"{label} yr_f32_{op}"] = kernels.fused_recon_accumulate(yr, mr, mi).cpu()
         outputs[f"{label} resident"] = kernels.fused_recon_resident(raw, pi, inv, *f32).cpu()
-        if label == "flagship":
-            for op, (mr, mi) in ops.items():
-                t = b2b_ms(lambda: kernels.fused_recon_raw_accumulate(raw, pi, inv, mr, mi))
-                print(f"{tree}: kernel 1 u8 {op} flagship, {B2B} back-to-back calls a sample: "
-                      f"median {t[0]:.4f} ms (min {t[1]:.4f}, max {t[2]:.4f})", flush=True)
     torch.cuda.synchronize()
     torch.save(outputs, out)
     print(f"{tree}: {len(outputs)} outputs saved to {out}")

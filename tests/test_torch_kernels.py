@@ -26,7 +26,7 @@ import torch
 
 from fdoct_tpu_torch.ops import _build, kernels
 from fdoct_tpu_torch.ops.kernels import (
-    EDGE_SHAPES, INT8_K_TILE, INT8_TILE, LAUNCHES, RESIDENT_TILE, fused_recon_accumulate,
+    EDGE_SHAPES, INT8_K_TILE, INT8_TILE, LAUNCHES, WGMMA_TILE, fused_recon_accumulate,
     fused_recon_accumulate_reference, fused_recon_raw_accumulate,
     fused_recon_raw_accumulate_reference, split_tf32,
 )
@@ -337,17 +337,20 @@ def test_raw_wrapper_takes_only_u8_and_u16(dtype):
 
 def test_u16_entries_are_kernel_1s_template():
     """Kernel 1's wrapper picks its C entry by the frame type, and both u16
-    entries run the mma.sync template on uint16_t frames; LAUNCHES keeps one
-    key per TPU kernel."""
+    entries run kernel 1's schedules on uint16_t frames: the f32 one the
+    mma.sync template, the bf16 one the bf16 instances' dispatch (the
+    warp-specialised schedule, or the mma.sync template); LAUNCHES keeps
+    one key per TPU kernel."""
     text = (_build.PACKAGE_ROOT / "csrc" / "fused_recon.cu").read_text()
     assert kernels.RAW_ENTRY == {torch.uint8: "fdoct_recon_raw_u8",
                                  torch.uint16: "fdoct_recon_raw_u16"}
     for op in ("f32", "bf16"):
         for stem in kernels.RAW_ENTRY.values():
             assert f"{stem}_{op}" in _build.SIGNATURES
-    for name, op in {"raw_u16_f32": "float", "raw_u16_bf16": "__nv_bfloat16"}.items():
+    for name, call in {"raw_u16_f32": "launch_tc<uint16_t, float>",
+                       "raw_u16_bf16": "launch_bf16<uint16_t>"}.items():
         body = text[text.index(f"int fdoct_recon_{name}("):]
-        assert body[:body.index("}")].count(f"launch_tc<uint16_t, {op}>") == 1, name
+        assert body[:body.index("}")].count(f"{call}(") == 1, name
     assert set(LAUNCHES) == {"fused_recon_raw_accumulate", "fused_recon_accumulate",
                              "fused_recon_resident", "int8_bscan_display_fused"}
 
@@ -400,8 +403,16 @@ def test_tile_constants_match_the_sources():
     assert const("hopper_mma.cuh", "KT") == INT8_K_TILE           # namespace tc
     assert "using tc::KT;" in text["int8_bscan.cu"]
     assert INT8_TILE == (32, 32) and "32 x 32 tile" in text["int8_bscan.cu"]
-    assert RESIDENT_TILE == (const("fused_recon.cu", "BM"), const("fused_recon.cu", "BN"))
-    assert "namespace res {" in text["fused_recon.cu"]          # the resident schedule's
+    # the bf16 instances' warp-specialised schedule (namespace ws): 128 pairs
+    # (two consumer warpgroups of wgmma m64) x 128 depths (re and im make
+    # N = 256), 64 samples a stage, a producer warpgroup beside them, and
+    # registers moved to the consumers within the register file
+    assert "namespace ws {" in text["fused_recon.cu"]
+    assert WGMMA_TILE == (const("fused_recon.cu", "BM"), const("fused_recon.cu", "BN"))
+    assert WGMMA_TILE == (2 * 64, 256 // 2)
+    assert const("fused_recon.cu", "KT") == 64 and const("fused_recon.cu", "THREADS") == 3 * 128
+    producer, consumer = (const("fused_recon.cu", n) for n in ("PRODUCER_REGS", "CONSUMER_REGS"))
+    assert 128 * producer + 256 * consumer <= 65536 and producer % 8 == consumer % 8 == 0
     # the float32-operator instances stage KT / 2 samples (two blocks fit an
     # SM), rows padded to 36 and 136 floats: lane (g, t) of a fragment load
     # reads A row g, sample t and the operator at sample t, depth g, on 32
@@ -414,39 +425,52 @@ def test_tile_constants_match_the_sources():
     assert len({(t * 136 + g) % 32 for g in range(8) for t in range(4)}) == 32
 
 
+def _entry_body(text: str, name: str) -> str:
+    body = text[text.index(f"int {name}("):]
+    return body[:body.index("\n}\n")]
+
+
 def test_every_entry_point_runs_the_tensor_core_kernel():
-    """No entry point of fused_recon.cu is SIMT: the raw and yr ones run the
-    mma.sync template, the resident one the wgmma schedule or, where TMA
-    cannot address the inputs, the mma.sync template of kernel 1 bf16."""
+    """No entry point of fused_recon.cu is SIMT: the float32-operator ones
+    run the mma.sync template, the bf16-operator ones (the resident entry
+    among them) the warp-specialised wgmma schedule or, where TMA cannot
+    address the inputs, the mma.sync template; the resident entry has no
+    schedule of its own."""
     text = (_build.PACKAGE_ROOT / "csrc" / "fused_recon.cu").read_text()
     assert "fused_recon_kernel<" not in text and "launch<" not in text
     assert "OpChunk" not in text and "fmaf(" not in text           # the SIMT resident form
-    body = text[text.index("int fdoct_recon_resident_u8_bf16("):]
-    body = body[:body.index("\n}\n")]
-    assert "resident_wgmma_applies(" in body and "launch_tc<uint8_t, __nv_bfloat16>" in body
-    assert body.count("launch_resident(") == 1
-    assert "wgmma_m64n256k16_rs(" in text
+    assert "fused_recon_resident_kernel" not in text and "namespace res {" not in text
+    dispatch = _entry_body(text, "launch_bf16")
+    assert "ws_applies<In>(" in dispatch and dispatch.count("launch_ws<In>(") == 1
+    assert dispatch.count("launch_tc<In, __nv_bfloat16>(") == 1
+    for name, x in {"raw_u8_bf16": "uint8_t", "raw_u16_bf16": "uint16_t", "yr_f32_bf16": "float",
+                    "resident_u8_bf16": "uint8_t"}.items():
+        assert _entry_body(text, f"fdoct_recon_{name}").count(f"launch_bf16<{x}>(") == 1, name
+    assert "wgmma_m64n256k16_ss(" in text and "setmaxnreg_inc<" in text
+    assert "tma_load_3d(" in text and "fence_proxy_async()" in text
 
 
 def test_resident_schedule_mirrors_the_c_rule():
-    """ops.kernels.resident_schedule and resident_wgmma_applies of
-    fused_recon.cu take the wgmma schedule on the same conditions."""
+    """ops.kernels.bf16_schedule and ws_applies of fused_recon.cu take the
+    wgmma schedule on the same conditions, for each input type of the bf16
+    instances; the float32-operator entries keep the mma.sync template."""
     text = (_build.PACKAGE_ROOT / "csrc" / "fused_recon.cu").read_text()
-    body = text[text.index("bool resident_wgmma_applies("):]
+    body = text[text.index("bool ws_applies("):]
     body = body[:body.index("\n}\n")]
-    assert "n_in % 16 == 0 && ndisp % 8 == 0" in body
-    for name in ("raw", "pi", "inv_bg", "op_re", "op_im"):
+    assert "n_in % (16 / static_cast<int>(sizeof(In))) == 0 && ndisp % 8 == 0" in body
+    for name in ("x", "op_re", "op_im"):
         assert f"aligned({name})" in body
-    assert kernels.resident_schedule(8, 512, 2048, 512, [0] * 5) == "wgmma"
-    for n_in, ndisp, ptrs in ((2040, 512, [0] * 5), (2048, 508, [0] * 5),
-                              (2048, 512, [0, 0, 4, 0, 0])):
-        assert kernels.resident_schedule(8, 512, n_in, ndisp, ptrs) == "mma.sync"
+    assert "(!ws::raw<In>() || (aligned(pi) && aligned(inv_bg)))" in body
+    for dtype, per_16 in {torch.uint8: 16, torch.uint16: 8, torch.float32: 4}.items():
+        assert kernels.bf16_schedule(dtype, 2048, 512, [0] * 5) == "wgmma"
+        assert kernels.bf16_schedule(dtype, per_16, 8, [0] * 3) == "wgmma"
+        for n_in, ndisp, ptrs in ((per_16 * 127 + per_16 // 2, 512, [0] * 5), (2048, 508, [0] * 5),
+                                  (2048, 512, [0, 0, 4, 0, 0]), (2048, 512, [0, 0, 0, 0, 8])):
+            assert kernels.bf16_schedule(dtype, n_in, ndisp, ptrs) == "mma.sync", (dtype, n_in)
     for name, (x, op) in {"raw_u8_f32": ("uint8_t", "float"),
-                          "raw_u8_bf16": ("uint8_t", "__nv_bfloat16"),
-                          "yr_f32_f32": ("float", "float"),
-                          "yr_f32_bf16": ("float", "__nv_bfloat16")}.items():
-        body = text[text.index(f"int fdoct_recon_{name}("):]
-        assert body[:body.index("}")].count(f"launch_tc<{x}, {op}>") == 1, name
+                          "raw_u16_f32": ("uint16_t", "float"),
+                          "yr_f32_f32": ("float", "float")}.items():
+        assert _entry_body(text, f"fdoct_recon_{name}").count(f"launch_tc<{x}, {op}>(") == 1, name
 
 
 def test_build_hashes_the_shared_header():

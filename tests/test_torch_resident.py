@@ -4,10 +4,11 @@ On the CPU: the plain version against the JAX Pallas kernel in interpret
 mode (as tests/test_pallas.py runs it) and against float64 numpy of the
 bf16-rounded operands, the wrapper's checks and dispatch, and
 ``bench_resident`` at a small size, and which schedule the C entry takes
-(:func:`resident_schedule`).  On a GPU (cases marked ``cuda``): the CUDA
-kernel against its plain version and against kernel 1's bf16 instance, in
-both schedules (``wgmma`` + TMA, and ``mma.sync`` where TMA cannot address
-the inputs), with ragged tails of every tile.
+(:func:`bf16_schedule` for uint8 frames: the resident entry runs kernel 1
+u8's bf16 schedules).  On a GPU (cases marked ``cuda``): the CUDA kernel
+against its plain version and against kernel 1's bf16 instance, in both
+schedules (the warp-specialised ``wgmma`` + TMA one, and ``mma.sync`` where
+TMA cannot address the inputs), with ragged tails of every tile.
 
 Tolerance rtol 1e-5, atol 1e-5·max: the Pallas kernel, the plain version and
 the CUDA kernel round the same float32 ratio and the same operator to bf16,
@@ -21,8 +22,8 @@ import torch
 
 from fdoct_tpu_torch import bench_resident
 from fdoct_tpu_torch.ops.kernels import (
-    EDGE_SHAPES, LAUNCHES, RESIDENT_TILE, fused_recon_raw_accumulate, fused_recon_resident,
-    fused_recon_resident_reference, resident_schedule,
+    EDGE_SHAPES, LAUNCHES, WGMMA_TILE, bf16_schedule, fused_recon_raw_accumulate,
+    fused_recon_resident, fused_recon_resident_reference,
 )
 
 RTOL = 1e-5
@@ -130,13 +131,13 @@ FLAGSHIP = (8, 512, 2048, 512)
         "B40", "ragged-tails", "least-strides", "n_in-8", "ndisp-4", "raw-unaligned",
         "inv-unaligned", "op_im-unaligned"])
 def test_resident_schedule(shape, ptrs, want):
-    assert resident_schedule(*shape, ptrs) == want
+    assert bf16_schedule(torch.uint8, *shape[2:], ptrs) == want
 
 
 def test_resident_tile_is_two_warpgroups_by_re_and_im():
     """128 (row, frame) pairs (two wgmma m64 warpgroups) x 128 depths (re and
     im side by side make wgmma's N of 256)."""
-    pairs, depths = RESIDENT_TILE
+    pairs, depths = WGMMA_TILE
     assert pairs == 2 * 64 and 2 * depths == 256
 
 
@@ -263,7 +264,7 @@ WGMMA_SHAPES = {"flagship": FLAGSHIP, "tails": (8, 70, 1040, 200), "tails-b3": (
 def test_cuda_resident_edges_and_tails(cuda, shape):
     a = args(make_problem(shape, seed=11), "bf16", cuda)
     if shape in WGMMA_SHAPES.values():
-        assert resident_schedule(*shape, [t.data_ptr() for t in a]) == "wgmma"
+        assert bf16_schedule(torch.uint8, *shape[2:], [t.data_ptr() for t in a]) == "wgmma"
     assert_resident_case(a)
 
 
@@ -276,7 +277,7 @@ def test_cuda_resident_misaligned_operator(cuda):
     flat = torch.empty(a[3].numel() + 1, dtype=torch.bfloat16, device=cuda)
     flat[1:] = a[3].flatten()
     a[3] = flat[1:].view(a[3].shape)
-    assert resident_schedule(3, 12, 40, 16, [t.data_ptr() for t in a]) == "mma.sync"
+    assert bf16_schedule(torch.uint8, 40, 16, [t.data_ptr() for t in a]) == "mma.sync"
     got = fused_recon_resident(*a)
     assert_close(got.cpu().numpy(), fused_recon_resident_reference(*a).cpu().numpy())
 
@@ -288,5 +289,5 @@ def test_cuda_resident_unaligned_operator_at_a_wgmma_shape(cuda):
     flat = torch.empty(a[4].numel() + 1, dtype=torch.bfloat16, device=cuda)
     flat[1:] = a[4].flatten()
     a[4] = flat[1:].view(a[4].shape)
-    assert resident_schedule(8, 70, 1040, 200, [t.data_ptr() for t in a]) == "mma.sync"
+    assert bf16_schedule(torch.uint8, 1040, 200, [t.data_ptr() for t in a]) == "mma.sync"
     assert_resident_case(a)

@@ -1,0 +1,165 @@
+#!/usr/bin/env python3
+"""A clock64 trace of the stage loop of the bf16 instances' warp-specialised
+schedule (fused_recon_ws_kernel in fdoct_tpu_torch/csrc/fused_recon.cu), on
+one NVIDIA GPU.
+
+    python3 ws_trace.py --make DIR    # DIR/fdoct_tpu_torch: this checkout's package, traced
+    python3 ws_trace.py --read DIR    # its three bf16 instances at the flagship, once each
+
+``--make`` copies the package and inserts the trace into the kernel's
+source (TRACE_EDITS, each anchor found exactly once, else it raises): lane 0
+of every consumer warp adds its cycles [0] waiting for a stage to land, [1]
+forming its A values (loads and arithmetic), [2] at the first named
+barrier, [3] storing the tile with its fence and second barrier, [4]
+issuing the wgmmas, [5] waiting for the stage before's wgmmas and releasing
+its slot, [6] in the chunk epilogue, and [7] its stages; [8] sums the
+producer's cycles waiting for a free slot.  ``fdoct_ws_trace_read`` returns
+the nine sums and clears them.  ``--read`` (on the card) calls kernel 1 on
+u8 and on u16 frames and kernel 2 on the f32 ratio at the flagship inputs of
+bench_sessions.py, once each after a warm-up, and prints the cycles a
+consumer warp spends a stage in each part and the producer's wait a stage.
+The trace adds a few per cent of device time; time a traced tree with
+``bench_sessions.py --kernels-only --tree DIR``.  Every line printed is one
+JSON object with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import shutil
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+#: the parts of a consumer warp's stage, in the order of the counters
+PARTS = ("wait full", "form A", "first barrier", "store A + fence + barrier", "issue wgmma",
+         "wait wgmma + release", "chunk epilogue")
+
+_COUNTERS = """// The stage trace (ws_trace.py): cycles a part of the loop, summed over
+// the consumer warps' lane 0, and the producer's waits for a free slot.
+__device__ unsigned long long ws_trace_cycles[9];
+#define WS_TRACE_START unsigned ws_tr[7] = {}; long long ws_mark = clock64()
+#define WS_MARK(i) do { const long long now = clock64(); ws_tr[i] += static_cast<unsigned>(now - ws_mark); ws_mark = now; } while (0)
+#define WS_TRACE_END(stages) do { if ((threadIdx.x & 31) == 0) { _Pragma("unroll") for (int i = 0; i < 7; ++i) atomicAdd(&ws_trace_cycles[i], static_cast<unsigned long long>(ws_tr[i])); atomicAdd(&ws_trace_cycles[7], static_cast<unsigned long long>(stages)); } } while (0)
+
+"""
+_READ = """int fdoct_ws_trace_read(unsigned long long* host) {
+  cudaError_t rc = cudaMemcpyFromSymbol(host, ws_trace_cycles, sizeof(ws_trace_cycles));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const unsigned long long zero[9] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(ws_trace_cycles, zero, sizeof(zero)));
+}
+
+"""
+
+
+def _after(anchor: str, text: str) -> tuple[str, str]:
+    return anchor, anchor + text
+
+
+#: edits of fused_recon.cu: (text found exactly once, text put in its place)
+TRACE_EDITS = [
+    ("// An integer count c < 2^23", _COUNTERS + "// An integer count c < 2^23"),
+    ("        if (it >= nst) mbar_wait(&empty[s], ph ^ 1);\n",
+     "        if (it >= nst) {\n          const long long t0 = clock64();\n"
+     "          mbar_wait(&empty[s], ph ^ 1);\n"
+     "          atomicAdd(&ws_trace_cycles[8], static_cast<unsigned long long>(clock64() - t0));\n"
+     "        }\n"),
+    _after("  uint8_t* a_mine = a_tiles + wg * 2 * ws::A_BYTES;\n", "  WS_TRACE_START;\n"),
+    _after("    mbar_wait(&full[s], ph);\n", "    WS_MARK(0);\n"),
+    _after("      ws_form_a<In, false>(a, st, wg, t, fs, R, B - b0);\n", "    WS_MARK(1);\n"),
+    _after("    named_barrier_sync(1 + wg, 128);   // every warp is past the wgmmas that read a_s "
+           "last\n", "    WS_MARK(2);\n"),
+    _after("    named_barrier_sync(1 + wg, 128);   // the A tile is whole\n", "    WS_MARK(3);\n"),
+    _after("                          kt > 0 || kk > 0);\n    wgmma_commit();\n",
+           "    WS_MARK(4);\n"),
+    _after("      if (lane == 0) mbar_arrive(&empty[s == 0 ? nst - 1 : s - 1]);\n    }\n",
+           "    WS_MARK(5);\n"),
+    _after("      if constexpr (MULTI) ws_add_magnitudes(mag, acc);\n    }\n", "    WS_MARK(6);\n"),
+    ("    if (++kt == nk) kt = 0, b0 += 1 << fs;\n  }\n  if constexpr (MULTI) {\n",
+     "    if (++kt == nk) kt = 0, b0 += 1 << fs;\n  }\n  WS_TRACE_END(total);\n"
+     "  if constexpr (MULTI) {\n"),
+    ('}  // extern "C"', _READ + '}  // extern "C"'),
+]
+
+
+def make(dest: Path) -> Path:
+    """DEST/fdoct_tpu_torch: this checkout's package with the trace in
+    fused_recon.cu."""
+    shutil.rmtree(dest / "fdoct_tpu_torch", ignore_errors=True)
+    shutil.copytree(ROOT / "fdoct_tpu_torch", dest / "fdoct_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    path = dest / "fdoct_tpu_torch" / "csrc" / "fused_recon.cu"
+    text = path.read_text()
+    for old, new in TRACE_EDITS:
+        if text.count(old) != 1:
+            raise RuntimeError(f"ws_trace: {old.strip()[:60]!r} occurs {text.count(old)} times "
+                               "in fused_recon.cu; bring TRACE_EDITS up to date")
+        text = text.replace(old, new)
+    path.write_text(text)
+    return dest
+
+
+def read(tree: Path) -> int:
+    sys.path.insert(0, str(tree))             # before the package is first imported
+    from bench_sessions import kernel_inputs
+    from chip_smoke import FLAGSHIP, SEED
+    from fdoct_tpu_torch.bench_resident import card_line
+    from fdoct_tpu_torch.calibration import Calibration
+    from fdoct_tpu_torch.config import PipelineConfig
+    from fdoct_tpu_torch.ops import _build, kernels
+    from fdoct_tpu_torch.sources.synthetic import SyntheticSource
+    if not Path(kernels.__file__).resolve().is_relative_to(tree):
+        raise RuntimeError(f"imported {kernels.__file__}, not the one under {tree}")
+    trace = getattr(_build.load(), "fdoct_ws_trace_read", None)
+    if trace is None:
+        raise RuntimeError(f"{tree} has no trace: make it with --make")
+    trace.argtypes = [ctypes.c_void_p]
+    dev = torch.device("cuda")
+    cfg = PipelineConfig(**FLAGSHIP)
+    src = SyntheticSource(height=cfg.height, width=cfg.width, lambda0=cfg.lambda0,
+                          dlambda=cfg.lambdabw * 2.3548 / 4.0, noise=0.02, seed=SEED)
+    x = kernel_inputs(cfg, Calibration.create(cfg, dev), src, src.frames(), dev)
+    calls = {"raw u8 bf16": lambda: kernels.fused_recon_raw_accumulate(
+                 x["raw"], x["pi"], x["inv"], *x["bf16"]),
+             "raw u16 bf16": lambda: kernels.fused_recon_raw_accumulate(
+                 x["raw16"], x["pi"], x["inv"], *x["bf16"]),
+             "yr f32 bf16": lambda: kernels.fused_recon_accumulate(x["yr"], *x["bf16"])}
+    card = card_line()
+    sums = (ctypes.c_ulonglong * 9)()
+    for name, fn in calls.items():
+        for _ in range(2):            # a warm-up call, its counts cleared; then the one read
+            fn()
+            torch.cuda.synchronize()
+            if trace(ctypes.addressof(sums)) != 0:
+                raise RuntimeError("fdoct_ws_trace_read failed")
+        stages = sums[7]
+        print(json.dumps({"tree": str(tree), "kernel": name, "warp_stages": stages,
+                          "cycles_per_warp_stage": {p: sums[i] / stages
+                                                    for i, p in enumerate(PARTS)},
+                          "producer_wait_cycles_per_stage": sums[8] / (stages / 8),
+                          "card": card}), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    group = ap.add_mutually_exclusive_group(required=True)
+    group.add_argument("--make", metavar="DIR", help="write DIR/fdoct_tpu_torch, traced")
+    group.add_argument("--read", metavar="DIR", help="read the trace of DIR's bf16 instances")
+    args = ap.parse_args(argv)
+    if args.make:
+        print(make(Path(args.make).resolve()))
+        return 0
+    if not torch.cuda.is_available():
+        print("ws_trace: torch.cuda.is_available() is false; this needs a GPU", file=sys.stderr)
+        return 1
+    return read(Path(args.read).resolve())
+
+
+if __name__ == "__main__":
+    sys.exit(main())
