@@ -19,7 +19,9 @@ Flagship: 8 frames of 512 x 2048 u8 per group, 512 depths, the operator of
 
 - kernels (KERNELS): kernel 1 on the u8 frames and on the same counts << 4
   as Mono16 frames, and kernel 2 on the f32 ratio the 'sim' route forms,
-  with a bf16 and (u8, ratio) an f32 operator; the resident kernel; and the
+  with a bf16 and an f32 operator (the f32 instances given the
+  Calibration's TF32 table where the tree's wrappers take one, so that no
+  timed call packs it); the resident kernel; and the
   three bf16 instances on the first frame alone (a group of one, as the
   per-frame and saveframes routes launch them).  Per instance: CUDA
   events, median of 20 single calls ("ms") and of 20 samples of 10
@@ -30,6 +32,10 @@ Flagship: 8 frames of 512 x 2048 u8 per group, 512 depths, the operator of
   the worst error against the float64 product of the same f32 ratio and
   operator, as a share of rtol = atol/max = 1e-4 ("f64_share"), beside the
   same share of cuBLAS f32 (TF32 off) and of the TF32 control (TF32 on);
+  the schedule each call takes ("schedule": "wgmma" or "mma.sync", read
+  from the tree's ``bf16_schedule``/``f32_schedule`` where it has them);
+  and the cuBLAS product of the ratio stack by [op_re | op_im] alone in f32
+  and bf16 (kind "product");
 - sessions (SESSIONS): ``base`` (the raw kernel) and ``sim`` with
   ``donotnormalize`` off (the ratio kernel), each at 'default' (bf16
   operator on CUDA) and at 'highest' (f32 operator), ``base`` at
@@ -53,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import sys
 from pathlib import Path
@@ -62,7 +69,7 @@ import torch
 
 from chip_smoke import (
     B2B, FLAGSHIP, SEED, TOL, captured_session, compare, cuda_ms, device_us, f64_product,
-    host_enqueue_ms, tf32_control, time_session,
+    host_enqueue_ms, product_times, tf32_control, time_session,
 )
 
 #: (variant, matmul_precision, bits a pixel of the synthetic camera, other config)
@@ -74,7 +81,8 @@ SESSIONS = [("base", "default", 8, {}), ("base", "highest", 8, {}), ("sim", "def
 def kernel_inputs(cfg, calib, src, frames, dev) -> dict:
     """The flagship's kernel inputs: one group of u8 frames ("raw") and the
     same counts << 4 as Mono16 ("raw16"), pi, inv_background, the f32 ratio
-    the 'sim' route forms ("yr"), and the operators ("bf16", "f32")."""
+    the 'sim' route forms ("yr"), the operators ("bf16", "f32") and the
+    Calibration's TF32 table ("tf32", None in a tree without one)."""
     from fdoct_tpu_torch.pipeline import apodize_ratio, preprocess
 
     batch = np.stack([next(frames) for _ in range(cfg.averages)])
@@ -84,24 +92,47 @@ def kernel_inputs(cfg, calib, src, frames, dev) -> dict:
     yr = apodize_ratio(preprocess(raw, cfg), bg, pi, cfg.replace(donotnormalize=False))
     return {"raw": raw, "raw16": torch.as_tensor(batch.astype(np.uint16) << 4).to(dev),
             "pi": pi, "inv": (1.0 / bg).contiguous(), "yr": yr.contiguous(),
-            "bf16": (calib.op_re_bf16, calib.op_im_bf16), "f32": (calib.op_re, calib.op_im)}
+            "bf16": (calib.op_re_bf16, calib.op_im_bf16), "f32": (calib.op_re, calib.op_im),
+            "tf32": getattr(calib, "op_tf32", None)}
+
+
+def table_kw(kernels, x: dict, op: str) -> dict:
+    """The TF32 table keyword of an f32 call, where the tree's wrappers take
+    one (a tree before them packs nothing: it reads op_re and op_im)."""
+    takes = "op_tf32" in inspect.signature(kernels.fused_recon_raw_accumulate).parameters
+    return {"op_tf32": x["tf32"]} if op == "f32" and takes else {}
+
+
+def schedule(kernels, frames: torch.Tensor, op: str, x: dict) -> str:
+    """The schedule a call takes, as the tree's rule reads it ("mma.sync"
+    for an f32 operator in a tree without f32_schedule)."""
+    terms = [] if frames.dtype == torch.float32 else [x["pi"], x["inv"]]
+    if op == "bf16":
+        ptrs = [frames, *x["bf16"], *terms]
+        return kernels.bf16_schedule(frames.dtype, frames.shape[-1], x["bf16"][0].shape[1],
+                                     [t.data_ptr() for t in ptrs])
+    if not hasattr(kernels, "f32_schedule"):
+        return "mma.sync"
+    return kernels.f32_schedule(frames.dtype, frames.shape[-1], x["f32"][0].shape[1],
+                                [t.data_ptr() for t in (frames, x["tf32"], *terms)])
 
 
 def kernel_calls(kernels, x: dict) -> dict:
-    """(wrapper, frames, operator, group size) -> a call of it on ``x``."""
+    """(wrapper, frames, operator, group size) -> (a call of it on ``x``,
+    its frames)."""
     raw, yr = kernels.fused_recon_raw_accumulate, kernels.fused_recon_accumulate
     calls = {}
     for B in (8, 1):
         for op in ("bf16", "f32") if B == 8 else ("bf16",):
-            m = x[op]
-            calls[("fused_recon_raw_accumulate", "u8", op, B)] = \
-                lambda m=m, B=B: raw(x["raw"][:B], x["pi"], x["inv"], *m)
-            if op == "bf16":
-                calls[("fused_recon_raw_accumulate", "u16", op, B)] = \
-                    lambda m=m, B=B: raw(x["raw16"][:B], x["pi"], x["inv"], *m)
-            calls[("fused_recon_accumulate", "f32", op, B)] = lambda m=m, B=B: yr(x["yr"][:B], *m)
-    calls[("fused_recon_resident", "u8", "bf16", 8)] = lambda: kernels.fused_recon_resident(
-        x["raw"], x["pi"], x["inv"], *x["bf16"])
+            m, kw = x[op], table_kw(kernels, x, op)
+            for frames_type, key in (("u8", "raw"), ("u16", "raw16")):
+                calls[("fused_recon_raw_accumulate", frames_type, op, B)] = (
+                    lambda m=m, kw=kw, B=B, key=key: raw(x[key][:B], x["pi"], x["inv"], *m, **kw),
+                    x[key][:B])
+            calls[("fused_recon_accumulate", "f32", op, B)] = (
+                lambda m=m, kw=kw, B=B: yr(x["yr"][:B], *m, **kw), x["yr"][:B])
+    calls[("fused_recon_resident", "u8", "bf16", 8)] = (lambda: kernels.fused_recon_resident(
+        x["raw"], x["pi"], x["inv"], *x["bf16"]), x["raw"])
     return calls
 
 
@@ -145,24 +176,33 @@ def main(argv=None) -> int:
 
     # the group kernels --------------------------------------------------
     x = kernel_inputs(cfg, calib, sources[8], streams[8], dev)
-    ratios = {"fused_recon_raw_accumulate": (x["raw"].float() - x["pi"]) * x["inv"],
-              "fused_recon_accumulate": x["yr"]}
+    ratios = {("fused_recon_raw_accumulate", "u8"): (x["raw"].float() - x["pi"]) * x["inv"],
+              ("fused_recon_raw_accumulate", "u16"): (x["raw16"].float() - x["pi"]) * x["inv"],
+              ("fused_recon_accumulate", "f32"): x["yr"]}
     tol = TOL["f32"]
-    for (name, frames_type, op_name, B), fn in kernel_calls(kernels, x).items():
+    for (name, frames_type, op_name, B), (fn, frames) in kernel_calls(kernels, x).items():
         acc = {}
         if op_name == "f32":
             op = x["f32"]
-            want = f64_product(ratios[name], *op)
+            ratio = ratios[(name, frames_type)]
+            want = f64_product(ratio, *op)
             atol = tol * float(want.abs().max())
             readings = {"f64_share": fn(),
-                        "cublas_f32_f64_share":
-                            kernels.fused_recon_accumulate_reference(ratios[name], *op),
-                        "tf32_control_f64_share": tf32_control(ratios[name], *op)}
+                        "cublas_f32_f64_share": kernels.fused_recon_accumulate_reference(ratio, *op),
+                        "tf32_control_f64_share": tf32_control(ratio, *op)}
             acc = {k: compare(v, want, tol, atol)["worst_share_of_tol"]
                    for k, v in readings.items()}
         emit(kind="kernel", name=name, frames=frames_type, operator=op_name, group=B,
+             schedule=schedule(kernels, frames, op_name, x),
              ms=cuda_ms(fn)[0], ms_b2b=cuda_ms(fn, per=B2B)[0], device_us=device_us(fn),
              host_us=host_enqueue_ms(fn, runs=50) * 1e3, **acc)
+    stack = x["yr"].reshape(-1, x["yr"].shape[-1])
+    for op_name in ("f32", "bf16"):
+        cat = torch.cat(x[op_name], dim=1).contiguous()
+        a = stack.to(cat.dtype)
+        single, b2b = product_times(lambda: torch.matmul(a, cat))
+        emit(kind="product", operator=op_name, shape=[list(a.shape), list(cat.shape)],
+             ms=single, ms_b2b=b2b)
     if args.kernels_only:
         return 0
 

@@ -24,13 +24,15 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    version on the card, at the flagship shape (8 frames of 512 x 2048 u8,
    the flagship M from Calibration.create, 512 depths), at a ragged shape,
    at RESIDENT_RAGGED and at the tensor-core schedule's edge shapes
-   (ops.kernels.EDGE_SHAPES), each bf16 line with the schedule the instance
-   took (ops.kernels.bf16_schedule: the warp-specialised TMA + wgmma one
-   where TMA can address the inputs, else mma.sync); the flagship and
-   RESIDENT_RAGGED must take wgmma.  At those two shapes each bf16 instance
-   is also run on the same values through a view one element off a 16-byte
-   boundary, which its C entry sends to mma.sync, and the two outputs must
-   be equal (torch.equal).
+   (ops.kernels.EDGE_SHAPES), each line with the schedule the instance took
+   (ops.kernels.bf16_schedule / f32_schedule: the warp-specialised TMA +
+   wgmma one, bf16 or 3xTF32 on the Calibration's TF32 table, where TMA can
+   address the inputs, else mma.sync); the flagship and RESIDENT_RAGGED must
+   take wgmma.  At those two shapes each instance, bf16 and f32, is also run
+   on the same values through a view one element off a 16-byte boundary,
+   which its C entry sends to mma.sync, and the two outputs must be equal
+   (torch.equal; the line also gives the worst share of F64_TOL between
+   them).
    Tolerance: float32 operator rtol 1e-4, atol 1e-4*max (3xTF32 against
    cuBLAS f32 with TF32 off); bfloat16 operator rtol 1e-5, atol 1e-5*max
    (TC_TOL: both round the same f32 ratio to bf16, so only the order of the
@@ -287,8 +289,8 @@ three TF32 products at 495 TFLOP/s), computed from this run's inputs;
 "library_ms" is null (no single PyTorch call computes sum_b |x_b @ M|) and
 "product_ms" times the operator product alone; "mma" names the
 tensor-core instruction and "schedule" the schedule the instance took at
-the flagship ("wgmma" or "mma.sync"), the bf16 entries with
-"bit_equal_to_mma_sync", the outcome of the misaligned-view checks; the float32-operator entries add their worst
+the flagship ("wgmma" or "mma.sync") with "bit_equal_to_mma_sync", the
+outcome of the misaligned-view checks; the float32-operator entries add their worst
 shares of F64_TOL and those of cuBLAS f32 and of the TF32 control, the
 bf16 entries theirs of BF16_F64_TOL and cuBLAS f32's (kernels 1-2 also the
 24- and 23-bit chains' at the flagship).  The line before it gives the
@@ -358,9 +360,16 @@ MMA_SYNC_BF16 = "mma.sync.m16n8k16.f32.bf16.bf16.f32"
 #: NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
 PARENT_B2B_MS = {("fused_recon_raw_accumulate", "bf16"): "0.1609-0.1699",
                  ("fused_recon_accumulate", "bf16"): "0.1239-0.1255",
-                 "u16 bf16": "0.1705-0.1709", "fused_recon_resident": "0.0621-0.0647"}
-MMA_TF32X3 = ("mma.sync.m16n8k8.f32.tf32.tf32.f32 (3xTF32: lo.hi + hi.lo + hi.hi, each "
-              "stage's sums added in round-to-nearest f32)")
+                 "u16 bf16": "0.1705-0.1709", "fused_recon_resident": "0.0621-0.0647",
+                 ("fused_recon_raw_accumulate", "f32"): "0.3652",
+                 ("fused_recon_accumulate", "f32"): "0.3274", "u16 f32": "0.3850"}
+#: the f32-operator instances' schedule where TMA can address the inputs;
+#: elsewhere they run MMA_SYNC_TF32X3, the same sums
+MMA_TF32X3 = ("wgmma.mma_async.m64n128k8.f32.tf32.tf32 (3xTF32: lo.hi + hi.lo + hi.hi, "
+              "each stage's sums added in round-to-nearest f32; warp-specialised: a TMA "
+              "producer warpgroup, two consumer warpgroups, A from registers, the K-major "
+              "TF32 table from shared memory)")
+MMA_SYNC_TF32X3 = "mma.sync.m16n8k8.f32.tf32.tf32.f32 (3xTF32)"
 MMA = {("fused_recon_raw_accumulate", "bf16"): MMA_BF16,
        ("fused_recon_raw_accumulate", "f32"): MMA_TF32X3,
        ("fused_recon_accumulate", "bf16"): MMA_BF16,
@@ -457,7 +466,21 @@ def random_problem(shape, seed: int, dev: torch.device) -> dict:
     mr, mi = (torch.as_tensor(rng.normal(size=(n_in, ndisp))).to(dev, torch.float32)
               for _ in range(2))
     inp["f32"], inp["bf16"] = (mr, mi), (mr.to(torch.bfloat16), mi.to(torch.bfloat16))
+    inp["tf32"] = tf32_table(mr, mi)
     return inp
+
+
+def tf32_table(mr: torch.Tensor, mi: torch.Tensor) -> torch.Tensor:
+    """The f32 instances' TF32 table of (mr, mi), packed once per problem as
+    a Calibration packs it, outside every timed call."""
+    from fdoct_tpu_torch.ops.kernels import pack_tf32_operator
+    return pack_tf32_operator(mr, mi)
+
+
+def table_kw(inp: dict, op: str) -> dict:
+    """The keyword a kernel wrapper takes beside operator ``op`` of problem
+    ``inp``: the TF32 table with an f32 operator."""
+    return {"op_tf32": inp["tf32"]} if op == "f32" else {}
 
 
 def captured_session(session_cls, cfg, variant: str, src, frames, calib, dev, **kw):
@@ -712,37 +735,48 @@ def time_keys(t: dict, prefix: str = "") -> dict:
             f"{prefix}ms_b2b": t["kernel_b2b"][0], f"{prefix}plain_ms_b2b": t["plain_b2b"][0]}
 
 
-def schedule_of(x: torch.Tensor, ops, *terms: torch.Tensor) -> str:
-    """The schedule a bf16 instance takes for input rows ``x``, the operator
-    pair ``ops`` and (raw frames) pi and inv_background ``terms``: what its C
-    entry chooses before the launch (ops.kernels.bf16_schedule)."""
-    from fdoct_tpu_torch.ops.kernels import bf16_schedule
-    return bf16_schedule(x.dtype, x.shape[-1], ops[0].shape[1],
-                         [t.data_ptr() for t in (x, *ops, *terms)])
+def schedule_of(x: torch.Tensor, ops, *terms: torch.Tensor, table=None) -> str:
+    """The schedule an instance takes for input rows ``x``, the operator
+    pair ``ops``, (raw frames) pi and inv_background ``terms`` and (an f32
+    operator) the TF32 ``table``: what its C entry chooses before the launch
+    (ops.kernels.bf16_schedule, f32_schedule)."""
+    from fdoct_tpu_torch.ops.kernels import bf16_schedule, f32_schedule
+    if ops[0].dtype == torch.bfloat16:
+        return bf16_schedule(x.dtype, x.shape[-1], ops[0].shape[1],
+                             [t.data_ptr() for t in (x, *ops, *terms)])
+    return f32_schedule(x.dtype, x.shape[-1], ops[0].shape[1],
+                        [t.data_ptr() for t in (x, table, *terms)])
 
 
 def misaligned(x: torch.Tensor) -> torch.Tensor:
     """The same values through a view one element past an aligned buffer:
-    not 16-byte aligned, so the bf16 instances take the mma.sync schedule."""
+    not 16-byte aligned, so every instance takes the mma.sync schedule."""
     flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
     flat[1:] = x.flatten()
     return flat[1:].view(x.shape)
 
 
-def bit_equal_schedules(run, x: torch.Tensor, ops, *terms: torch.Tensor) -> bool:
+def bit_equal_schedules(run, x: torch.Tensor, ops, *terms: torch.Tensor,
+                        table=None) -> tuple[bool, float]:
     """Whether ``run(x)`` on the wgmma schedule equals ``run`` on the same
-    values through a misaligned view (the mma.sync schedule) bit for bit;
-    checks that each took the schedule it should."""
+    values through a misaligned view (the mma.sync schedule) bit for bit,
+    and the worst share of F64_TOL between the two; checks that each took
+    the schedule it should."""
     y = misaligned(x)
-    check(schedule_of(x, ops, *terms) == "wgmma", "the aligned input does not take wgmma")
-    check(schedule_of(y, ops, *terms) == "mma.sync", "the misaligned view does not take mma.sync")
+    check(schedule_of(x, ops, *terms, table=table) == "wgmma",
+          "the aligned input does not take wgmma")
+    check(schedule_of(y, ops, *terms, table=table) == "mma.sync",
+          "the misaligned view does not take mma.sync")
     got, want = run(x), run(y)
     torch.cuda.synchronize()
-    return bool(torch.equal(got, want))
+    share = compare(got, want, F64_TOL, F64_TOL * float(want.abs().max()))["worst_share_of_tol"]
+    return bool(torch.equal(got, want)), share
 
 
 def ptxas_summary(log: str, src: str | None = None) -> list[str]:
-    """One line per warp-specialised kernel of ptxas's -v output: its
+    """One line per warp-specialised kernel of ptxas's -v output (the bf16
+    schedule ws and the 3xTF32 one ws32, each on u8, u16 and f32 rows, with
+    and without MULTI): its
     registers at launch (every thread), the registers a thread of each role
     takes after setmaxnreg (read from ws::PRODUCER_REGS and CONSUMER_REGS of
     ``src``, the text of fused_recon.cu, by default this checkout's), shared
@@ -757,7 +791,7 @@ def ptxas_summary(log: str, src: str | None = None) -> list[str]:
         if m:
             name = m.group(1)
             continue
-        k = re.search(r"fused_recon_ws_kernelI([htf])Lb([01])E", name or "")
+        k = re.search(r"fused_recon_(ws|ws32)_kernelI([htf])Lb([01])E", name or "")
         if not k:
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -767,7 +801,8 @@ def ptxas_summary(log: str, src: str | None = None) -> list[str]:
         m = re.search(r"Used (\d+) registers", ln)
         if m:
             smem = re.search(r"(\d+) bytes smem", ln)
-            out.append(f"fused_recon_ws_kernel<{types[k.group(1)]}, MULTI={k.group(2)}>: "
+            out.append(f"fused_recon_{k.group(1)}_kernel<{types[k.group(2)]}, "
+                       f"MULTI={k.group(3)}>: "
                        f"{m.group(1)} registers a thread at launch; after setmaxnreg the "
                        f"producer warpgroup {roles['PRODUCER_REGS']}, the consumer warpgroups "
                        f"{roles['CONSUMER_REGS']}; static smem {smem.group(1) if smem else 0} B "
@@ -818,7 +853,7 @@ def main() -> int:
     for ln in ptxas:
         phase("build", ln)
     summary = ptxas_summary(_build.library_path().with_suffix(".log").read_text())
-    check(len(summary) == 6, f"ptxas reported {len(summary)} warp-specialised kernels, not 6")
+    check(len(summary) == 12, f"ptxas reported {len(summary)} warp-specialised kernels, not 12")
     for ln in summary:
         phase("build", ln)
 
@@ -839,16 +874,21 @@ def main() -> int:
         "yr": apodize_ratio(preprocess(torch.as_tensor(batch).to(dev), cfg), bg, pi,
                             cfg.replace(donotnormalize=False)).contiguous(),
         "f32": (calib.op_re, calib.op_im), "bf16": (calib.op_re_bf16, calib.op_im_bf16),
+        "tf32": calib.op_tf32,
     }
     rag_in = random_problem(RAGGED, SEED, dev)
 
     def run_raw(inp, op, kernel=True):
-        fn = fused_recon_raw_accumulate if kernel else fused_recon_raw_accumulate_reference
-        return fn(inp["raw"], inp["pi"], inp["inv"], *inp[op])
+        if not kernel:
+            return fused_recon_raw_accumulate_reference(inp["raw"], inp["pi"], inp["inv"],
+                                                        *inp[op])
+        return fused_recon_raw_accumulate(inp["raw"], inp["pi"], inp["inv"], *inp[op],
+                                          **table_kw(inp, op))
 
     def run_yr(inp, op, kernel=True):
-        fn = fused_recon_accumulate if kernel else fused_recon_accumulate_reference
-        return fn(inp["yr"], *inp[op])
+        if not kernel:
+            return fused_recon_accumulate_reference(inp["yr"], *inp[op])
+        return fused_recon_accumulate(inp["yr"], *inp[op], **table_kw(inp, op))
 
     def ratio32(inp, name):
         """The f32 ratio each kernel takes or forms (rounded as it forms it)."""
@@ -872,7 +912,7 @@ def main() -> int:
             return inp["raw"], (inp["pi"], inp["inv"])
         return inp["yr"], ()
 
-    bit_equal = {}                                   # (name, shape) -> wgmma == mma.sync
+    bit_equal = {}                                   # (name, op, shape) -> wgmma == mma.sync
     for shape_name, inp in problems:
         for name, run in runners.items():
             for op in ("f32", "bf16"):
@@ -884,31 +924,31 @@ def main() -> int:
                 errors[(name, shape_name, op)] = res
                 shares.setdefault((name, op), {})[shape_name] = res["worst_share_of_tol"]
                 x, terms = input_rows(inp, name)
-                sched = schedule_of(x, inp[op], *terms) if op == "bf16" else "mma.sync"
+                sched = schedule_of(x, inp[op], *terms, table=inp["tf32"])
                 phase("kernels", f"{name} {shape_name} {tuple(inp['raw'].shape)}->"
                       f"{tuple(got.shape)} op={op} schedule {sched}: max_abs_err "
                       f"{res['max_abs_err']:.3e}, worst {res['worst_share_of_tol']:.3e} of tol "
                       f"(rtol=atol/max={tol})")
                 check(res["finite"] and res["worst_share_of_tol"] <= 1.0,
                       f"{name} {shape_name} {op} disagrees with its plain version")
-                check(sched == "wgmma" or op == "f32"
-                      or shape_name not in ("flagship", "resident ragged"),
-                      f"{name} {shape_name} bf16 takes the {sched} schedule, not wgmma")
-            if shape_name in ("flagship", "resident ragged"):
+                check(sched == "wgmma" or shape_name not in ("flagship", "resident ragged"),
+                      f"{name} {shape_name} {op} takes the {sched} schedule, not wgmma")
+            for op in (("f32", "bf16") if shape_name in ("flagship", "resident ragged") else ()):
                 # the same values through a misaligned view: the mma.sync schedule
                 x, terms = input_rows(inp, name)
                 if name == "fused_recon_raw_accumulate":
-                    def run_x(x, inp=inp):
-                        return fused_recon_raw_accumulate(x, inp["pi"], inp["inv"], *inp["bf16"])
+                    def run_x(x, inp=inp, op=op):
+                        return fused_recon_raw_accumulate(x, inp["pi"], inp["inv"], *inp[op],
+                                                          **table_kw(inp, op))
                 else:
-                    def run_x(x, inp=inp):
-                        return fused_recon_accumulate(x, *inp["bf16"])
-                bit_equal[(name, shape_name)] = eq = bit_equal_schedules(
-                    run_x, x, inp["bf16"], *terms)
-                phase("kernels", f"{name} {shape_name} op=bf16: the wgmma schedule against the "
+                    def run_x(x, inp=inp, op=op):
+                        return fused_recon_accumulate(x, *inp[op], **table_kw(inp, op))
+                eq, share = bit_equal_schedules(run_x, x, inp[op], *terms, table=inp["tf32"])
+                bit_equal[(name, op, shape_name)] = eq
+                phase("kernels", f"{name} {shape_name} op={op}: the wgmma schedule against the "
                       f"mma.sync schedule on the same values (a misaligned view): torch.equal "
-                      f"{eq}")
-                check(eq, f"{name} {shape_name}: the two bf16 schedules differ")
+                      f"{eq}, worst {share:.3e} of F64_TOL apart")
+                check(eq, f"{name} {shape_name}: the two {op} schedules differ")
             # the f32 instance and cuBLAS f32 against the float64 product, and
             # the TF32 control that the limit must reject
             x32, ops32 = ratio32(inp, name), inp["f32"]
@@ -1017,7 +1057,7 @@ def main() -> int:
             times[(name, op_name)] = t = timed_pair(lambda: run(flag_in, op_name),
                                                     lambda: run(flag_in, op_name, kernel=False))
             parent = (f" | the parent's mma.sync b2b {PARENT_B2B_MS[(name, op_name)]} ms "
-                      "(PERF.md §6)" if op_name == "bf16" else "")
+                      "(PERF.md §6)")
             phase("times", f"{name} flagship op={op_name}: {describe(t)}{parent} | {card_line}")
     n_in = flag_in["yr"].shape[-1]
     stack = {"f32": flag_in["yr"].reshape(-1, n_in)}
@@ -1083,10 +1123,9 @@ def main() -> int:
             entries.append({
                 "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
                 "launches": launches[(name, op)], "operator": op, "mma": MMA[(name, op)],
-                "schedule": (schedule_of(ins[0], flag_in[op], *ins[1:]) if op == "bf16"
-                             else "mma.sync"),
-                **({"bit_equal_to_mma_sync": all(v for (n, _), v in bit_equal.items()
-                                                 if n == name)} if op == "bf16" else {}),
+                "schedule": schedule_of(ins[0], flag_in[op], *ins[1:], table=flag_in["tf32"]),
+                "bit_equal_to_mma_sync": all(v for (n, o, _), v in bit_equal.items()
+                                             if (n, o) == (name, op)),
                 "max_abs_err": errors[(name, "flagship", op)]["max_abs_err"],
                 "worst_share_of_tol": worst_shares(shares[(name, op)]), **f64,
                 **time_keys(times[(name, op)]),
@@ -1704,6 +1743,12 @@ def session_state_phase(cfg, calib, src, frames, card_line: str, dev: torch.devi
           f"{plugin.dispnm} +- {plugin.errnm} nm (source {VIB_NM} nm), profile "
           f"{np.round(plugin.profile, 2).tolist()} nm")
     check(finite, "peak: the three holds gave no finite displacement")
+    staged = torch.as_tensor(np.stack([next(frames) for _ in range(avg)])).to(dev)
+    sched = schedule_of(staged, (calib.op_re, calib.op_im), s.data_yp,
+                        (1.0 / s.data_yb).contiguous(), table=calib.op_tf32)
+    phase("session state", f"peak 'highest': kernel 1 f32 takes the {sched} schedule on the "
+          f"Calibration's TF32 table {tuple(calib.op_tf32.shape)}")
+    check(sched == "wgmma", f"peak 'highest' takes the {sched} schedule, not wgmma")
     timed("peak 'highest'", s, batches())
 
     # 'base' 'default' with the rings, J-lockin and a sink ---------------------
@@ -2324,6 +2369,7 @@ def u16_problem(cfg, values: str, dev: torch.device, shape=None) -> dict:
         mr, mi = (torch.as_tensor(rng.normal(size=(n_in, ndisp))).to(dev, torch.float32)
                   for _ in range(2))
         inp["f32"], inp["bf16"] = (mr, mi), (mr.to(torch.bfloat16), mi.to(torch.bfloat16))
+        inp["tf32"] = tf32_table(mr, mi)
     return inp
 
 
@@ -2363,7 +2409,8 @@ def u16_phases(cfg, calib, products: dict, card_line: str, dev: torch.device) ->
     from fdoct_tpu_torch.sources.synthetic import SyntheticSource
 
     name = "fused_recon_raw_accumulate"
-    ops = {"f32": (calib.op_re, calib.op_im), "bf16": (calib.op_re_bf16, calib.op_im_bf16)}
+    ops = {"f32": (calib.op_re, calib.op_im), "bf16": (calib.op_re_bf16, calib.op_im_bf16),
+           "tf32": calib.op_tf32}
     problems = {"flagship camera": {**u16_problem(cfg, "camera", dev), **ops},
                 "flagship mono16": {**u16_problem(cfg, "mono16", dev), **ops},
                 "ragged noise": u16_problem(cfg, "noise", dev, RAGGED),
@@ -2373,20 +2420,24 @@ def u16_phases(cfg, calib, products: dict, card_line: str, dev: torch.device) ->
     for shape_name, inp in problems.items():
         x = (inp["raw"], inp["pi"], inp["inv"])
         x32 = (inp["raw"].float() - inp["pi"]) * inp["inv"]
-        sched = schedule_of(inp["raw"], inp["bf16"], inp["pi"], inp["inv"])
-        phase("kernel1_u16", f"{name} u16 {shape_name} op=bf16 takes the {sched} schedule")
-        check(sched == "wgmma" or shape_name not in ("flagship camera", "resident ragged mono16"),
-              f"{name} u16 {shape_name} takes the {sched} schedule, not wgmma")
-        if shape_name in ("flagship camera", "resident ragged mono16"):
-            bit_equal[shape_name] = eq = bit_equal_schedules(
-                lambda r, inp=inp: fused_recon_raw_accumulate(r, inp["pi"], inp["inv"],
-                                                              *inp["bf16"]),
-                inp["raw"], inp["bf16"], inp["pi"], inp["inv"])
-            phase("kernel1_u16", f"{name} u16 {shape_name} op=bf16: the wgmma schedule against "
-                  f"the mma.sync schedule on the same values (a misaligned view): torch.equal {eq}")
-            check(eq, f"{name} u16 {shape_name}: the two bf16 schedules differ")
         for op in ("bf16", "f32"):
-            got = fused_recon_raw_accumulate(*x, *inp[op])
+            sched = schedule_of(inp["raw"], inp[op], inp["pi"], inp["inv"], table=inp["tf32"])
+            phase("kernel1_u16", f"{name} u16 {shape_name} op={op} takes the {sched} schedule")
+            check(sched == "wgmma"
+                  or shape_name not in ("flagship camera", "resident ragged mono16"),
+                  f"{name} u16 {shape_name} {op} takes the {sched} schedule, not wgmma")
+            if shape_name in ("flagship camera", "resident ragged mono16"):
+                eq, apart = bit_equal_schedules(
+                    lambda r, inp=inp, op=op: fused_recon_raw_accumulate(
+                        r, inp["pi"], inp["inv"], *inp[op], **table_kw(inp, op)),
+                    inp["raw"], inp[op], inp["pi"], inp["inv"], table=inp["tf32"])
+                bit_equal[(op, shape_name)] = eq
+                phase("kernel1_u16", f"{name} u16 {shape_name} op={op}: the wgmma schedule "
+                      f"against the mma.sync schedule on the same values (a misaligned view): "
+                      f"torch.equal {eq}, worst {apart:.3e} of F64_TOL apart")
+                check(eq, f"{name} u16 {shape_name}: the two {op} schedules differ")
+        for op in ("bf16", "f32"):
+            got = fused_recon_raw_accumulate(*x, *inp[op], **table_kw(inp, op))
             torch.cuda.synchronize()
             want = fused_recon_raw_accumulate_reference(*x, *inp[op])
             tol = TC_TOL.get((name, op), TOL[op])
@@ -2418,7 +2469,8 @@ def u16_phases(cfg, calib, products: dict, card_line: str, dev: torch.device) ->
             x32 = (inp["raw"].float() - inp["pi"]) * inp["inv"]
             want64 = (bf16_f64_product if op == "bf16" else f64_product)(x32, *ops[op])
             lim = BF16_F64_TOL if op == "bf16" else F64_TOL
-            more = {f"{frames_of} kernel": fused_recon_raw_accumulate(*x, *ops[op]),
+            more = {f"{frames_of} kernel": fused_recon_raw_accumulate(*x, *ops[op],
+                                                                     **table_kw(ops, op)),
                     f"{frames_of} cuBLAS f32": fused_recon_raw_accumulate_reference(*x, *ops[op])}
             if op == "bf16" and frames_of == "u16":
                 more["chain 24 bits"] = truncating_chain(x32, *ops[op], 24)
@@ -2436,10 +2488,10 @@ def u16_phases(cfg, calib, products: dict, card_line: str, dev: torch.device) ->
     x16 = (flag["raw"], flag["pi"], flag["inv"])
     times = {}
     for op in ("bf16", "f32"):
-        times[op] = t = timed_pair(lambda: fused_recon_raw_accumulate(*x16, *ops[op]),
-                                   lambda: fused_recon_raw_accumulate_reference(*x16, *ops[op]))
-        parent = (f" | the parent's mma.sync b2b {PARENT_B2B_MS['u16 bf16']} ms (PERF.md §6)"
-                  if op == "bf16" else "")
+        times[op] = t = timed_pair(
+            lambda: fused_recon_raw_accumulate(*x16, *ops[op], **table_kw(ops, op)),
+            lambda: fused_recon_raw_accumulate_reference(*x16, *ops[op]))
+        parent = f" | the parent's mma.sync b2b {PARENT_B2B_MS['u16 ' + op]} ms (PERF.md §6)"
         phase("kernel1_u16", f"{name} u16 flagship op={op}: {describe(t)}{parent} | {card_line}")
 
     # the 12-bit session at 'default' and 'highest', counts at 0 around each
@@ -2470,7 +2522,8 @@ def u16_phases(cfg, calib, products: dict, card_line: str, dev: torch.device) ->
         for i, r in enumerate(results):
             raw = torch.as_tensor(batches[i // 2][(i % 2) * cfg.averages:][:cfg.averages]).to(dev)
             yr = apodize_ratio(preprocess(raw, scfg), s.data_yb, s.data_yp, scfg).contiguous()
-            want = form_bscan(fused_recon_accumulate(yr, *ops[op]), scfg, cfg.averages,
+            want = form_bscan(fused_recon_accumulate(yr, *ops[op], **table_kw(ops, op)),
+                              scfg, cfg.averages,
                               bscanthreshold=s.bscanthreshold).bscandisp.cpu().numpy()
             diff = max(diff, int(np.abs(r.bscandisp.astype(int) - want.astype(int)).max()))
         phase("kernel1_u16", f"12-bit base '{precision}': {groups} B-scans through {name} op="
@@ -2510,8 +2563,8 @@ def u16_phases(cfg, calib, products: dict, card_line: str, dev: torch.device) ->
             "name": name, "input": "u16", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[op], "operator": op,
             "mma": MMA[(name, op)],
-            "schedule": schedule_of(x16[0], ops[op], *x16[1:]) if op == "bf16" else "mma.sync",
-            **({"bit_equal_to_mma_sync": all(bit_equal.values())} if op == "bf16" else {}),
+            "schedule": schedule_of(x16[0], ops[op], *x16[1:], table=ops["tf32"]),
+            "bit_equal_to_mma_sync": all(v for (o, _), v in bit_equal.items() if o == op),
             "max_abs_err": errors[("flagship camera", op)],
             "worst_share_of_tol": max(shares[op].values()),
             **({"bf16_f64_tol": BF16_F64_TOL,
@@ -2519,7 +2572,7 @@ def u16_phases(cfg, calib, products: dict, card_line: str, dev: torch.device) ->
                {"f64_tol": F64_TOL, "worst_share_of_f64_tol": max(f64[op].values())}),
             **time_keys(times[op]),
             **bound_keys(op, 2 * x16[0].numel() * calib.op_re.shape[1], [*x16, *ops[op]],
-                         fused_recon_raw_accumulate(*x16, *ops[op])),
+                         fused_recon_raw_accumulate(*x16, *ops[op], **table_kw(ops, op))),
             "library_ms": None, "product_ms": products[op][0],
             "product_ms_b2b": products[op][1]})
     return entries

@@ -106,8 +106,10 @@ def row_functions(cfg: PipelineConfig, device: torch.device,
     op, op16 = (calib.op_re, calib.op_im), (calib.op_re_bf16, calib.op_im_bf16)
     rows.update({
         "bf16": lambda fr: fused_recon_resident_reference(fr, pi, invb, *op16),
-        "yr": lambda fr: fused_recon_accumulate((fr.float() - pi) * invb, *op),
-        "raw_f32": lambda fr: fused_recon_raw_accumulate(fr, pi, invb, *op),
+        "yr": lambda fr: fused_recon_accumulate((fr.float() - pi) * invb, *op,
+                                                op_tf32=calib.op_tf32),
+        "raw_f32": lambda fr: fused_recon_raw_accumulate(fr, pi, invb, *op,
+                                                         op_tf32=calib.op_tf32),
         "raw_bf16": lambda fr: fused_recon_raw_accumulate(fr, pi, invb, *op16),
         "resident": lambda fr: fused_recon_resident(fr, pi, invb, *op16),
     })

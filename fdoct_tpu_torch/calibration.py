@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from fdoct_tpu_torch.ops import windows as _windows
+from fdoct_tpu_torch.ops.kernels import pack_tf32_operator
 from fdoct_tpu_torch.ops.resample import resample_matrix
 
 _PI = np.pi
@@ -123,6 +124,11 @@ class Calibration:
     float64 M quantized to int8 per output column and
     ``op_scale_re``/``op_scale_im`` their float32 scales
     (calibration.py:183-200 of the JAX package); otherwise they are None.
+    ``op_tf32`` is the float32 M as the f32-operator kernels' wgmma schedule
+    reads it (:func:`~fdoct_tpu_torch.ops.kernels.pack_tf32_operator`: its
+    TF32 parts, K-major), built once here for a float32 M so that no group
+    step packs it; None for any other type.  It is derived from ``op_re``
+    and ``op_im``, and nothing saves it.
     """
 
     n_raw: int
@@ -149,6 +155,7 @@ class Calibration:
     op_im_q: torch.Tensor | None = None
     op_scale_re: torch.Tensor | None = None  # (ndisp,) float32
     op_scale_im: torch.Tensor | None = None
+    op_tf32: torch.Tensor | None = None      # (2, 2, ndisp, n_raw) float32
 
     @classmethod
     def create(cls, cfg, device: torch.device | str,
@@ -200,6 +207,7 @@ class Calibration:
             frac=as_dev("frac"), window=as_dev("window"), phase=as_dev("phase"),
             op_re=op_re, op_im=op_im,
             op_re_bf16=op_re.to(torch.bfloat16), op_im_bf16=op_im.to(torch.bfloat16),
+            op_tf32=(pack_tf32_operator(op_re, op_im) if dtype == torch.float32 else None),
             **{name: torch.as_tensor(np.array(arrays[name]), device=device)
                for name in ("op_re_q", "op_im_q", "op_scale_re", "op_scale_im")
                if arrays.get(name) is not None},

@@ -31,12 +31,14 @@
 // TFLOP/s) or 0.104 ms as three TF32 products on the tensor cores (495
 // TFLOP/s), the form taken here.
 //
-// Two schedules.  The f32-operator entries run the mma.sync template
-// fused_recon_tc_kernel<In, float> below.  The bf16-operator entries (and
-// the resident one) run the warp-specialised TMA + wgmma schedule,
-// fused_recon_ws_kernel<In, MULTI> further down, wherever TMA can address
-// their inputs (ws_applies), and fused_recon_tc_kernel<In, __nv_bfloat16>
-// elsewhere; both compute the same sums bit for bit.
+// Two schedules for each operator type.  Wherever TMA can address the
+// inputs, a warp-specialised TMA + wgmma schedule: for the bf16-operator
+// entries (and the resident one) fused_recon_ws_kernel<In, MULTI>
+// (ws_applies), for the f32-operator entries fused_recon_ws32_kernel<In,
+// MULTI>, 3xTF32 on a K-major TF32 table of the operator built once per
+// Calibration (ws32_applies).  Elsewhere the mma.sync template
+// fused_recon_tc_kernel<In, Op> below.  Each pair computes the same sums bit
+// for bit.
 
 #include <algorithm>
 #include <cstddef>
@@ -60,10 +62,10 @@ __device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat16 v) { return __bfloat
 //
 //   fdoct_recon_raw_u8_bf16   mma.sync.m16n8k16.f32.bf16.bf16.f32, where TMA
 //   fdoct_recon_raw_u16_bf16  cannot address the inputs (else the
-//   fdoct_recon_yr_f32_bf16   warp-specialised schedule below)
-//   fdoct_recon_raw_u8_f32    mma.sync.m16n8k8.f32.tf32.tf32.f32, 3xTF32
-//   fdoct_recon_raw_u16_f32   mma.sync.m16n8k8.f32.tf32.tf32.f32, 3xTF32
-//   fdoct_recon_yr_f32_f32    mma.sync.m16n8k8.f32.tf32.tf32.f32, 3xTF32
+//   fdoct_recon_yr_f32_bf16   warp-specialised schedule ws below)
+//   fdoct_recon_raw_u8_f32    mma.sync.m16n8k8.f32.tf32.tf32.f32, 3xTF32,
+//   fdoct_recon_raw_u16_f32   where TMA cannot address the inputs (else the
+//   fdoct_recon_yr_f32_f32    warp-specialised 3xTF32 schedule ws32 below)
 //
 // The schedule is namespace tc of hopper_mma.cuh, shared with int8_bscan.cu.
 // M is (row, frame) pairs, ordered row * F + frame with F = min(8, B rounded
@@ -115,7 +117,8 @@ __device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat16 v) { return __bfloat
 // frames, 768 MiB for a yr stack), the tile pass and two barriers a stage,
 // not the tensor cores (~11 % of the bf16 peak for the raw instance).
 //
-// f32 operator, 3xTF32 (KT = 32).  Each f32 operand a is split as a = a_hi +
+// f32 operator, 3xTF32 (KT = 32), the shapes TMA cannot address (the others
+// run ws32 below, the same sums).  Each f32 operand a is split as a = a_hi +
 // a_lo, a_hi its round to the nearest TF32 (ties away from zero) and a_lo the
 // exact remainder truncated to TF32, so |a - a_hi - a_lo| <= 2^-21 |a|; then
 // a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi on mma.sync m16n8k8 tf32 with f32
@@ -139,7 +142,8 @@ __device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat16 v) { return __bfloat
 // traffic, 512 -> 1,024 MiB a flagship group), and a staged split spends as
 // many issue slots (a pass of 32 loads, 2 x 32 stores and 32 x 4 integer ops
 // a thread, then twice the fragment loads) as the 4 integer ops per element
-// it saves.  KT = 32 keeps the f32 ring at 73,728 B (raw) and 79,872 B (yr)
+// it saves (ws32 reads such a table all the same: wgmma takes tf32 operands
+// K-major only).  KT = 32 keeps the f32 ring at 73,728 B (raw) and 79,872 B (yr)
 // at B = 8, two blocks per SM.  What bounds it: the tensor cores' TF32 rate
 // (48 MMAs per warp per 8 samples) and the split's integer work beside it.
 
@@ -694,30 +698,33 @@ __device__ __forceinline__ void ws_store_a(uint8_t* a_s, const uint32_t (&a)[4][
   }
 }
 
-// |re + i im| of the 64 (pair, depth) sums of a thread's accumulators; into
-// ``mag`` (added to it, tc::add_magnitude's rounding).
-__device__ __forceinline__ void ws_add_magnitudes(float (&mag)[64], const float (&acc)[128]) {
+// |re + i im| of the N (pair, depth) sums of a thread's accumulators (re in
+// acc[0..N-1], im in acc[N..2N-1]); into ``mag`` (added to it,
+// tc::add_magnitude's rounding).
+template <int N>
+__device__ __forceinline__ void ws_add_magnitudes(float (&mag)[N], const float (&acc)[2 * N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) tc::add_magnitude(mag[i], acc[i], acc[64 + i]);
+  for (int i = 0; i < N; ++i) tc::add_magnitude(mag[i], acc[i], acc[N + i]);
 }
 
-// The epilogue of a consumer thread: the F frame slots of each of its 64
-// sums m[0..63] (lanes 4 * slot apart) summed as tc::sum_frame_slots sums
-// them, then stored by the slot-0 lanes.
-template <int N>
+// The epilogue of a consumer thread: the F frame slots of each of its 4J
+// sums m[0..4J-1], depths 8j + 2 tq + (e & 1) for j < J (lanes 4 * slot
+// apart), summed as tc::sum_frame_slots sums them, then stored by the slot-0
+// lanes.
+template <int J, int N>
 __device__ __forceinline__ void ws_store_sums(float (&m)[N], float* __restrict__ out, int m0,
                                               int frame, int fs, int row0, int col0, int rows,
                                               int ndisp, int tq) {
   for (int off = 4; off < (4 << fs); off <<= 1)
 #pragma unroll
-    for (int i = 0; i < 64; ++i) m[i] += __shfl_xor_sync(0xffffffffu, m[i], off);
+    for (int i = 0; i < 4 * J; ++i) m[i] += __shfl_xor_sync(0xffffffffu, m[i], off);
   if (frame != 0) return;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = row0 + tc::pair_row(m0 + 8 * h, fs);
     if (r >= rows) continue;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < J; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int d = col0 + j * 8 + 2 * tq + e;
@@ -832,7 +839,7 @@ fused_recon_ws_kernel(const __grid_constant__ CUtensorMap in_map,
     if (++kt == nk) kt = 0, b0 += 1 << fs;
   }
   if constexpr (MULTI) {
-    ws_store_sums(mag, out, m0, frame, fs, row0, col0, rows, ndisp, tq);
+    ws_store_sums<16>(mag, out, m0, frame, fs, row0, col0, rows, ndisp, tq);
   } else {                             // one chunk: the magnitudes in place of re
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
@@ -840,7 +847,261 @@ fused_recon_ws_kernel(const __grid_constant__ CUtensorMap in_map,
       tc::add_magnitude(v, acc[i], acc[64 + i]);
       acc[i] = v;
     }
-    ws_store_sums(acc, out, m0, frame, fs, row0, col0, rows, ndisp, tq);
+    ws_store_sums<16>(acc, out, m0, frame, fs, row0, col0, rows, ndisp, tq);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The warp-specialised schedule of the three f32-operator instances
+// (namespace ws32), 3xTF32 on wgmma:
+//
+//   fdoct_recon_raw_u8_f32    In = uint8_t   <- fused_recon_raw_accumulate
+//   fdoct_recon_raw_u16_f32   In = uint16_t  <- fused_recon_raw_accumulate
+//   fdoct_recon_yr_f32_f32    In = float     <- fused_recon_accumulate
+//
+// (pallas_kernels.py:126-160, 275-308).  The sums of the mma.sync 3xTF32
+// form above (tc_mma_stage_tf32x3) in the same order: the same split of each
+// operand into TF32 parts (split_tf32), per k8 step lo.hi, hi.lo and hi.hi
+// into a per-stage fragment that starts at zero (scale_d = 0 on a stage's
+// first wgmma), added to the running sums with __fadd_rn after each stage of
+// KT = 32 samples, then tc::add_magnitude and the frame-slot butterfly.
+//
+// What bounds it.  Three TF32 products, 51.5 GFLOP a flagship group, take
+// 0.104 ms at the dense TF32 peak; the compulsory traffic (8-32 MiB of frames
+// or ratio, 8 MiB of pi and inv_background, 16 MiB of operator table) 10-17
+// us.  The ws schedule of the bf16 instances, with these changes:
+//   * wgmma takes tf32 operands K-major only (the transposed layouts are for
+//     16-bit types), so the operator comes as a table built once per
+//     Calibration (ops.kernels.pack_tf32_operator): (hi, lo) x (re, im) x
+//     ndisp x n_in f32, each depth's samples contiguous and already split.
+//     The producer loads the hi and the lo box of a stage (32 samples x re
+//     and im of 64 depths, 128 bytes a row, the 128-byte swizzle) beside the
+//     input rows and (raw frames) pi and inv_background;
+//   * registers: a stage's sums go into a fragment of their own before the
+//     __fadd_rn (the tensor cores truncate), so a thread holds the running
+//     sums and the fragment; at m64n256 that would be 256 registers, so a
+//     block is 128 (row, frame) pairs x 64 depths and each consumer warpgroup
+//     runs wgmma.mma_async.m64n128k8 (re and im of 64 depths side by side):
+//     64 running sums, 64 of fragment, 32 of A, 32 more for the magnitudes of
+//     a group of more than eight frames;
+//   * A from registers: a tf32 wgmma reads 6 KiB of shared memory for 64
+//     cycles of tensor work with A in shared memory (twice the bf16 form's
+//     bytes per operation), and the A tiles would add their stores, a proxy
+//     fence and two barriers a stage; with A in registers the products read
+//     only the table.  Each thread forms its own A fragments (its warp's 16
+//     pairs at samples t and t + 4 of each k8 step: ratio, then split) after
+//     the stage before's wgmmas have been waited for, so no register an
+//     in-flight wgmma reads is written (ptxas would serialise the wgmmas),
+//     and the other consumer warpgroup's wgmmas keep the tensor cores busy
+//     meanwhile.  An f32 ratio stages with the 128-byte swizzle, so that the
+//     lanes' scalar loads (8 pairs x 4 samples) fall on distinct banks.
+// Measured on an NVIDIA H100 (PERF.md; bench_sessions.py, ws_trace.py):
+// 187-198 us of device time a flagship group of u8 or u16 frames, 167 us of
+// an f32 ratio (the mma.sync form 347-372 and 319), 1.6-1.9x the bound; A
+// tiles in shared memory formed beside the wgmmas took 192-213 us.  A
+// consumer warp spends a stage ~960-1,160 cycles forming A (u8, u16; ~660
+// for a ratio) and ~670-810 waiting for its wgmmas: forming A sets the time.
+// 512 rows x 512 depths make 256 blocks, two waves on 132 SMs.  TMA needs
+// the input rows' 16-byte strides (n_in % 16 for u8, % 8 for u16, % 4 for
+// f32, which the table's rows need too) and 16-byte aligned bases
+// (ws32_applies); every other shape runs the mma.sync template
+// launch_tc<In, float> from the same C entry, chosen before the launch
+// (ops.kernels.f32_schedule mirrors the rule).
+
+namespace ws32 {
+constexpr int BM = 128;             // (row, frame) pairs per block: two consumer warpgroups of 64
+constexpr int BN = 64;              // depths per block; N = 128 with re and im
+constexpr int KT = 32;              // spectral samples per stage (128 bytes of f32): four k8 steps
+constexpr int OP_BOX = KT * 2 * BN * 4;       // one part (hi or lo) of the table: re | im rows
+constexpr int OP_BYTES = 2 * OP_BOX;          // hi | lo
+static_assert(OP_BOX % 1024 == 0, "1,024-byte aligned regions");
+
+template <typename In> __host__ __device__ constexpr int in_bytes() {
+  return BM * KT * static_cast<int>(sizeof(In));
+}
+// One stage: table hi | table lo | input rows | pi [R][KT] f32 |
+// inv_background [R][KT] f32 (raw frames only); a multiple of 1,024 bytes.
+template <typename In> __host__ __device__ constexpr int stage_bytes(int R) {
+  return OP_BYTES + in_bytes<In>() +
+         (ws::raw<In>() ? 2 * R * KT * static_cast<int>(sizeof(float)) : 0);
+}
+}  // namespace ws32
+
+// Samples t + 4q (q = 0..7) of pair m of a landed ws32 stage, as f32:
+// ws_samples' arithmetic (a count made exact by ws_count, then (raw - pi) *
+// inv; or the f32 ratio).  Count rows are read whole (a u8 row is two
+// 16-byte loads, a u16 row four) and the samples picked by byte permutes;
+// an f32 ratio's 32-sample rows are staged with the 128-byte swizzle, so
+// that the lanes' scalar loads (8 pairs x 4 samples) fall on distinct banks.
+template <typename In>
+__device__ __forceinline__ void ws32_samples(float (&x)[8], const uint8_t* in, const float* pi_s,
+                                             const float* inv_s, int m, int t) {
+  constexpr int KT = ws32::KT;
+  if constexpr (sizeof(In) == 1) {
+    const uint4 a = *reinterpret_cast<const uint4*>(in + m * KT);
+    const uint4 b = *reinterpret_cast<const uint4*>(in + m * KT + 16);
+    const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};   // samples 4q..4q+3
+#pragma unroll
+    for (int q = 0; q < 8; ++q) x[q] = ws_count(w[q], 0x7540u + t);
+  } else if constexpr (sizeof(In) == 2) {
+    const uint32_t half = t & 1 ? 0x7432u : 0x7410u;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {   // samples 8v..8v+7
+      const uint4 a = *reinterpret_cast<const uint4*>(in + m * KT * 2 + 16 * v);
+      x[2 * v] = ws_count(t & 2 ? a.y : a.x, half);
+      x[2 * v + 1] = ws_count(t & 2 ? a.w : a.z, half);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      x[q] = *reinterpret_cast<const float*>(in + m * KT * 4 + ((q ^ (m & 7)) << 4) + 4 * t);
+  }
+  if constexpr (ws::raw<In>()) {
+    const int row = tc::pair_row(m, ws::FS) * KT + t;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) x[q] = __fmul_rn(__fsub_rn(x[q], pi_s[row + 4 * q]), inv_s[row + 4 * q]);
+  }
+}
+
+// This thread's A fragments of one landed stage, split into TF32 parts: for
+// k8 step kk, pairs m0 and m0 + 8 (rows g and g + 8 of its warp's 16) at
+// samples 8 kk + t and 8 kk + t + 4, in wgmma_m64n128k8_tf32_rs's order.
+// PARTIAL (a chunk of fewer than eight frames): pairs of frames at or past
+// ``frames`` are zero, and nothing is read for them (m0 and m0 + 8 are the
+// same frame of two rows).
+template <typename In, bool PARTIAL>
+__device__ __forceinline__ void ws32_form_a(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
+                                            const uint8_t* stage, int m0, int t, int frames) {
+  constexpr int R = ws32::BM >> ws::FS;
+  const uint8_t* in = stage + ws32::OP_BYTES;
+  const float* pi_s = reinterpret_cast<const float*>(in + ws32::in_bytes<In>());
+  const float* inv_s = pi_s + R * ws32::KT;
+  if (PARTIAL && tc::pair_frame(m0, ws::FS) >= frames) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) hi[kk][i] = lo[kk][i] = 0u;
+    return;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float x[8];
+    ws32_samples<In>(x, in, pi_s, inv_s, m0 + 8 * h, t);
+#pragma unroll
+    for (int q = 0; q < 8; ++q)        // sample t + 4q = 8 kk + t + 4 j: kk = q / 2, j = q % 2
+      split_tf32(x[q], hi[q >> 1][h + 2 * (q & 1)], lo[q >> 1][h + 2 * (q & 1)]);
+  }
+}
+
+template <typename In, bool MULTI>
+__global__ void __launch_bounds__(ws::THREADS, 1)
+fused_recon_ws32_kernel(const __grid_constant__ CUtensorMap in_map,
+                        const __grid_constant__ CUtensorMap pi_map,
+                        const __grid_constant__ CUtensorMap inv_map,
+                        const __grid_constant__ CUtensorMap op_map, float* __restrict__ out,
+                        int B, int rows, int n_in, int ndisp, int nst) {
+  extern __shared__ uint8_t ws_smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(ws_smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  constexpr int fs = ws::FS, R = ws32::BM >> fs;
+  const int sbytes = ws32::stage_bytes<In>(R);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + nst * sbytes);
+  uint64_t* empty = full + ws::MAX_STAGES;
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int row0 = blockIdx.y * R, col0 = blockIdx.x * ws32::BN;
+  const int nk = (n_in + ws32::KT - 1) / ws32::KT;
+  const int total = nk * ((B + (1 << fs) - 1) >> fs);    // stages of all chunks of frames
+
+  if (tid == 0) {
+    for (int s = 0; s < nst; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);       // the eight consumer warps
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // the producer: one thread issues every copy of stage it into slot it %
+    // nst once the slot's previous stage has been released
+    setmaxnreg_dec<ws::PRODUCER_REGS>();
+    if (tid == 256) {
+      for (int it = 0, s = 0, ph = 0, kt = 0, b0 = 0; it < total; ++it) {
+        uint8_t* st = smem + s * sbytes;
+        if (it >= nst) mbar_wait(&empty[s], ph ^ 1);
+        mbar_expect_tx(&full[s], sbytes);
+        const int k0 = kt * ws32::KT;
+        tma_load_3d(st, &op_map, &full[s], k0, col0, 0);                  // hi: re | im
+        tma_load_3d(st + ws32::OP_BOX, &op_map, &full[s], k0, col0, 2);   // lo: re | im
+        tma_load_3d(st + ws32::OP_BYTES, &in_map, &full[s], k0, b0, row0);
+        if constexpr (ws::raw<In>()) {
+          uint8_t* pi_s = st + ws32::OP_BYTES + ws32::in_bytes<In>();
+          tma_load_2d(pi_s, &pi_map, &full[s], k0, row0);
+          tma_load_2d(pi_s + R * ws32::KT * 4, &inv_map, &full[s], k0, row0);
+        }
+        if (++s == nst) s = 0, ph ^= 1;
+        if (++kt == nk) kt = 0, b0 += 1 << fs;
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg multiplies pairs 64 wg .. 64 wg + 63
+  setmaxnreg_inc<ws::CONSUMER_REGS>();
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int m0 = wg * 64 + (warp & 3) * 16 + g;            // this lane's pairs: m0, m0 + 8
+  const int frame = tc::pair_frame(m0, fs);                // the same for m0 + 8
+  float acc[64], part[64];   // the running sums and a stage's fragment: re 0-31, im 32-63
+  float mag[MULTI ? 32 : 1];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (MULTI ? 32 : 1); ++i) mag[i] = 0.f;
+  for (int it = 0, s = 0, ph = 0, kt = 0, b0 = 0; it < total; ++it) {
+    const uint8_t* st = smem + s * sbytes;
+    mbar_wait(&full[s], ph);
+    uint32_t hi[4][4], lo[4][4];
+    if (B - b0 < (1 << fs))            // the group's last chunk, short of eight frames
+      ws32_form_a<In, true>(hi, lo, st, m0, tq, B - b0);
+    else
+      ws32_form_a<In, false>(hi, lo, st, m0, tq, B - b0);
+    const uint32_t b_hi = smem_addr(st), b_lo = b_hi + ws32::OP_BOX;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {   // per k8 step lo.hi, hi.lo, hi.hi, as tc_mma_stage_tf32x3
+      wgmma_m64n128k8_tf32_rs(part, lo[kk], wgmma_desc_k_sw128(b_hi + 32 * kk), kk > 0);
+      wgmma_m64n128k8_tf32_rs(part, hi[kk], wgmma_desc_k_sw128(b_lo + 32 * kk), 1);
+      wgmma_m64n128k8_tf32_rs(part, hi[kk], wgmma_desc_k_sw128(b_hi + 32 * kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_hold(part);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);   // stage it's slot: its A formed, its table read
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+    if constexpr (MULTI) {
+      if (kt == nk - 1) {              // the last stage of a chunk of frames
+        ws_add_magnitudes(mag, acc);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      }
+    }
+    if (++s == nst) s = 0, ph ^= 1;
+    if (++kt == nk) kt = 0, b0 += 1 << fs;
+  }
+  if constexpr (MULTI) {
+    ws_store_sums<8>(mag, out, m0, frame, fs, row0, col0, rows, ndisp, tq);
+  } else {                             // one chunk: the magnitudes in place of re
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float v = 0.f;
+      tc::add_magnitude(v, acc[i], acc[32 + i]);
+      acc[i] = v;
+    }
+    ws_store_sums<8>(acc, out, m0, frame, fs, row0, col0, rows, ndisp, tq);
   }
 }
 
@@ -901,37 +1162,47 @@ bool ws_applies(const void* x, const void* pi, const void* inv_bg, const void* o
          (!ws::raw<In>() || (aligned(pi) && aligned(inv_bg)));
 }
 
+// The tensor maps of the input rows (maps[0]: pair-major, dims (sample,
+// frame, row), box kt x F x R, written with ``swizzle``) and, for raw
+// frames, of pi and inv_background (maps[1], maps[2]: box kt x R), at F = 8
+// frames in flight.
 template <typename In>
-int launch_ws(const void* x, const void* pi, const void* inv_bg, const void* op_re,
-              const void* op_im, void* out, int B, int rows, int n_in, int ndisp, void* stream) {
-  constexpr int fs = ws::FS, R = ws::BM >> fs;
-  const int gy = (rows + R - 1) / R;
-  if (gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
+bool ws_input_maps(CUtensorMap* maps, const void* x, const void* pi, const void* inv_bg, int B,
+                   int rows, int n_in, cuuint32_t kt, cuuint32_t R, CUtensorMapSwizzle swizzle) {
+  constexpr int fs = ws::FS;
   const cuuint64_t n = static_cast<cuuint64_t>(n_in), nr = static_cast<cuuint64_t>(rows);
   const cuuint64_t es = sizeof(In);
-  CUtensorMap maps[5] = {};
-  // the input rows pair-major: dims (sample, frame, row), box KT x F x R
   const cuuint64_t in_dims[3] = {n, static_cast<cuuint64_t>(B), nr};
   const cuuint64_t in_strides[2] = {nr * n * es, n * es};
-  const cuuint32_t in_box[3] = {ws::KT, static_cast<cuuint32_t>(1 << fs),
-                                static_cast<cuuint32_t>(R)};
+  const cuuint32_t in_box[3] = {kt, static_cast<cuuint32_t>(1 << fs), R};
   const cuuint64_t ratio_dims[2] = {n, nr}, ratio_strides[1] = {n * 4};
-  const cuuint32_t ratio_box[2] = {ws::KT, static_cast<cuuint32_t>(R)};
-  const cuuint64_t op_dims[2] = {static_cast<cuuint64_t>(ndisp), n};
-  const cuuint64_t op_strides[1] = {static_cast<cuuint64_t>(ndisp) * 2};
-  const cuuint32_t op_box[2] = {64, ws::KT};
-  bool ok = tensor_map(&maps[0], tma_type<In>(), 3, x, in_dims, in_strides, in_box,
-                       CU_TENSOR_MAP_SWIZZLE_NONE) &&
-            tensor_map(&maps[3], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, op_re, op_dims, op_strides,
-                       op_box, CU_TENSOR_MAP_SWIZZLE_128B) &&
-            tensor_map(&maps[4], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, op_im, op_dims, op_strides,
-                       op_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  const cuuint32_t ratio_box[2] = {kt, R};
+  bool ok = tensor_map(&maps[0], tma_type<In>(), 3, x, in_dims, in_strides, in_box, swizzle);
   if (ws::raw<In>())
     ok = ok &&
          tensor_map(&maps[1], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, pi, ratio_dims, ratio_strides,
                     ratio_box, CU_TENSOR_MAP_SWIZZLE_NONE) &&
          tensor_map(&maps[2], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, inv_bg, ratio_dims,
                     ratio_strides, ratio_box, CU_TENSOR_MAP_SWIZZLE_NONE);
+  return ok;
+}
+
+template <typename In>
+int launch_ws(const void* x, const void* pi, const void* inv_bg, const void* op_re,
+              const void* op_im, void* out, int B, int rows, int n_in, int ndisp, void* stream) {
+  constexpr int fs = ws::FS, R = ws::BM >> fs;
+  const int gy = (rows + R - 1) / R;
+  if (gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap maps[5] = {};
+  const cuuint64_t op_dims[2] = {static_cast<cuuint64_t>(ndisp), static_cast<cuuint64_t>(n_in)};
+  const cuuint64_t op_strides[1] = {static_cast<cuuint64_t>(ndisp) * 2};
+  const cuuint32_t op_box[2] = {64, ws::KT};
+  const bool ok = ws_input_maps<In>(maps, x, pi, inv_bg, B, rows, n_in, ws::KT, R,
+                                    CU_TENSOR_MAP_SWIZZLE_NONE) &&
+                  tensor_map(&maps[3], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, op_re, op_dims,
+                             op_strides, op_box, CU_TENSOR_MAP_SWIZZLE_128B) &&
+                  tensor_map(&maps[4], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, op_im, op_dims,
+                             op_strides, op_box, CU_TENSOR_MAP_SWIZZLE_128B);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int nst = std::min(ws::MAX_STAGES,
                                (ws::SMEM_LIMIT - ws::SMEM_EXTRA - ws::A_TILES * ws::A_BYTES) /
@@ -964,20 +1235,85 @@ int launch_bf16(const void* x, const void* pi, const void* inv_bg, const void* o
                                       stream);
 }
 
+// Whether TMA can address the inputs of the f32-operator instance on In
+// (else the mma.sync schedule runs): 16-byte row strides of the input rows
+// (n_in % 16 for u8, % 8 for u16, % 4 for f32) and of the K-major TF32 table
+// (n_in % 4), and 16-byte aligned bases of the rows, the table and (raw
+// frames) pi and inv_background.  The table's depths are its rows, so ndisp
+// enters no rule.
+template <typename In>
+bool ws32_applies(const void* x, const void* pi, const void* inv_bg, const void* op_tf32,
+                  int n_in) {
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  return n_in % (16 / static_cast<int>(sizeof(In))) == 0 && n_in % 4 == 0 && aligned(x) &&
+         aligned(op_tf32) && (!ws::raw<In>() || (aligned(pi) && aligned(inv_bg)));
+}
+
+template <typename In>
+int launch_ws32(const void* x, const void* pi, const void* inv_bg, const void* op_tf32,
+                void* out, int B, int rows, int n_in, int ndisp, void* stream) {
+  constexpr int fs = ws::FS, R = ws32::BM >> fs;
+  const int gy = (rows + R - 1) / R;
+  if (gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap maps[4] = {};
+  // the table (hi re, hi im, lo re, lo im) x ndisp x n_in: dims (sample,
+  // depth, part), box KT x BN x 2 (re and im of one part)
+  const cuuint64_t n = static_cast<cuuint64_t>(n_in), nd = static_cast<cuuint64_t>(ndisp);
+  const cuuint64_t op_dims[3] = {n, nd, 4}, op_strides[2] = {n * 4, nd * n * 4};
+  const cuuint32_t op_box[3] = {ws32::KT, ws32::BN, 2};
+  // an f32 ratio with the 128-byte swizzle (ws32_samples reads it so)
+  const bool ok = ws_input_maps<In>(maps, x, pi, inv_bg, B, rows, n_in, ws32::KT, R,
+                                    ws::raw<In>() ? CU_TENSOR_MAP_SWIZZLE_NONE
+                                                  : CU_TENSOR_MAP_SWIZZLE_128B) &&
+                  tensor_map(&maps[3], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, op_tf32, op_dims,
+                             op_strides, op_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int nst = std::min(ws::MAX_STAGES,
+                               (ws::SMEM_LIMIT - ws::SMEM_EXTRA) / ws32::stage_bytes<In>(R));
+  static_assert(nst >= 2, "a ring of at least two stages");
+  const int smem = nst * ws32::stage_bytes<In>(R) + ws::SMEM_EXTRA;
+  const auto kernel = B > (1 << fs) ? fused_recon_ws32_kernel<In, true>
+                                    : fused_recon_ws32_kernel<In, false>;
+  const cudaError_t rc =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  kernel<<<dim3((ndisp + ws32::BN - 1) / ws32::BN, gy), ws::THREADS, smem,
+           static_cast<cudaStream_t>(stream)>>>(maps[0], maps[1], maps[2], maps[3],
+                                                static_cast<float*>(out), B, rows, n_in, ndisp,
+                                                nst);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Every f32-operator instance: the warp-specialised 3xTF32 schedule on the
+// table op_tf32 where TMA can address the inputs, else the mma.sync template
+// on op_re and op_im; the choice is made from the shapes and pointers, before
+// the launch.
+template <typename In>
+int launch_f32(const void* x, const void* pi, const void* inv_bg, const void* op_re,
+               const void* op_im, const void* op_tf32, void* out, int B, int rows, int n_in,
+               int ndisp, void* stream) {
+  if (B < 1 || rows < 1 || n_in < 1 || ndisp < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (ws32_applies<In>(x, pi, inv_bg, op_tf32, n_in))
+    return launch_ws32<In>(x, pi, inv_bg, op_tf32, out, B, rows, n_in, ndisp, stream);
+  return launch_tc<In, float>(x, pi, inv_bg, op_re, op_im, out, B, rows, n_in, ndisp, stream);
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes.  Every pointer is a contiguous device
 // buffer: x (B, rows, n_in) u8, u16 or f32; pi, inv_bg (rows, n_in) f32;
-// op_re, op_im (n_in, ndisp); out (rows, ndisp) f32.  Launches on
+// op_re, op_im (n_in, ndisp); op_tf32 (the f32 entries) (2, 2, ndisp, n_in)
+// f32, ops.kernels.pack_tf32_operator of op_re and op_im; out (rows, ndisp)
+// f32.  Launches on
 // ``stream`` and returns cudaGetLastError() (0 when the launch was
 // accepted).
 extern "C" {
 
 int fdoct_recon_raw_u8_f32(const void* raw, const void* pi, const void* inv_bg,
-                           const void* op_re, const void* op_im, void* out,
-                           int B, int rows, int n_in, int ndisp, void* stream) {
-  return launch_tc<uint8_t, float>(raw, pi, inv_bg, op_re, op_im, out, B, rows, n_in, ndisp,
-                                   stream);
+                           const void* op_re, const void* op_im, const void* op_tf32,
+                           void* out, int B, int rows, int n_in, int ndisp, void* stream) {
+  return launch_f32<uint8_t>(raw, pi, inv_bg, op_re, op_im, op_tf32, out, B, rows, n_in, ndisp,
+                             stream);
 }
 
 int fdoct_recon_raw_u8_bf16(const void* raw, const void* pi, const void* inv_bg,
@@ -988,10 +1324,10 @@ int fdoct_recon_raw_u8_bf16(const void* raw, const void* pi, const void* inv_bg,
 }
 
 int fdoct_recon_raw_u16_f32(const void* raw, const void* pi, const void* inv_bg,
-                            const void* op_re, const void* op_im, void* out,
-                            int B, int rows, int n_in, int ndisp, void* stream) {
-  return launch_tc<uint16_t, float>(raw, pi, inv_bg, op_re, op_im, out, B, rows, n_in, ndisp,
-                                    stream);
+                            const void* op_re, const void* op_im, const void* op_tf32,
+                            void* out, int B, int rows, int n_in, int ndisp, void* stream) {
+  return launch_f32<uint16_t>(raw, pi, inv_bg, op_re, op_im, op_tf32, out, B, rows, n_in, ndisp,
+                              stream);
 }
 
 int fdoct_recon_raw_u16_bf16(const void* raw, const void* pi, const void* inv_bg,
@@ -1001,10 +1337,11 @@ int fdoct_recon_raw_u16_bf16(const void* raw, const void* pi, const void* inv_bg
                                stream);
 }
 
-int fdoct_recon_yr_f32_f32(const void* yr, const void* op_re, const void* op_im, void* out,
-                           int B, int rows, int n_in, int ndisp, void* stream) {
-  return launch_tc<float, float>(yr, nullptr, nullptr, op_re, op_im, out, B, rows, n_in, ndisp,
-                                 stream);
+int fdoct_recon_yr_f32_f32(const void* yr, const void* op_re, const void* op_im,
+                           const void* op_tf32, void* out, int B, int rows, int n_in, int ndisp,
+                           void* stream) {
+  return launch_f32<float>(yr, nullptr, nullptr, op_re, op_im, op_tf32, out, B, rows, n_in,
+                           ndisp, stream);
 }
 
 int fdoct_recon_yr_f32_bf16(const void* yr, const void* op_re, const void* op_im, void* out,

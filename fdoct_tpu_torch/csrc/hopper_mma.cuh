@@ -3,8 +3,8 @@
 // loads and the three mma.sync shapes (s8, bf16, tf32), the block schedule
 // of namespace tc, and Hopper's asynchronous pieces (mbarrier, TMA tensor
 // loads, wgmma with A and B from shared memory, named barriers, the
-// async-proxy fence, setmaxnreg) that the warp-specialised schedule of the
-// bf16 instances is built from.
+// async-proxy fence, setmaxnreg) that the warp-specialised schedules of the
+// bf16 and the f32-operator instances are built from.
 #pragma once
 
 #include <cstdint>
@@ -257,12 +257,13 @@ template <int N> __device__ __forceinline__ void wgmma_hold(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// Shared-memory matrix descriptor of a K-major bf16 tile written with the
+// Shared-memory matrix descriptor of a K-major tile written with the
 // 128-byte swizzle (by TMA, or by threads storing 16-byte chunk c of row r
-// at chunk c ^ (r & 7)): 64 K elements (128 bytes) per row, 8-row atoms of
-// 1,024 bytes (the stride byte offset); the leading byte offset is unused
-// for a swizzled K-major tile.  The tile starts on a 1,024-byte boundary;
-// k16 step kk of a row starts ``addr + 32 * kk``.
+// at chunk c ^ (r & 7)): 128 bytes of K per row (64 bf16 or 32 tf32
+// elements), 8-row atoms of 1,024 bytes (the stride byte offset); the
+// leading byte offset is unused for a swizzled K-major tile.  The tile
+// starts on a 1,024-byte boundary; the k step kk of a row (k16 for bf16, k8
+// for tf32: 32 bytes either way) starts ``addr + 32 * kk``.
 __device__ __forceinline__ uint64_t wgmma_desc_k_sw128(uint32_t addr) {
   return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | static_cast<uint64_t>(1024 >> 4) << 32 |
          1ull << 62;
@@ -329,6 +330,45 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t de
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
         "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (+)= A @ B, m64n128k8, tf32 operands, f32 sums: A from registers, B by
+// descriptor, K-major (wgmma_desc_k_sw128: wgmma takes the transposed,
+// MN-major, layouts for 16-bit types only).  Lane (g, t) = (lane / 4,
+// lane % 4) of warp w of the group gives a = A's rows 16w + g and 16w + g +
+// 8 at columns t and t + 4, in the order (g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4) (the mma.sync m16n8k8 tf32 A fragment).  Operands are f32
+// bit patterns of which the tensor cores read the TF32 part (the low 13
+// mantissa bits are ignored).  d has the layout of wgmma_m64n256k16_ss's,
+// 64 columns: d[4j + e] is row g (e < 2) or g + 8 (e >= 2) of the warp's 16,
+// column 8j + 2t + (e & 1).  scale_d = 0 ignores d's old value; the sums are
+// the tensor cores' (not rounded to nearest).  a must not change until the
+// wgmma has been waited for.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                        uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 // ---------------------------------------------------------------------------

@@ -5,8 +5,8 @@ plain C interface, so each compiles in seconds without PyTorch's headers;
 both include ``hopper_mma.cuh``, the inline-PTX wrappers (``cp.async``,
 ``ldmatrix``, ``mma.sync``, ``wgmma``, ``mbarrier``, TMA tensor loads) and
 the block schedule their tensor-core kernels share, which need the
-``sm_90a`` target and no extra flag or library.  The resident kernel's TMA
-tensor maps are encoded on the host with
+``sm_90a`` target and no extra flag or library.  The warp-specialised
+schedules' TMA tensor maps are encoded on the host with
 ``cuTensorMapEncodeTiled``, which ``fused_recon.cu`` obtains at run time
 through the runtime's ``cudaGetDriverEntryPoint`` (``...ByVersion`` from
 CUDA 12.5): the library links no ``-lcuda``.  One ``nvcc -c`` per source
@@ -40,11 +40,11 @@ _INT = ctypes.c_int
 _FLOAT = ctypes.c_float
 #: C signature of each entry point (all return cudaError_t as int)
 SIGNATURES = {
-    "fdoct_recon_raw_u8_f32": [_PTR] * 6 + [_INT] * 4 + [_PTR],
+    "fdoct_recon_raw_u8_f32": [_PTR] * 7 + [_INT] * 4 + [_PTR],
     "fdoct_recon_raw_u8_bf16": [_PTR] * 6 + [_INT] * 4 + [_PTR],
-    "fdoct_recon_raw_u16_f32": [_PTR] * 6 + [_INT] * 4 + [_PTR],
+    "fdoct_recon_raw_u16_f32": [_PTR] * 7 + [_INT] * 4 + [_PTR],
     "fdoct_recon_raw_u16_bf16": [_PTR] * 6 + [_INT] * 4 + [_PTR],
-    "fdoct_recon_yr_f32_f32": [_PTR] * 4 + [_INT] * 4 + [_PTR],
+    "fdoct_recon_yr_f32_f32": [_PTR] * 5 + [_INT] * 4 + [_PTR],
     "fdoct_recon_yr_f32_bf16": [_PTR] * 4 + [_INT] * 4 + [_PTR],
     "fdoct_recon_resident_u8_bf16": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     "fdoct_int8_bscan": [_PTR] * 7 + [_FLOAT] * 4 + [_PTR] * 4 + [_INT] * 5 + [_PTR],

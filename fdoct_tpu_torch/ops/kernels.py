@@ -17,17 +17,21 @@ precision on CUDA, and the resident kernel) the first three run one
 warp-specialised schedule: a producer warpgroup brings every tile by TMA
 into a ring of shared-memory stages, two consumer warpgroups form the bf16
 ratio once a stage into a shared-memory A tile and run ``wgmma``
-(m64n256k16) on it; where TMA cannot address the inputs they run the
-``mma.sync`` schedule (:func:`bf16_schedule` mirrors the C rule).  Both
-compute the same sums bit for bit.  With a float32 operator the first two
-run three TF32 products (3xTF32) on ``mma.sync``; the fourth runs ``mma.sync``
-s8.  M = op_re + i·op_im is float32 or bfloat16; with bfloat16 the ratio
-is rounded to bfloat16 before the product and the sums stay float32; with
-float32 each operand is split into two TF32 parts and the three largest
-cross products are summed in float32 (:func:`split_tf32`).  A wrapper
-given CPU tensors computes the plain version beside it (``*_reference``);
-given CUDA tensors it launches the kernel, or raises.  :data:`LAUNCHES`
-counts kernel launches, and only those.
+(m64n256k16) on it.  With a float32 operator (the 'highest' precision) the
+first two run the same shape of schedule as three TF32 products (3xTF32):
+the consumers split the ratio into two TF32 parts in registers (wgmma's A
+from registers), the operator comes already split and K-major (:func:`pack_tf32_operator`, built once per
+``Calibration``), and each k8 step runs ``wgmma`` m64n128k8 tf32 three
+times.  Where TMA cannot address the inputs both run the ``mma.sync``
+schedule instead (:func:`bf16_schedule` and :func:`f32_schedule` mirror the
+C rules); each pair of schedules computes the same sums bit for bit.  The
+fourth runs ``mma.sync`` s8.  M = op_re + i·op_im is float32 or bfloat16;
+with bfloat16 the ratio is rounded to bfloat16 before the product and the
+sums stay float32; with float32 each operand is split into two TF32 parts
+and the three largest cross products are summed in float32
+(:func:`split_tf32`).  A wrapper given CPU tensors computes the plain
+version beside it (``*_reference``); given CUDA tensors it launches the
+kernel, or raises.  :data:`LAUNCHES` counts kernel launches, and only those.
 """
 
 from __future__ import annotations
@@ -108,6 +112,21 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, lo
 
 
+def pack_tf32_operator(op_re: torch.Tensor, op_im: torch.Tensor) -> torch.Tensor:
+    """The float32 operator as the f32-operator kernels' wgmma schedule takes
+    it: (2, 2, ndisp, n_in) float32, ``[0]`` the hi and ``[1]`` the lo
+    :func:`split_tf32` part of ``(op_re.T, op_im.T)``, each depth's samples
+    contiguous (wgmma takes tf32 operands K-major only).  Built once per
+    ``Calibration`` (its ``op_tf32``); 16 MiB at the flagship's 2048 × 512."""
+    if op_re.dtype != torch.float32 or op_im.dtype != torch.float32:
+        raise TypeError(f"the TF32 table packs a float32 operator, got "
+                        f"{op_re.dtype}/{op_im.dtype}")
+    if op_re.shape != op_im.shape or op_re.ndim != 2:
+        raise ValueError(f"operator shapes {tuple(op_re.shape)}/{tuple(op_im.shape)}")
+    hi, lo = split_tf32(torch.stack((op_re.T, op_im.T)).contiguous())
+    return torch.stack((hi, lo))
+
+
 def _ratio_dtype(op_re: torch.Tensor) -> torch.dtype:
     """The float type the ratio is formed in for this operator."""
     return torch.float32 if op_re.dtype == torch.bfloat16 else op_re.dtype
@@ -151,6 +170,27 @@ def _check_ratio_terms(pi_frame: torch.Tensor, inv_background: torch.Tensor, row
             raise TypeError(f"{name} is {t.dtype}; here it must be {dtype}")
 
 
+def _check_tf32_table(op_tf32: torch.Tensor, op_re: torch.Tensor, n_in: int, ndisp: int,
+                      device: torch.device) -> None:
+    if op_re.dtype != torch.float32:
+        raise TypeError(f"op_tf32 goes with a float32 operator, not {op_re.dtype}")
+    shape = (2, 2, ndisp, n_in)
+    if op_tf32.dtype != torch.float32:
+        raise TypeError(f"op_tf32 must be float32, got {op_tf32.dtype}")
+    if tuple(op_tf32.shape) != shape or op_tf32.device != device or not op_tf32.is_contiguous():
+        raise ValueError(f"op_tf32 must be a contiguous {shape} tensor on {device}, got "
+                         f"{tuple(op_tf32.shape)} on {op_tf32.device}")
+
+
+def _operator_args(op_re: torch.Tensor, op_im: torch.Tensor,
+                   op_tf32: torch.Tensor | None) -> list:
+    """The operator arguments of a C entry: op_re, op_im and, with a float32
+    operator, the TF32 table (packed here when the caller has none)."""
+    if op_re.dtype == torch.bfloat16:
+        return [op_re, op_im]
+    return [op_re, op_im, pack_tf32_operator(op_re, op_im) if op_tf32 is None else op_tf32]
+
+
 #: the C entry stem of kernel 1 for each frame type it takes
 RAW_ENTRY = {torch.uint8: "fdoct_recon_raw_u8", torch.uint16: "fdoct_recon_raw_u16"}
 
@@ -171,7 +211,8 @@ def _launch(name: str, fn_stem: str, args: list, dims: tuple, op_re: torch.Tenso
 
 def fused_recon_raw_accumulate(raw: torch.Tensor, pi_frame: torch.Tensor,
                                inv_background: torch.Tensor, op_re: torch.Tensor,
-                               op_im: torch.Tensor) -> torch.Tensor:
+                               op_im: torch.Tensor,
+                               op_tf32: torch.Tensor | None = None) -> torch.Tensor:
     """Σ_b |((raw[b] − pi_frame)·inv_background) @ (op_re + i·op_im)|.
 
     raw: (B, rows, n_in) uint8 or uint16 (the TPU kernel's "raw uint8/uint16
@@ -187,27 +228,34 @@ def fused_recon_raw_accumulate(raw: torch.Tensor, pi_frame: torch.Tensor,
     bf16 ratio into shared memory and run ``wgmma`` m64n256k16 (float32
     sums); elsewhere ``mma.sync`` m16n8k16, the same sums bit for bit.  With
     a float32 operator the products run on the TF32 tensor cores as three
-    products of the operands' TF32 parts (``mma.sync`` m16n8k8, float32
-    sums; see :func:`split_tf32`).  What bounds the bf16 form is the
-    tensor cores' rate beside the shared-memory traffic of the ratio tile
-    and the operator (``csrc/fused_recon.cu``).
+    products of the operands' TF32 parts (float32 sums; see
+    :func:`split_tf32`): the same warp-specialised schedule,
+    ``wgmma`` m64n128k8 tf32, on ``op_tf32`` (:func:`pack_tf32_operator` of
+    the operator: a ``Calibration``'s ``op_tf32``, or packed here per call
+    when not given) where :func:`f32_schedule` says ``"wgmma"``, else
+    ``mma.sync`` m16n8k8 on op_re and op_im, the same sums bit for bit.
+    ``op_tf32`` is checked wherever it is given and read only on CUDA.
+    What bounds either form is the consumers' forming of A beside the
+    tensor cores (``csrc/fused_recon.cu``).
     """
     B, rows, n_in = _check_stack(raw, "raw")
     if raw.dtype not in RAW_ENTRY:
         raise TypeError(f"raw must be uint8 or uint16, got {raw.dtype}")
     ndisp = _check_operator(op_re, op_im, n_in, raw.device)
     _check_ratio_terms(pi_frame, inv_background, rows, n_in, raw.device, _ratio_dtype(op_re))
+    if op_tf32 is not None:
+        _check_tf32_table(op_tf32, op_re, n_in, ndisp, raw.device)
     if raw.device.type == "cpu":
         return fused_recon_raw_accumulate_reference(raw, pi_frame, inv_background,
                                                     op_re, op_im)
     out = torch.empty((rows, ndisp), dtype=torch.float32, device=raw.device)
     return _launch("fused_recon_raw_accumulate", RAW_ENTRY[raw.dtype],
-                   [raw, pi_frame, inv_background, op_re, op_im],
+                   [raw, pi_frame, inv_background, *_operator_args(op_re, op_im, op_tf32)],
                    (B, rows, n_in, ndisp), op_re, out)
 
 
-def fused_recon_accumulate(yr: torch.Tensor, op_re: torch.Tensor,
-                           op_im: torch.Tensor) -> torch.Tensor:
+def fused_recon_accumulate(yr: torch.Tensor, op_re: torch.Tensor, op_im: torch.Tensor,
+                           op_tf32: torch.Tensor | None = None) -> torch.Tensor:
     """Σ_b |yr[b] @ (op_re + i·op_im)|.
 
     yr: (B, rows, n_in) float32 (float64 with a float64 operator, CPU only);
@@ -218,18 +266,22 @@ def fused_recon_accumulate(yr: torch.Tensor, op_re: torch.Tensor,
     formed: rounded to bfloat16 for a bfloat16 operator (the
     warp-specialised ``wgmma`` schedule where TMA can address the stack,
     n_in % 4 == 0, else ``mma.sync``), split into TF32 parts for a float32
-    one.
+    one (the warp-specialised 3xTF32 schedule on ``op_tf32`` where
+    :func:`f32_schedule` says ``"wgmma"``, else ``mma.sync``).
     """
     B, rows, n_in = _check_stack(yr, "yr")
     ndisp = _check_operator(op_re, op_im, n_in, yr.device)
     if yr.dtype != _ratio_dtype(op_re):
         raise TypeError(f"yr is {yr.dtype}; with a {op_re.dtype} operator it must "
                         f"be {_ratio_dtype(op_re)}")
+    if op_tf32 is not None:
+        _check_tf32_table(op_tf32, op_re, n_in, ndisp, yr.device)
     if yr.device.type == "cpu":
         return fused_recon_accumulate_reference(yr, op_re, op_im)
     out = torch.empty((rows, ndisp), dtype=torch.float32, device=yr.device)
     return _launch("fused_recon_accumulate", "fdoct_recon_yr_f32",
-                   [yr, op_re, op_im], (B, rows, n_in, ndisp), op_re, out)
+                   [yr, *_operator_args(op_re, op_im, op_tf32)], (B, rows, n_in, ndisp),
+                   op_re, out)
 
 
 def bf16_schedule(dtype: torch.dtype, n_in: int, ndisp: int, ptrs) -> str:
@@ -246,6 +298,22 @@ def bf16_schedule(dtype: torch.dtype, n_in: int, ndisp: int, ptrs) -> str:
     per_16 = {torch.uint8: 16, torch.uint16: 8, torch.float32: 4}[dtype]
     aligned = all(int(p) % 16 == 0 for p in ptrs)
     return "wgmma" if n_in % per_16 == 0 and ndisp % 8 == 0 and aligned else "mma.sync"
+
+
+def f32_schedule(dtype: torch.dtype, n_in: int, ndisp: int, ptrs) -> str:
+    """The schedule a float32-operator instance runs, as its C entry chooses
+    it (``ws32_applies`` of ``csrc/fused_recon.cu``) before the launch:
+    ``"wgmma"`` (the warp-specialised 3xTF32 schedule on the TF32 table)
+    where TMA can address every input, else ``"mma.sync"``.  TMA needs
+    16-byte row strides of the input rows, n_in % 16 (uint8), % 8 (uint16)
+    or % 4 (float32), and of the K-major table, n_in % 4, and 16-byte
+    aligned bases; ``ptrs`` are the data pointers of the input rows, the
+    table and (raw frames) pi and inv_background.  The table's depths are
+    its rows, so ndisp enters no rule (it is taken to match
+    :func:`bf16_schedule`'s call)."""
+    per_16 = {torch.uint8: 16, torch.uint16: 8, torch.float32: 4}[dtype]
+    aligned = all(int(p) % 16 == 0 for p in ptrs)
+    return "wgmma" if n_in % per_16 == 0 and n_in % 4 == 0 and aligned else "mma.sync"
 
 
 def fused_recon_resident_reference(raw, pi_frame, inv_background, op_re, op_im):

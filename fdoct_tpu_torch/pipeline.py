@@ -148,8 +148,14 @@ def apodize_ratio(y: torch.Tensor, background: torch.Tensor,
     return (y - pi_frame) / background
 
 
-def _operator(calib: Calibration, bf16: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    return (calib.op_re_bf16, calib.op_im_bf16) if bf16 else (calib.op_re, calib.op_im)
+def _operator(calib: Calibration,
+              bf16: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """(op_re, op_im, op_tf32) of the operator the precision takes: the
+    bfloat16 pair with no table, or M with the calibration's TF32 table
+    (None unless M is float32), which the group kernels' wrappers take."""
+    if bf16:
+        return calib.op_re_bf16, calib.op_im_bf16, None
+    return calib.op_re, calib.op_im, calib.op_tf32
 
 
 def _op_matmul_pair(yr: torch.Tensor, calib: Calibration,
@@ -160,7 +166,7 @@ def _op_matmul_pair(yr: torch.Tensor, calib: Calibration,
     if _int8_tables_apply(precision, calib):
         return _op_matmul_pair_int8(yr, calib)
     bf16 = use_bf16(precision, yr.dtype, yr.device)
-    op_re, op_im = _operator(calib, bf16)
+    op_re, op_im, _ = _operator(calib, bf16)
     if bf16:
         yr, op_re, op_im = yr.to(torch.bfloat16).float(), op_re.float(), op_im.float()
     if op_re.dtype != yr.dtype:
@@ -308,11 +314,12 @@ def reconstruct_group(raw: torch.Tensor, background: torch.Tensor,
     dtype = getattr(torch, cfg.dtype)
     background, pi_frame = background.to(dtype), pi_frame.to(dtype)
     if method not in STEPWISE_METHODS and raw_kernel_applies(raw, cfg):
-        op_re, op_im = _operator(calib, use_bf16(precision, dtype, raw.device))
+        op_re, op_im, op_tf32 = _operator(calib, use_bf16(precision, dtype, raw.device))
         if not _int8_tables_apply(precision, calib) and group_kernel_applies(op_re.dtype):
             pi = pi_frame if dark is None else pi_frame + dark.to(dtype)
             return fused_recon_raw_accumulate(raw.contiguous(), pi.contiguous(),
-                                              (1.0 / background).contiguous(), op_re, op_im)
+                                              (1.0 / background).contiguous(), op_re, op_im,
+                                              op_tf32)
     y = preprocess(raw, cfg, dtype)
     if dark is not None:
         y = y - dark.to(dtype)
@@ -329,10 +336,10 @@ def ratio_group_sum(yr: torch.Tensor, calib: Calibration, cfg,
     precision = "highest" if method == "fused_exact" else cfg.matmul_precision
     if method in STEPWISE_METHODS:
         return ascan_mags(yr, calib, method).sum(dim=0)
-    op_re, op_im = _operator(calib, use_bf16(precision, yr.dtype, yr.device))
+    op_re, op_im, op_tf32 = _operator(calib, use_bf16(precision, yr.dtype, yr.device))
     if _int8_tables_apply(precision, calib) or not group_kernel_applies(op_re.dtype):
         return ascan_mags_fused(yr, calib, precision).sum(dim=0)
-    return fused_recon_accumulate(yr.contiguous(), op_re, op_im)
+    return fused_recon_accumulate(yr.contiguous(), op_re, op_im, op_tf32)
 
 
 def reconstruct_group_frames(raw: torch.Tensor, background: torch.Tensor,

@@ -338,7 +338,8 @@ def test_raw_wrapper_takes_only_u8_and_u16(dtype):
 def test_u16_entries_are_kernel_1s_template():
     """Kernel 1's wrapper picks its C entry by the frame type, and both u16
     entries run kernel 1's schedules on uint16_t frames: the f32 one the
-    mma.sync template, the bf16 one the bf16 instances' dispatch (the
+    f32 instances' dispatch (the warp-specialised 3xTF32 schedule, or the
+    mma.sync template), the bf16 one the bf16 instances' dispatch (the
     warp-specialised schedule, or the mma.sync template); LAUNCHES keeps
     one key per TPU kernel."""
     text = (_build.PACKAGE_ROOT / "csrc" / "fused_recon.cu").read_text()
@@ -347,7 +348,7 @@ def test_u16_entries_are_kernel_1s_template():
     for op in ("f32", "bf16"):
         for stem in kernels.RAW_ENTRY.values():
             assert f"{stem}_{op}" in _build.SIGNATURES
-    for name, call in {"raw_u16_f32": "launch_tc<uint16_t, float>",
+    for name, call in {"raw_u16_f32": "launch_f32<uint16_t>",
                        "raw_u16_bf16": "launch_bf16<uint16_t>"}.items():
         body = text[text.index(f"int fdoct_recon_{name}("):]
         assert body[:body.index("}")].count(f"{call}(") == 1, name
@@ -432,10 +433,10 @@ def _entry_body(text: str, name: str) -> str:
 
 def test_every_entry_point_runs_the_tensor_core_kernel():
     """No entry point of fused_recon.cu is SIMT: the float32-operator ones
-    run the mma.sync template, the bf16-operator ones (the resident entry
-    among them) the warp-specialised wgmma schedule or, where TMA cannot
-    address the inputs, the mma.sync template; the resident entry has no
-    schedule of its own."""
+    run the warp-specialised 3xTF32 wgmma schedule, the bf16-operator ones
+    (the resident entry among them) the warp-specialised bf16 wgmma
+    schedule, each or, where TMA cannot address the inputs, the mma.sync
+    template; the resident entry has no schedule of its own."""
     text = (_build.PACKAGE_ROOT / "csrc" / "fused_recon.cu").read_text()
     assert "fused_recon_kernel<" not in text and "launch<" not in text
     assert "OpChunk" not in text and "fmaf(" not in text           # the SIMT resident form
@@ -446,14 +447,22 @@ def test_every_entry_point_runs_the_tensor_core_kernel():
     for name, x in {"raw_u8_bf16": "uint8_t", "raw_u16_bf16": "uint16_t", "yr_f32_bf16": "float",
                     "resident_u8_bf16": "uint8_t"}.items():
         assert _entry_body(text, f"fdoct_recon_{name}").count(f"launch_bf16<{x}>(") == 1, name
+    dispatch = _entry_body(text, "launch_f32")
+    assert "ws32_applies<In>(" in dispatch and dispatch.count("launch_ws32<In>(") == 1
+    assert dispatch.count("launch_tc<In, float>(") == 1
+    for name, x in {"raw_u8_f32": "uint8_t", "raw_u16_f32": "uint16_t",
+                    "yr_f32_f32": "float"}.items():
+        assert _entry_body(text, f"fdoct_recon_{name}").count(f"launch_f32<{x}>(") == 1, name
     assert "wgmma_m64n256k16_ss(" in text and "setmaxnreg_inc<" in text
+    assert text.count("wgmma_m64n128k8_tf32_rs(part, ") == 3
     assert "tma_load_3d(" in text and "fence_proxy_async()" in text
 
 
 def test_resident_schedule_mirrors_the_c_rule():
     """ops.kernels.bf16_schedule and ws_applies of fused_recon.cu take the
     wgmma schedule on the same conditions, for each input type of the bf16
-    instances; the float32-operator entries keep the mma.sync template."""
+    instances; the float32-operator entries dispatch by ws32_applies
+    (ops.kernels.f32_schedule, tests/test_torch_tf32_schedule.py)."""
     text = (_build.PACKAGE_ROOT / "csrc" / "fused_recon.cu").read_text()
     body = text[text.index("bool ws_applies("):]
     body = body[:body.index("\n}\n")]
@@ -467,10 +476,9 @@ def test_resident_schedule_mirrors_the_c_rule():
         for n_in, ndisp, ptrs in ((per_16 * 127 + per_16 // 2, 512, [0] * 5), (2048, 508, [0] * 5),
                                   (2048, 512, [0, 0, 4, 0, 0]), (2048, 512, [0, 0, 0, 0, 8])):
             assert kernels.bf16_schedule(dtype, n_in, ndisp, ptrs) == "mma.sync", (dtype, n_in)
-    for name, (x, op) in {"raw_u8_f32": ("uint8_t", "float"),
-                          "raw_u16_f32": ("uint16_t", "float"),
-                          "yr_f32_f32": ("float", "float")}.items():
-        assert _entry_body(text, f"fdoct_recon_{name}").count(f"launch_tc<{x}, {op}>(") == 1, name
+    for name, x in {"raw_u8_f32": "uint8_t", "raw_u16_f32": "uint16_t",
+                    "yr_f32_f32": "float"}.items():
+        assert _entry_body(text, f"fdoct_recon_{name}").count(f"launch_f32<{x}>(") == 1, name
 
 
 def test_build_hashes_the_shared_header():

@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
-"""A clock64 trace of the stage loop of the bf16 instances' warp-specialised
-schedule (fused_recon_ws_kernel in fdoct_tpu_torch/csrc/fused_recon.cu), on
-one NVIDIA GPU.
+"""A clock64 trace of the stage loops of the warp-specialised schedules
+(fused_recon_ws_kernel of the bf16 instances and fused_recon_ws32_kernel of
+the f32-operator ones, in fdoct_tpu_torch/csrc/fused_recon.cu), on one
+NVIDIA GPU.
 
     python3 ws_trace.py --make DIR    # DIR/fdoct_tpu_torch: this checkout's package, traced
-    python3 ws_trace.py --read DIR    # its three bf16 instances at the flagship, once each
+    python3 ws_trace.py --read DIR    # its six instances at the flagship, once each
 
-``--make`` copies the package and inserts the trace into the kernel's
+``--make`` copies the package and inserts the trace into the kernels'
 source (TRACE_EDITS, each anchor found exactly once, else it raises): lane 0
 of every consumer warp adds its cycles [0] waiting for a stage to land, [1]
-forming its A values (loads and arithmetic), [2] at the first named
-barrier, [3] storing the tile with its fence and second barrier, [4]
-issuing the wgmmas, [5] waiting for the stage before's wgmmas and releasing
-its slot, [6] in the chunk epilogue, and [7] its stages; [8] sums the
-producer's cycles waiting for a free slot.  ``fdoct_ws_trace_read`` returns
-the nine sums and clears them.  ``--read`` (on the card) calls kernel 1 on
-u8 and on u16 frames and kernel 2 on the f32 ratio at the flagship inputs of
-bench_sessions.py, once each after a warm-up, and prints the cycles a
-consumer warp spends a stage in each part and the producer's wait a stage.
+forming its A values (loads and arithmetic; for ws32 also the TF32 split,
+into registers), [2] at the first named barrier, [3] storing the A tile
+with its fence and second barrier (ws only: ws32 keeps A in registers, so
+both stay 0), [4] issuing the wgmmas, [5] waiting for wgmmas and releasing
+a slot (ws: the stage before's; ws32: this stage's, then adding its
+fragment to the sums), [6] in the chunk epilogue, and [7] its stages; [8]
+sums the producer's cycles waiting for a free slot.  ``fdoct_ws_trace_read``
+returns the nine sums and clears them.  ``--read`` (on the card) calls
+kernel 1 on u8 and on u16 frames and kernel 2 on the f32 ratio at the
+flagship inputs of bench_sessions.py, each with the bf16 operator and with
+the f32 one (given the Calibration's TF32 table, packed once outside the
+calls), once each after a warm-up, and prints the cycles a consumer warp
+spends a stage in each part and the producer's wait a stage.
 The trace adds a few per cent of device time; time a traced tree with
 ``bench_sessions.py --kernels-only --tree DIR``.  Every line printed is one
 JSON object with the card's name and power limit.
@@ -64,13 +69,15 @@ def _after(anchor: str, text: str) -> tuple[str, str]:
 #: edits of fused_recon.cu: (text found exactly once, text put in its place)
 TRACE_EDITS = [
     ("// An integer count c < 2^23", _COUNTERS + "// An integer count c < 2^23"),
-    ("        if (it >= nst) mbar_wait(&empty[s], ph ^ 1);\n",
-     "        if (it >= nst) {\n          const long long t0 = clock64();\n"
-     "          mbar_wait(&empty[s], ph ^ 1);\n"
-     "          atomicAdd(&ws_trace_cycles[8], static_cast<unsigned long long>(clock64() - t0));\n"
-     "        }\n"),
+    *(("        if (it >= nst) mbar_wait(&empty[s], ph ^ 1);\n"
+       f"        mbar_expect_tx(&full[s], sbytes);\n        const int k0 = kt * {ns}::KT;\n",
+       "        if (it >= nst) {\n          const long long t0 = clock64();\n"
+       "          mbar_wait(&empty[s], ph ^ 1);\n"
+       "          atomicAdd(&ws_trace_cycles[8], static_cast<unsigned long long>(clock64() - t0));\n"
+       f"        }}\n        mbar_expect_tx(&full[s], sbytes);\n        const int k0 = kt * {ns}::KT;\n")
+      for ns in ("ws", "ws32")),
     _after("  uint8_t* a_mine = a_tiles + wg * 2 * ws::A_BYTES;\n", "  WS_TRACE_START;\n"),
-    _after("    mbar_wait(&full[s], ph);\n", "    WS_MARK(0);\n"),
+    _after("    mbar_wait(&full[s], ph);\n    uint32_t a[4][4];\n", "    WS_MARK(0);\n"),
     _after("      ws_form_a<In, false>(a, st, wg, t, fs, R, B - b0);\n", "    WS_MARK(1);\n"),
     _after("    named_barrier_sync(1 + wg, 128);   // every warp is past the wgmmas that read a_s "
            "last\n", "    WS_MARK(2);\n"),
@@ -80,9 +87,20 @@ TRACE_EDITS = [
     _after("      if (lane == 0) mbar_arrive(&empty[s == 0 ? nst - 1 : s - 1]);\n    }\n",
            "    WS_MARK(5);\n"),
     _after("      if constexpr (MULTI) ws_add_magnitudes(mag, acc);\n    }\n", "    WS_MARK(6);\n"),
-    ("    if (++kt == nk) kt = 0, b0 += 1 << fs;\n  }\n  if constexpr (MULTI) {\n",
-     "    if (++kt == nk) kt = 0, b0 += 1 << fs;\n  }\n  WS_TRACE_END(total);\n"
-     "  if constexpr (MULTI) {\n"),
+    *(("    if (++kt == nk) kt = 0, b0 += 1 << fs;\n  }\n  if constexpr (MULTI) {\n"
+       f"    ws_store_sums<{j}>(mag",
+       "    if (++kt == nk) kt = 0, b0 += 1 << fs;\n  }\n  WS_TRACE_END(total);\n"
+       f"  if constexpr (MULTI) {{\n    ws_store_sums<{j}>(mag") for j in (16, 8)),
+    # ws32: A formed in registers, no A tile (parts 2 and 3 stay 0)
+    _after("  for (int i = 0; i < (MULTI ? 32 : 1); ++i) mag[i] = 0.f;\n", "  WS_TRACE_START;\n"),
+    _after("    mbar_wait(&full[s], ph);\n    uint32_t hi[4][4], lo[4][4];\n", "    WS_MARK(0);\n"),
+    _after("      ws32_form_a<In, false>(hi, lo, st, m0, tq, B - b0);\n", "    WS_MARK(1);\n"),
+    _after("      wgmma_m64n128k8_tf32_rs(part, hi[kk], wgmma_desc_k_sw128(b_hi + 32 * kk), 1);\n"
+           "    }\n    wgmma_commit();\n", "    WS_MARK(4);\n"),
+    _after("    for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], part[i]);\n",
+           "    WS_MARK(5);\n"),
+    ("        for (int i = 0; i < 64; ++i) acc[i] = 0.f;\n      }\n    }\n",
+     "        for (int i = 0; i < 64; ++i) acc[i] = 0.f;\n      }\n    }\n    WS_MARK(6);\n"),
     ('}  // extern "C"', _READ + '}  // extern "C"'),
 ]
 
@@ -124,11 +142,16 @@ def read(tree: Path) -> int:
     src = SyntheticSource(height=cfg.height, width=cfg.width, lambda0=cfg.lambda0,
                           dlambda=cfg.lambdabw * 2.3548 / 4.0, noise=0.02, seed=SEED)
     x = kernel_inputs(cfg, Calibration.create(cfg, dev), src, src.frames(), dev)
-    calls = {"raw u8 bf16": lambda: kernels.fused_recon_raw_accumulate(
-                 x["raw"], x["pi"], x["inv"], *x["bf16"]),
-             "raw u16 bf16": lambda: kernels.fused_recon_raw_accumulate(
-                 x["raw16"], x["pi"], x["inv"], *x["bf16"]),
-             "yr f32 bf16": lambda: kernels.fused_recon_accumulate(x["yr"], *x["bf16"])}
+    calls = {}
+    for op in ("bf16", "f32"):
+        kw = {"op_tf32": x["tf32"]} if op == "f32" else {}
+        calls.update({
+            f"raw u8 {op}": lambda op=op, kw=kw: kernels.fused_recon_raw_accumulate(
+                x["raw"], x["pi"], x["inv"], *x[op], **kw),
+            f"raw u16 {op}": lambda op=op, kw=kw: kernels.fused_recon_raw_accumulate(
+                x["raw16"], x["pi"], x["inv"], *x[op], **kw),
+            f"yr f32 {op}": lambda op=op, kw=kw: kernels.fused_recon_accumulate(
+                x["yr"], *x[op], **kw)})
     card = card_line()
     sums = (ctypes.c_ulonglong * 9)()
     for name, fn in calls.items():
@@ -150,7 +173,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     group = ap.add_mutually_exclusive_group(required=True)
     group.add_argument("--make", metavar="DIR", help="write DIR/fdoct_tpu_torch, traced")
-    group.add_argument("--read", metavar="DIR", help="read the trace of DIR's bf16 instances")
+    group.add_argument("--read", metavar="DIR", help="read the trace of DIR's six instances")
     args = ap.parse_args(argv)
     if args.make:
         print(make(Path(args.make).resolve()))
