@@ -36,6 +36,16 @@ Flagship: 8 frames of 512 x 2048 u8 per group, 512 depths, the operator of
   from the tree's ``bf16_schedule``/``f32_schedule`` where it has them);
   and the cuBLAS product of the ratio stack by [op_re | op_im] alone in f32
   and bf16 (kind "product");
+- kernel 3 (``int8_bscan_display_fused``) on the group's frames shifted to
+  s8 and the folded operator of an ``Int8DirectPlan`` made from the same
+  source, as phase 8 of chip_smoke.py makes them, on the group (8 frames)
+  and on its first frame alone (B = 1), with the linear image: the times
+  above (device time of the int8 kernel alone, not of the wrapper's fills),
+  the schedule (from the tree's ``int8_schedule``, "mma.sync" in a tree
+  without it) and ``outputs_sha256`` of db, mn, mx and linear, so that two
+  trees' kernel 3 outputs can be compared bit for bit; and the
+  ``torch._int_mm`` product of the frames by [oq_re | oq_im] alone
+  (kind "product", operator "s8");
 - sessions (SESSIONS): ``base`` (the raw kernel) and ``sim`` with
   ``donotnormalize`` off (the ratio kernel), each at 'default' (bf16
   operator on CUDA) and at 'highest' (f32 operator), ``base`` at
@@ -94,6 +104,23 @@ def kernel_inputs(cfg, calib, src, frames, dev) -> dict:
             "pi": pi, "inv": (1.0 / bg).contiguous(), "yr": yr.contiguous(),
             "bf16": (calib.op_re_bf16, calib.op_im_bf16), "f32": (calib.op_re, calib.op_im),
             "tf32": getattr(calib, "op_tf32", None)}
+
+
+def int8_inputs(cfg, calib, src, frames, dev) -> dict:
+    """Kernel 3's flagship inputs, as chip_smoke.py phase 8 makes them: one
+    group of frames shifted to s8, the plan's folded operator and tables
+    ("args", the wrapper's positional arguments), the packed operator and
+    the display floor."""
+    from fdoct_tpu_torch.int8direct import Int8DirectPlan, shift_u8_to_s8
+
+    i8_cfg = cfg.replace(matmul_precision="int8_direct")
+    bg = np.mean([src.background().astype(np.float64) for _ in range(cfg.averages)], axis=0)
+    plan = Int8DirectPlan.create(calib, i8_cfg, bg, src.pi_frame(), device=dev)
+    s8 = shift_u8_to_s8(torch.as_tensor(np.stack([next(frames)
+                                                  for _ in range(cfg.averages)])).to(dev))
+    return {"args": [s8, plan.oq_re, plan.oq_im, plan.s_re, plan.s_im, plan.row_gain_inv,
+                     plan.const_re, plan.const_im],
+            "packed": plan.oq_packed, "thresh": cfg.bscanthreshold}
 
 
 def table_kw(kernels, x: dict, op: str) -> dict:
@@ -196,6 +223,32 @@ def main(argv=None) -> int:
              schedule=schedule(kernels, frames, op_name, x),
              ms=cuda_ms(fn)[0], ms_b2b=cuda_ms(fn, per=B2B)[0], device_us=device_us(fn),
              host_us=host_enqueue_ms(fn, runs=50) * 1e3, **acc)
+    # a source of its own, so that the sessions below read the frames they read before
+    i8_src = SyntheticSource(height=cfg.height, width=cfg.width, lambda0=cfg.lambda0,
+                             dlambda=cfg.lambdabw * 2.3548 / 4.0, noise=0.02, seed=SEED)
+    i8 = int8_inputs(cfg, calib, i8_src, i8_src.frames(), dev)
+    for B in (8, 1):
+        s8 = i8["args"][0][:B]
+        ptrs = [s8.data_ptr(), i8["packed"].data_ptr()]
+
+        def k3(s8=s8, B=B, with_linear=False):
+            return kernels.int8_bscan_display_fused(s8, *i8["args"][1:], i8["thresh"], B,
+                                                    with_linear=with_linear,
+                                                    oq_packed=i8["packed"])
+
+        emit(kind="kernel", name="int8_bscan_display_fused", frames="s8", operator="s8",
+             group=B, schedule=(kernels.int8_schedule(s8.shape[-1], ptrs)
+                                if hasattr(kernels, "int8_schedule") else "mma.sync"),
+             ms=cuda_ms(k3)[0], ms_b2b=cuda_ms(k3, per=B2B)[0],
+             device_us=device_us(k3, name="int8_bscan"),
+             host_us=host_enqueue_ms(k3, runs=50) * 1e3,
+             outputs_sha256=hashlib.sha256(b"".join(
+                 t.cpu().numpy().tobytes() for t in k3(with_linear=True))).hexdigest())
+    x2 = i8["args"][0].reshape(-1, i8["args"][0].shape[-1])
+    cat = torch.cat(i8["args"][1:3], dim=1).contiguous()
+    single, b2b = product_times(lambda: torch._int_mm(x2, cat))
+    emit(kind="product", operator="s8", shape=[list(x2.shape), list(cat.shape)], ms=single,
+         ms_b2b=b2b)
     stack = x["yr"].reshape(-1, x["yr"].shape[-1])
     for op_name in ("f32", "bf16"):
         cat = torch.cat(x[op_name], dim=1).contiguous()

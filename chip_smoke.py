@@ -75,9 +75,15 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 6. int8 kernels — int8_bscan_display_fused against its plain version
    (torch._int_mm + torch epilogue) on the card, with and without the linear
    output, at the flagship shape (8 s8 frames of 512 x 2048 and the plan
-   folded from the synthetic background and pi) and at a ragged shape.
-   Tolerance: dB and the min/max partials rtol 1e-5, atol 1e-4; linear rtol
-   1e-5.
+   folded from the synthetic background and pi) and at a ragged shape,
+   printing the schedule each takes (ops.kernels.int8_schedule: the
+   warp-specialised TMA + s8 wgmma one where n_in % 16 == 0 and the bases
+   are 16-byte aligned, else mma.sync).  Tolerance: dB and the min/max
+   partials rtol 1e-5, atol 1e-4; linear rtol 1e-5.  Then every output (db,
+   mn, mx, linear) of the wgmma schedule torch.equal to the mma.sync one's
+   on the same values through a misaligned view, at the flagship and at
+   RESIDENT_RAGGED (ragged in rows, samples and depths at strides TMA
+   takes; RAGGED's n_in of 300 takes mma.sync either way).
 7. int8 slice — the int8-direct display mode at the flagship config: a 'base'
    Session with matmul_precision 'int8_direct' captures 'b' and 'p' from the
    synthetic source, prints the plan's rank-1 residual, then process_group
@@ -89,8 +95,10 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 8. int8 times — the kernel (with the plan's packed operator, as the
    session calls it) against its plain version, hot (the same group every
    call) and streamed (each call the next of 32 distinct groups, 256 MiB,
-   more than the L2 holds), timed both ways as in phase 5, and the int8
-   session by time_session.
+   more than the L2 holds), timed both ways as in phase 5, its device time
+   (torch.profiler, the int8 kernel alone), the torch._int_mm product and
+   the bound, beside the parent's mma.sync times (PARENT_B2B_MS), and the
+   int8 session by time_session.
 9. resident kernels — fused_recon_resident (its C entry runs kernel 1 u8
    bf16's schedules) against its plain version (the raw-input plain version
    with the operator rounded to bf16) and against kernel 1's bf16 instance
@@ -362,7 +370,9 @@ PARENT_B2B_MS = {("fused_recon_raw_accumulate", "bf16"): "0.1609-0.1699",
                  ("fused_recon_accumulate", "bf16"): "0.1239-0.1255",
                  "u16 bf16": "0.1705-0.1709", "fused_recon_resident": "0.0621-0.0647",
                  ("fused_recon_raw_accumulate", "f32"): "0.3652",
-                 ("fused_recon_accumulate", "f32"): "0.3274", "u16 f32": "0.3850"}
+                 ("fused_recon_accumulate", "f32"): "0.3274", "u16 f32": "0.3850",
+                 "int8_bscan_display_fused": ("hot 0.0904, streamed 0.0800 b2b; 68-69 us "
+                                              "device")}
 #: the f32-operator instances' schedule where TMA can address the inputs;
 #: elsewhere they run MMA_SYNC_TF32X3, the same sums
 MMA_TF32X3 = ("wgmma.mma_async.m64n128k8.f32.tf32.tf32 (3xTF32: lo.hi + hi.lo + hi.hi, "
@@ -374,7 +384,12 @@ MMA = {("fused_recon_raw_accumulate", "bf16"): MMA_BF16,
        ("fused_recon_raw_accumulate", "f32"): MMA_TF32X3,
        ("fused_recon_accumulate", "bf16"): MMA_BF16,
        ("fused_recon_accumulate", "f32"): MMA_TF32X3,
-       "int8_bscan_display_fused": "mma.sync.m16n8k32.s32.s8.s8.s32"}
+       "int8_bscan_display_fused": ("wgmma.mma_async.m64n256k32.s32.s8.s8 (warp-specialised: "
+                                    "a TMA producer warpgroup, two consumer warpgroups, frames "
+                                    "and the packed operator K-major from shared memory)")}
+#: kernel 3 where TMA cannot address the frames (n_in % 16 != 0 or a base
+#: off 16 bytes); every output the same bit for bit
+MMA_SYNC_S8 = "mma.sync.m16n8k32.s32.s8.s8.s32"
 #: the session paths of phase 4: (variant, matmul_precision, kernel, operator,
 #: batches of 16 frames = 2 groups each)
 SESSION_PATHS = [("base", "default", "fused_recon_raw_accumulate", "bf16", 4),
@@ -617,12 +632,13 @@ def profiled(fn) -> tuple[list, float, dict]:
     return [e for e in prof.events() if e.device_type == cuda], wall_ms, streams
 
 
-def device_us(fn, calls: int = 20) -> float:
+def device_us(fn, calls: int = 20, name: str = "") -> float:
     """Median device time (us) of the kernels that ``calls`` calls of ``fn``
-    launch, after one call outside the trace."""
+    launch (those whose name holds ``name``), after one call outside the
+    trace."""
     fn()
     dev, _, _ = profiled(lambda: [fn() for _ in range(calls)])
-    return statistics.median(e.time_range.elapsed_us() for e in dev)
+    return statistics.median(e.time_range.elapsed_us() for e in dev if name in e.name)
 
 
 def host_group_ms(session, batches, groups_per_call: int = 2) -> list[float]:
@@ -773,17 +789,20 @@ def bit_equal_schedules(run, x: torch.Tensor, ops, *terms: torch.Tensor,
     return bool(torch.equal(got, want)), share
 
 
-def ptxas_summary(log: str, src: str | None = None) -> list[str]:
+def ptxas_summary(log: str, src: str | None = None, int8_src: str | None = None) -> list[str]:
     """One line per warp-specialised kernel of ptxas's -v output (the bf16
-    schedule ws and the 3xTF32 one ws32, each on u8, u16 and f32 rows, with
-    and without MULTI): its
+    schedule ws and the 3xTF32 one ws32, each on u8, u16 and f32 rows, and
+    kernel 3's int8_bscan_ws_kernel, each with and without MULTI): its
     registers at launch (every thread), the registers a thread of each role
-    takes after setmaxnreg (read from ws::PRODUCER_REGS and CONSUMER_REGS of
-    ``src``, the text of fused_recon.cu, by default this checkout's), shared
-    memory, stack and spills."""
-    src = src or (Path(__file__).resolve().parent / SOURCE).read_text()
-    roles = {k: (m.group(1) if (m := re.search(rf"constexpr int {k} = (\d+);", src)) else "?")
-             for k in ("PRODUCER_REGS", "CONSUMER_REGS")}
+    takes after setmaxnreg (read from PRODUCER_REGS and CONSUMER_REGS of
+    ``src`` and ``int8_src``, the texts of fused_recon.cu and int8_bscan.cu,
+    by default this checkout's), shared memory, stack and spills."""
+    here = Path(__file__).resolve().parent
+    texts = {"fused_recon": src or (here / SOURCE).read_text(),
+             "int8": int8_src or (here / INT8_SOURCE).read_text()}
+    roles = {f: {k: (m.group(1) if (m := re.search(rf"constexpr int {k} = (\d+);", text))
+                     else "?") for k in ("PRODUCER_REGS", "CONSUMER_REGS")}
+             for f, text in texts.items()}
     types = {"h": "u8", "t": "u16", "f": "f32"}
     out, name, props = [], None, {}
     for ln in log.splitlines():
@@ -792,7 +811,8 @@ def ptxas_summary(log: str, src: str | None = None) -> list[str]:
             name = m.group(1)
             continue
         k = re.search(r"fused_recon_(ws|ws32)_kernelI([htf])Lb([01])E", name or "")
-        if not k:
+        i8 = re.search(r"int8_bscan_ws_kernelILb([01])E", name or "")
+        if not (k or i8):
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
                       ln)
@@ -801,11 +821,13 @@ def ptxas_summary(log: str, src: str | None = None) -> list[str]:
         m = re.search(r"Used (\d+) registers", ln)
         if m:
             smem = re.search(r"(\d+) bytes smem", ln)
-            out.append(f"fused_recon_{k.group(1)}_kernel<{types[k.group(2)]}, "
-                       f"MULTI={k.group(3)}>: "
+            label, r = ((f"fused_recon_{k.group(1)}_kernel<{types[k.group(2)]}, "
+                         f"MULTI={k.group(3)}>", roles["fused_recon"]) if k else
+                        (f"int8_bscan_ws_kernel<MULTI={i8.group(1)}>", roles["int8"]))
+            out.append(f"{label}: "
                        f"{m.group(1)} registers a thread at launch; after setmaxnreg the "
-                       f"producer warpgroup {roles['PRODUCER_REGS']}, the consumer warpgroups "
-                       f"{roles['CONSUMER_REGS']}; static smem {smem.group(1) if smem else 0} B "
+                       f"producer warpgroup {r['PRODUCER_REGS']}, the consumer warpgroups "
+                       f"{r['CONSUMER_REGS']}; static smem {smem.group(1) if smem else 0} B "
                        f"(the ring is dynamic); stack {props.get('stack')} B, spill stores "
                        f"{props.get('stores')} B, loads {props.get('loads')} B"
                        + (" (a spill: a finding)" if props.get("stores", "0") != "0" else ""))
@@ -853,7 +875,7 @@ def main() -> int:
     for ln in ptxas:
         phase("build", ln)
     summary = ptxas_summary(_build.library_path().with_suffix(".log").read_text())
-    check(len(summary) == 12, f"ptxas reported {len(summary)} warp-specialised kernels, not 12")
+    check(len(summary) == 14, f"ptxas reported {len(summary)} warp-specialised kernels, not 14")
     for ln in summary:
         phase("build", ln)
 
@@ -1209,21 +1231,18 @@ def int8_phases(cfg, calib, src, frames, card_line: str, dev: torch.device) -> d
                                                   for _ in range(cfg.averages)])).to(dev))
     flag_args = [s8, plan.oq_re, plan.oq_im, plan.s_re, plan.s_im, plan.row_gain_inv,
                  plan.const_re, plan.const_im]
-    B, rows, n_in, ndisp = RAGGED
-    rng = np.random.default_rng(SEED + 1)
-    rag_args = [torch.as_tensor(a).to(dev) for a in (
-        rng.integers(-128, 128, (B, rows, n_in)).astype(np.int8),
-        rng.integers(-127, 128, (n_in, ndisp)).astype(np.int8),
-        rng.integers(-127, 128, (n_in, ndisp)).astype(np.int8),
-        rng.uniform(1e-4, 2e-4, ndisp).astype(np.float32),
-        rng.uniform(1e-4, 2e-4, ndisp).astype(np.float32),
-        rng.uniform(0.5, 2.0, (rows, 1)).astype(np.float32),
-        rng.normal(0, 0.5, (rows, ndisp)).astype(np.float32),
-        rng.normal(0, 0.5, (rows, ndisp)).astype(np.float32))]
+    rag_args = int8_random_args(RAGGED, np.random.default_rng(SEED + 1), dev)
     thresh = cfg.bscanthreshold
+
+    def schedule8(frames_s8, packed):
+        return kernels.int8_schedule(frames_s8.shape[-1], [frames_s8.data_ptr(),
+                                                           packed.data_ptr()])
+
     flag_err = None
     for shape_name, args in (("flagship", flag_args), ("ragged", rag_args)):
         n = args[0].shape[0]
+        phase("int8 kernels", f"{name} {shape_name} {tuple(args[0].shape)} takes "
+              f"{schedule8(args[0], kernels.pack_int8_operator(args[1], args[2]))}")
         for with_linear in (False, True):
             got = int8_bscan_display_fused(*args, thresh, n, with_linear=with_linear)
             torch.cuda.synchronize()
@@ -1243,6 +1262,28 @@ def int8_phases(cfg, calib, src, frames, card_line: str, dev: torch.device) -> d
                   + f" (rtol {rtol}, atol {atol}; linear atol 0)")
             check(all(r["finite"] and r["worst_share_of_tol"] <= 1.0 for r in res.values()),
                   f"{name} {shape_name} linear={with_linear} disagrees with its plain version")
+    # the wgmma schedule against the mma.sync one on the same values
+    bit_equal = {}
+    for shape_name, args in (("flagship", flag_args),
+                             ("RESIDENT_RAGGED", int8_random_args(
+                                 RESIDENT_RAGGED, np.random.default_rng(SEED + 2), dev))):
+        packed = kernels.pack_int8_operator(args[1], args[2])
+        y = misaligned(args[0])
+        check(schedule8(args[0], packed) == "wgmma", f"{shape_name}: the aligned frames do not "
+              "take wgmma")
+        check(schedule8(y, packed) == "mma.sync", f"{shape_name}: the misaligned view does not "
+              "take mma.sync")
+        n = args[0].shape[0]
+        got = int8_bscan_display_fused(*args, thresh, n, with_linear=True, oq_packed=packed)
+        want = int8_bscan_display_fused(y, *args[1:], thresh, n, with_linear=True,
+                                        oq_packed=packed)
+        torch.cuda.synchronize()
+        equal = {part: bool(torch.equal(getattr(got, part), getattr(want, part)))
+                 for part in got._fields}
+        bit_equal[shape_name] = all(equal.values())
+        phase("int8 kernels", f"{name} {shape_name} {tuple(args[0].shape)}: wgmma against "
+              f"{MMA_SYNC_S8} through a misaligned view, torch.equal {equal}")
+        check(bit_equal[shape_name], f"{name} {shape_name}: wgmma and mma.sync differ")
 
     # 7. the int8-direct slice -------------------------------------------------
     kernels.reset_launches()
@@ -1314,7 +1355,7 @@ def int8_phases(cfg, calib, src, frames, card_line: str, dev: torch.device) -> d
         lambda: int8_bscan_display_fused_reference(next(stream), *flag_args[1:], thresh,
                                                    cfg.averages))
     del groups, stream
-    phase("int8 times", f"{name} flagship on {MMA[name]}, plain = torch._int_mm + torch "
+    phase("int8 times", f"{name} flagship, plain = torch._int_mm + torch "
           f"epilogue; hot: {describe(hot)} | {card_line}")
     phase("int8 times", f"{name} flagship streamed over {STREAM_GROUPS} groups: "
           f"{describe(streamed)} | {card_line}")
@@ -1327,12 +1368,38 @@ def int8_phases(cfg, calib, src, frames, card_line: str, dev: torch.device) -> d
     phase("int8 times", f"product {tuple(x2.shape)} @ {tuple(cat.shape)} s8 (torch._int_mm): "
           f"median {product[0]:.4f} ms single, {product[1]:.4f} ms b2b | {card_line}")
     out = int8_bscan_display_fused(*flag_args, thresh, cfg.averages, oq_packed=packed)
+    schedule = schedule8(s8, packed)
+    bound = bound_keys("s8", 2 * s8.numel() * plan.oq_re.shape[1], [s8, packed] + flag_args[3:],
+                       [out.db, out.mn, out.mx])
+    dev_us = device_us(lambda: int8_bscan_display_fused(*flag_args, thresh, cfg.averages,
+                                                        oq_packed=packed), name="int8_bscan")
+    phase("int8 times", f"{name} flagship on {schedule}: device {dev_us:.1f} us (torch.profiler, "
+          f"median of 20 calls, the int8 kernel alone), b2b hot {hot['kernel_b2b'][0]:.4f} ms, "
+          f"streamed {streamed['kernel_b2b'][0]:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}), _int_mm b2b {product[1]:.4f} ms | the parent's {MMA_SYNC_S8} "
+          f"{PARENT_B2B_MS[name]} (PERF.md §6) | {card_line}")
     return {"name": name, "route": "cuda", "source": INT8_SOURCE, "replaces": REPLACES[name],
-            "launches": launches, "operator": "s8", "mma": MMA[name], "max_abs_err": flag_err,
-            **time_keys(hot), **time_keys(streamed, "streamed_"),
-            **bound_keys("s8", 2 * s8.numel() * plan.oq_re.shape[1],
-                         [s8, packed] + flag_args[3:], [out.db, out.mn, out.mx]),
+            "launches": launches, "operator": "s8",
+            "mma": MMA[name] if schedule == "wgmma" else MMA_SYNC_S8, "schedule": schedule,
+            "bit_equal_to_mma_sync": all(bit_equal.values()), "max_abs_err": flag_err,
+            "device_us": dev_us, **time_keys(hot), **time_keys(streamed, "streamed_"), **bound,
             "library_ms": None, "product_ms": product[0], "product_ms_b2b": product[1]}
+
+
+def int8_random_args(shape, rng: np.random.Generator, dev: torch.device) -> list[torch.Tensor]:
+    """Kernel 3's positional arguments at ``shape`` (B, rows, n_in, ndisp),
+    drawn from ``rng``: s8 frames and operator, scales and constants that
+    make dB values of a few tens."""
+    B, rows, n_in, ndisp = shape
+    return [torch.as_tensor(a).to(dev) for a in (
+        rng.integers(-128, 128, (B, rows, n_in)).astype(np.int8),
+        rng.integers(-127, 128, (n_in, ndisp)).astype(np.int8),
+        rng.integers(-127, 128, (n_in, ndisp)).astype(np.int8),
+        rng.uniform(1e-4, 2e-4, ndisp).astype(np.float32),
+        rng.uniform(1e-4, 2e-4, ndisp).astype(np.float32),
+        rng.uniform(0.5, 2.0, (rows, 1)).astype(np.float32),
+        rng.normal(0, 0.5, (rows, ndisp)).astype(np.float32),
+        rng.normal(0, 0.5, (rows, ndisp)).astype(np.float32))]
 
 
 def resident_phases(flag_in: dict, rag_in: dict, product: tuple, card_line: str,

@@ -1105,44 +1105,6 @@ fused_recon_ws32_kernel(const __grid_constant__ CUtensorMap in_map,
   }
 }
 
-// cuTensorMapEncodeTiled, obtained at run time through the CUDA runtime's
-// cudaGetDriverEntryPoint, so that the library does not link libcuda.
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                            cudaEnableDefault, &found);
-#else
-    const cudaError_t rc =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return rc == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// A row-major tensor map: dims and box innermost first, strides (bytes) of
-// dims 1.. ; zero fill outside the tensor.
-bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
-                const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
-                CUtensorMapSwizzle swizzle) {
-  const EncodeTiledFn encode = encode_tiled();
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode != nullptr &&
-         encode(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <typename In> constexpr CUtensorMapDataType tma_type() {
   return sizeof(In) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                          : sizeof(In) == 2 ? CU_TENSOR_MAP_DATA_TYPE_UINT16

@@ -1,10 +1,11 @@
 // What the tensor-core kernels of fused_recon.cu and int8_bscan.cu share
 // (sm_90a): PTX wrappers for 16-byte cp.async staging, ldmatrix fragment
 // loads and the three mma.sync shapes (s8, bf16, tf32), the block schedule
-// of namespace tc, and Hopper's asynchronous pieces (mbarrier, TMA tensor
+// of namespace tc, Hopper's asynchronous pieces (mbarrier, TMA tensor
 // loads, wgmma with A and B from shared memory, named barriers, the
 // async-proxy fence, setmaxnreg) that the warp-specialised schedules of the
-// bf16 and the f32-operator instances are built from.
+// bf16, the f32-operator and the int8 instances are built from, and the
+// host's encoding of their TMA tensor maps.
 #pragma once
 
 #include <cstdint>
@@ -256,14 +257,18 @@ template <int N> __device__ __forceinline__ void wgmma_hold(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int N> __device__ __forceinline__ void wgmma_hold(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
 // Shared-memory matrix descriptor of a K-major tile written with the
 // 128-byte swizzle (by TMA, or by threads storing 16-byte chunk c of row r
-// at chunk c ^ (r & 7)): 128 bytes of K per row (64 bf16 or 32 tf32
-// elements), 8-row atoms of 1,024 bytes (the stride byte offset); the
+// at chunk c ^ (r & 7)): 128 bytes of K per row (64 bf16, 32 tf32 or 128
+// s8 elements), 8-row atoms of 1,024 bytes (the stride byte offset); the
 // leading byte offset is unused for a swizzled K-major tile.  The tile
 // starts on a 1,024-byte boundary; the k step kk of a row (k16 for bf16, k8
-// for tf32: 32 bytes either way) starts ``addr + 32 * kk``.
+// for tf32, k32 for s8: 32 bytes each) starts ``addr + 32 * kk``.
 __device__ __forceinline__ uint64_t wgmma_desc_k_sw128(uint32_t addr) {
   return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | static_cast<uint64_t>(1024 >> 4) << 32 |
          1ull << 62;
@@ -332,6 +337,59 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t de
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d (+)= A @ B, m64n256k32, s8 operands, s32 sums (exact), both by
+// descriptor and both K-major (wgmma_desc_k_sw128: 8-bit types have no
+// transposed layout; a k32 step is 32 bytes of a 128-byte row, as a k16
+// step of bf16).  d has the layout of wgmma_m64n256k16_ss's: d[4j + e] is
+// row g (e < 2) or g + 8 (e >= 2) of the warp's 16, column 8j + 2t + (e &
+// 1).  scale_d = 0 ignores d's old value.
+__device__ __forceinline__ void wgmma_m64n256k32_s8_ss(int (&d)[128], uint64_t desc_a,
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),
+        "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]),
+        "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]),
+        "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]),
+        "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]),
+        "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), "+r"(d[72]),
+        "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]),
+        "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]),
+        "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]),
+        "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), "+r"(d[96]),
+        "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]),
+        "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]),
+        "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]),
+        "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]),
+        "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]),
+        "+r"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d (+)= A @ B, m64n128k8, tf32 operands, f32 sums: A from registers, B by
 // descriptor, K-major (wgmma_desc_k_sw128: wgmma takes the transposed,
 // MN-major, layouts for 16-bit types only).  Lane (g, t) = (lane / 4,
@@ -389,6 +447,46 @@ template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
 }
 template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// TMA tensor maps, encoded on the host.  cuTensorMapEncodeTiled is obtained
+// at run time through the CUDA runtime's cudaGetDriverEntryPoint, so that
+// the library does not link libcuda.
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                            cudaEnableDefault, &found);
+#else
+    const cudaError_t rc =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return rc == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A row-major tensor map: dims and box innermost first, strides (bytes) of
+// dims 1.. ; zero fill outside the tensor.
+inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+                       const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                       CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn encode = encode_tiled();
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode != nullptr &&
+         encode(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

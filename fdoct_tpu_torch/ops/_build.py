@@ -7,7 +7,7 @@ both include ``hopper_mma.cuh``, the inline-PTX wrappers (``cp.async``,
 the block schedule their tensor-core kernels share, which need the
 ``sm_90a`` target and no extra flag or library.  The warp-specialised
 schedules' TMA tensor maps are encoded on the host with
-``cuTensorMapEncodeTiled``, which ``fused_recon.cu`` obtains at run time
+``cuTensorMapEncodeTiled``, which ``hopper_mma.cuh`` obtains at run time
 through the runtime's ``cudaGetDriverEntryPoint`` (``...ByVersion`` from
 CUDA 12.5): the library links no ``-lcuda``.  One ``nvcc -c`` per source
 runs in parallel; the objects are linked into one library in

@@ -25,7 +25,10 @@ from registers), the operator comes already split and K-major (:func:`pack_tf32_
 times.  Where TMA cannot address the inputs both run the ``mma.sync``
 schedule instead (:func:`bf16_schedule` and :func:`f32_schedule` mirror the
 C rules); each pair of schedules computes the same sums bit for bit.  The
-fourth runs ``mma.sync`` s8.  M = op_re + i·op_im is float32 or bfloat16;
+fourth runs the same shape of schedule on the s8 tensor cores (``wgmma``
+m64n256k32 s8, frames and the packed operator both brought K-major by TMA),
+or ``mma.sync`` s8 where TMA cannot address the frames (:func:`int8_schedule`),
+every output bit for bit alike.  M = op_re + i·op_im is float32 or bfloat16;
 with bfloat16 the ratio is rounded to bfloat16 before the product and the
 sums stay float32; with float32 each operand is split into two TF32 parts
 and the three largest cross products are summed in float32
@@ -390,6 +393,20 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, n)
 
 
+def int8_schedule(n_in: int, ptrs) -> str:
+    """The schedule :func:`int8_bscan_display_fused` runs, as its C entry
+    ``fdoct_int8_bscan`` chooses it (``i8ws_applies`` of
+    ``csrc/int8_bscan.cu``) before the launch: ``"wgmma"`` (the
+    warp-specialised TMA + s8 ``wgmma`` schedule) where TMA can address the
+    frames and the packed operator, else ``"mma.sync"``.  TMA needs 16-byte
+    row strides of the frames, n_in % 16 (the packed operator's rows are a
+    multiple of INT8_K_TILE long), and 16-byte aligned bases; ``ptrs`` are
+    the data pointers of the frames and the packed operator.  The number of
+    frames, rows and depths enters no rule."""
+    aligned = all(int(p) % 16 == 0 for p in ptrs)
+    return "wgmma" if n_in % 16 == 0 and aligned else "mma.sync"
+
+
 class Int8BscanOutputs(NamedTuple):
     """What :func:`int8_bscan_display_fused` returns, all float32."""
     db: torch.Tensor              # (rows, ndisp) dB, DC columns masked, untransposed
@@ -463,11 +480,16 @@ def int8_bscan_display_fused(frames_s8: torch.Tensor, oq_re: torch.Tensor,
     also returns the linear sum/averages + eps.  Replaces the TPU kernel
     ``int8_bscan_display_fused`` (pallas_kernels.py:212-272).
 
-    On CUDA the products run on the s8 tensor cores (``mma.sync``
-    m16n8k32, exact s32 sums), which take the operator K-major:
-    ``oq_packed`` is :func:`pack_int8_operator` of (oq_re, oq_im), packed
-    here when not given (an ``Int8DirectPlan`` carries it).  The min/max
-    partials are per INT8_TILE of db whatever the kernel's block.
+    On CUDA the products run on the s8 tensor cores (exact s32 sums),
+    which take the operator K-major: ``oq_packed`` is
+    :func:`pack_int8_operator` of (oq_re, oq_im), packed here when not given
+    (an ``Int8DirectPlan`` carries it).  Where :func:`int8_schedule` says
+    ``"wgmma"`` (n_in % 16 == 0 and 16-byte aligned frames) a
+    warp-specialised schedule runs: a producer warpgroup brings the frames
+    and the packed operator by TMA, two consumer warpgroups run ``wgmma``
+    m64n256k32 s8 on them as they lie in shared memory; elsewhere
+    ``mma.sync`` m16n8k32.  Both give every output bit for bit alike.  The
+    min/max partials are per INT8_TILE of db whatever the kernel's block.
     """
     B, rows, n_in = _check_stack(frames_s8, "frames_s8")
     if frames_s8.dtype != torch.int8:

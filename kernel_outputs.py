@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """The group kernels' instances of one checkout (kernel 1 on u8 and u16
-frames and kernel 2, each with an f32 and a bf16 operator, and the resident
-kernel), at fixed inputs: their outputs saved for a bit-for-bit comparison
-with another checkout's.  Needs a GPU; bench_sessions.py times them.
+frames and kernel 2, each with an f32 and a bf16 operator, the resident
+kernel, and kernel 3's four outputs: db, mn, mx, linear), at fixed inputs:
+their outputs saved for a bit-for-bit comparison with another checkout's.
+Needs a GPU; bench_sessions.py times them.
 
     python3 kernel_outputs.py --tree DIR OUT.pt     # DIR: a checkout (default .)
     python3 kernel_outputs.py --compare A.pt B.pt   # exit 0 when every output is equal
@@ -13,8 +14,9 @@ from a seed with numpy: u8 frames, pi and inv_background as
 their bf16 rounding), at the flagship (8 × 512 × 2048 → 512 depths),
 chip_smoke.py's RAGGED shape and every ``ops.kernels.EDGE_SHAPES`` entry;
 Mono16 frames (12-bit counts << 4) and a float32 ratio from the same
-generator.  Compare two commits in one call, in turns: parent, change,
-change, parent.
+generator; for kernel 3 ``chip_smoke.int8_random_args`` from it after them
+(a floor of -30 dB, the linear image asked for).
+Compare two commits in one call, in turns: parent, change, change, parent.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from chip_smoke import int8_random_args     # this checkout's, before --tree enters sys.path
 
 SHAPES = {"flagship": (8, 512, 2048, 512), "ragged": (3, 100, 300, 77)}
 
@@ -54,6 +58,10 @@ def save(tree: Path, out: Path) -> None:
                 raw16, pi, inv, mr, mi).cpu()
             outputs[f"{label} yr_f32_{op}"] = kernels.fused_recon_accumulate(yr, mr, mi).cpu()
         outputs[f"{label} resident"] = kernels.fused_recon_resident(raw, pi, inv, *f32).cpu()
+        i8 = int8_random_args((B, rows, n_in, ndisp), rng, dev)
+        k3 = kernels.int8_bscan_display_fused(*i8, -30.0, B, with_linear=True)
+        for part in k3._fields:
+            outputs[f"{label} int8_{part}"] = getattr(k3, part).cpu()
     torch.cuda.synchronize()
     torch.save(outputs, out)
     print(f"{tree}: {len(outputs)} outputs saved to {out}")

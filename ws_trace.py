@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """A clock64 trace of the stage loops of the warp-specialised schedules
 (fused_recon_ws_kernel of the bf16 instances and fused_recon_ws32_kernel of
-the f32-operator ones, in fdoct_tpu_torch/csrc/fused_recon.cu), on one
-NVIDIA GPU.
+the f32-operator ones, in fdoct_tpu_torch/csrc/fused_recon.cu, and
+int8_bscan_ws_kernel of kernel 3, in csrc/int8_bscan.cu), on one NVIDIA
+GPU.
 
     python3 ws_trace.py --make DIR    # DIR/fdoct_tpu_torch: this checkout's package, traced
-    python3 ws_trace.py --read DIR    # its six instances at the flagship, once each
+    python3 ws_trace.py --read DIR    # its seven instances at the flagship, once each
 
 ``--make`` copies the package and inserts the trace into the kernels'
-source (TRACE_EDITS, each anchor found exactly once, else it raises): lane 0
+sources (TRACE_EDITS and INT8_TRACE_EDITS, each anchor found exactly once,
+else it raises): lane 0
 of every consumer warp adds its cycles [0] waiting for a stage to land, [1]
 forming its A values (loads and arithmetic; for ws32 also the TF32 split,
 into registers), [2] at the first named barrier, [3] storing the A tile
@@ -17,12 +19,21 @@ both stay 0), [4] issuing the wgmmas, [5] waiting for wgmmas and releasing
 a slot (ws: the stage before's; ws32: this stage's, then adding its
 fragment to the sums), [6] in the chunk epilogue, and [7] its stages; [8]
 sums the producer's cycles waiting for a free slot.  ``fdoct_ws_trace_read``
-returns the nine sums and clears them.  ``--read`` (on the card) calls
-kernel 1 on u8 and on u16 frames and kernel 2 on the f32 ratio at the
-flagship inputs of bench_sessions.py, each with the bf16 operator and with
-the f32 one (given the Calibration's TF32 table, packed once outside the
-calls), once each after a warm-up, and prints the cycles a consumer warp
-spends a stage in each part and the producer's wait a stage.
+returns the nine sums and clears them.  In kernel 3 (INT8_PARTS; no A to
+form, no barrier) a consumer warp's stage has [0] the wait for the stage,
+[4] the issue, [5] the wait for the stage before's wgmmas and the slot's
+release, [6] the chunk's end (the wait for its last wgmmas and, past 8
+frames, the dequantisation), and once a warp, after the loop, [2] the
+dequantisation of a group of at most 8 frames, [3] the frame-slot sum and
+[1] the display epilogue with its stores and atomics;
+``fdoct_int8_trace_read`` returns its sums.  ``--read``
+(on the card) calls kernel 1 on u8 and on u16 frames and kernel 2 on the
+f32 ratio at the flagship inputs of bench_sessions.py, each with the bf16
+operator and with the f32 one (given the Calibration's TF32 table, packed
+once outside the calls), and kernel 3 on bench_sessions.py's int8 inputs,
+once each after a warm-up, and prints the cycles a consumer warp spends a
+stage in each part (kernel 3's part [1] a warp) and the producer's wait a
+stage.
 The trace adds a few per cent of device time; time a traced tree with
 ``bench_sessions.py --kernels-only --tree DIR``.  Every line printed is one
 JSON object with the card's name and power limit.
@@ -43,6 +54,10 @@ ROOT = Path(__file__).resolve().parent
 #: the parts of a consumer warp's stage, in the order of the counters
 PARTS = ("wait full", "form A", "first barrier", "store A + fence + barrier", "issue wgmma",
          "wait wgmma + release", "chunk epilogue")
+#: kernel 3's parts: the counter of each; the last three once a warp, after the loop
+INT8_PARTS = {"wait full": 0, "issue wgmma": 4, "wait wgmma + release": 5,
+              "chunk end": 6, "dequantise (a warp)": 2, "slot sum (a warp)": 3,
+              "display epilogue (a warp)": 1}
 
 _COUNTERS = """// The stage trace (ws_trace.py): cycles a part of the loop, summed over
 // the consumer warps' lane 0, and the producer's waits for a free slot.
@@ -105,26 +120,55 @@ TRACE_EDITS = [
 ]
 
 
+#: edits of int8_bscan.cu (its counters live in its anonymous namespace)
+INT8_TRACE_EDITS = [
+    ("// This thread's magnitudes += |x| of one chunk's s32 sums",
+     _COUNTERS + "// This thread's magnitudes += |x| of one chunk's s32 sums"),
+    ("        if (it >= nst) mbar_wait(&empty[s], ph ^ 1);\n",
+     "        if (it >= nst) {\n          const long long t0 = clock64();\n"
+     "          mbar_wait(&empty[s], ph ^ 1);\n"
+     "          atomicAdd(&ws_trace_cycles[8], static_cast<unsigned long long>(clock64() - t0));\n"
+     "        }\n"),
+    _after("  for (int i = 0; i < 64; ++i) mag[i] = 0.f;\n", "  WS_TRACE_START;\n"),
+    _after("    mbar_wait(&full[s], ph);\n", "    WS_MARK(0);\n"),
+    _after("    wgmma_commit();\n", "    WS_MARK(4);\n"),
+    _after("      if (lane == 0) mbar_arrive(&empty[s == 0 ? nst - 1 : s - 1]);\n    }\n",
+           "    WS_MARK(5);\n"),
+    _after("i8ws_add_magnitudes(mag, acc, tables, rr, tq);\n      }\n    }\n",
+           "    WS_MARK(6);\n"),
+    _after("    if (frame < B) i8ws_add_magnitudes(mag, acc, tables, rr, tq);\n  }\n",
+           "  WS_MARK(2);\n"),
+    _after("  i8ws_halve<16>(z, u, frame & 4, 16);\n", "  WS_MARK(3);\n"),
+    ("    atomic_max_f32(mx + tile, hi);\n  }\n}\n\n// Whether TMA",
+     "    atomic_max_f32(mx + tile, hi);\n  }\n  WS_MARK(1);\n  WS_TRACE_END(total);\n}\n\n"
+     "// Whether TMA"),
+    ("// Plain C entry point for ctypes.",
+     'extern "C" ' + _READ.replace("fdoct_ws_trace_read", "fdoct_int8_trace_read")
+     + "// Plain C entry point for ctypes."),
+]
+
+
 def make(dest: Path) -> Path:
     """DEST/fdoct_tpu_torch: this checkout's package with the trace in
-    fused_recon.cu."""
+    fused_recon.cu and int8_bscan.cu."""
     shutil.rmtree(dest / "fdoct_tpu_torch", ignore_errors=True)
     shutil.copytree(ROOT / "fdoct_tpu_torch", dest / "fdoct_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    path = dest / "fdoct_tpu_torch" / "csrc" / "fused_recon.cu"
-    text = path.read_text()
-    for old, new in TRACE_EDITS:
-        if text.count(old) != 1:
-            raise RuntimeError(f"ws_trace: {old.strip()[:60]!r} occurs {text.count(old)} times "
-                               "in fused_recon.cu; bring TRACE_EDITS up to date")
-        text = text.replace(old, new)
-    path.write_text(text)
+    for name, edits in (("fused_recon.cu", TRACE_EDITS), ("int8_bscan.cu", INT8_TRACE_EDITS)):
+        path = dest / "fdoct_tpu_torch" / "csrc" / name
+        text = path.read_text()
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"ws_trace: {old.strip()[:60]!r} occurs {text.count(old)} "
+                                   f"times in {name}; bring its edits up to date")
+            text = text.replace(old, new)
+        path.write_text(text)
     return dest
 
 
 def read(tree: Path) -> int:
     sys.path.insert(0, str(tree))             # before the package is first imported
-    from bench_sessions import kernel_inputs
+    from bench_sessions import int8_inputs, kernel_inputs
     from chip_smoke import FLAGSHIP, SEED
     from fdoct_tpu_torch.bench_resident import card_line
     from fdoct_tpu_torch.calibration import Calibration
@@ -133,10 +177,12 @@ def read(tree: Path) -> int:
     from fdoct_tpu_torch.sources.synthetic import SyntheticSource
     if not Path(kernels.__file__).resolve().is_relative_to(tree):
         raise RuntimeError(f"imported {kernels.__file__}, not the one under {tree}")
-    trace = getattr(_build.load(), "fdoct_ws_trace_read", None)
-    if trace is None:
+    lib = _build.load()
+    trace, int8_trace = (getattr(lib, f, None) for f in ("fdoct_ws_trace_read",
+                                                         "fdoct_int8_trace_read"))
+    if trace is None or int8_trace is None:
         raise RuntimeError(f"{tree} has no trace: make it with --make")
-    trace.argtypes = [ctypes.c_void_p]
+    trace.argtypes = int8_trace.argtypes = [ctypes.c_void_p]
     dev = torch.device("cuda")
     cfg = PipelineConfig(**FLAGSHIP)
     src = SyntheticSource(height=cfg.height, width=cfg.width, lambda0=cfg.lambda0,
@@ -166,6 +212,23 @@ def read(tree: Path) -> int:
                                                     for i, p in enumerate(PARTS)},
                           "producer_wait_cycles_per_stage": sums[8] / (stages / 8),
                           "card": card}), flush=True)
+    i8 = int8_inputs(cfg, Calibration.create(cfg, dev), src, src.frames(), dev)
+    s8 = i8["args"][0]
+    for _ in range(2):
+        kernels.int8_bscan_display_fused(*i8["args"], i8["thresh"], s8.shape[0],
+                                         oq_packed=i8["packed"])
+        torch.cuda.synchronize()
+        if int8_trace(ctypes.addressof(sums)) != 0:
+            raise RuntimeError("fdoct_int8_trace_read failed")
+    stages = sums[7]
+    per_warp = -(-s8.shape[-1] // 128) * -(-s8.shape[0] // 8)      # stages a warp: nk x chunks
+    warps = stages / per_warp
+    print(json.dumps({"tree": str(tree), "kernel": "int8 s8", "warp_stages": stages,
+                      "cycles_per_warp_stage": {p: sums[i] / (warps if i in (1, 2, 3)
+                                                              else stages)
+                                                for p, i in INT8_PARTS.items()},
+                      "producer_wait_cycles_per_stage": sums[8] / (stages / 8),
+                      "card": card}), flush=True)
     return 0
 
 
@@ -173,7 +236,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     group = ap.add_mutually_exclusive_group(required=True)
     group.add_argument("--make", metavar="DIR", help="write DIR/fdoct_tpu_torch, traced")
-    group.add_argument("--read", metavar="DIR", help="read the trace of DIR's six instances")
+    group.add_argument("--read", metavar="DIR", help="read the trace of DIR's seven instances")
     args = ap.parse_args(argv)
     if args.make:
         print(make(Path(args.make).resolve()))
