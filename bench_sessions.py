@@ -57,7 +57,10 @@ Flagship: 8 frames of 512 x 2048 u8 per group, 512 depths, the operator of
   groups), then per group the device's busy time, its idle share, the H2D
   copies and the group kernels from a ``torch.profiler`` pass; and the
   SHA-256 of the outputs (uint8 display, linear and dB B-scans) of one
-  more batch, so that two trees' outputs can be compared bit for bit.
+  more batch, so that two trees' outputs can be compared bit for bit;
+  ``--displays OUT.npz`` also saves that batch's uint8 displays, and
+  ``--compare-displays A.npz B.npz`` prints each session's largest
+  difference between two trees' displays in uint8 levels (exit 1 above 1).
   ``--kernels-only`` skips them: the way to time a variant of a kernel's
   source (a copy of the package with the ``.cu`` edited, ``--tree``).
 
@@ -163,13 +166,34 @@ def kernel_calls(kernels, x: dict) -> dict:
     return calls
 
 
+def compare_displays(a: Path, b: Path) -> int:
+    """Each session's largest difference, in uint8 levels, between the
+    displays two trees saved with ``--displays``; 1 if any exceeds 1."""
+    got, want = np.load(a), np.load(b)
+    if set(got.files) != set(want.files):
+        print(f"different sessions: {sorted(set(got.files) ^ set(want.files))}")
+        return 1
+    worst = {k: int(np.abs(got[k].astype(int) - want[k].astype(int)).max()) for k in got.files}
+    for k, v in worst.items():
+        print(json.dumps({"session": k, "max_uint8_diff": v,
+                          "pixels_differing": int((got[k] != want[k]).sum()),
+                          "pixels": int(got[k].size)}))
+    return 1 if max(worst.values()) > 1 else 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parent),
                     help="checkout whose fdoct_tpu_torch is measured")
     ap.add_argument("--kernels-only", action="store_true",
                     help="skip the sessions (to compare kernel variants)")
+    ap.add_argument("--displays", metavar="OUT.npz",
+                    help="save each session's displays of its hashed batch")
+    ap.add_argument("--compare-displays", nargs=2, metavar=("A.npz", "B.npz"),
+                    help="compare two trees' saved displays, session by session")
     args = ap.parse_args(argv)
+    if args.compare_displays:
+        return compare_displays(*map(Path, args.compare_displays))
     if not torch.cuda.is_available():
         print("bench_sessions: torch.cuda.is_available() is false; this needs a GPU",
               file=sys.stderr)
@@ -260,6 +284,7 @@ def main(argv=None) -> int:
         return 0
 
     # the sessions -------------------------------------------------------
+    displays = {}
     for variant, precision, bpp, other in SESSIONS:
         # 12-bit frames (uint16) from a source of their own, as chip_smoke.py phase 17 makes them
         scfg = cfg.replace(matmul_precision=precision, donotnormalize=variant == "base", bpp=bpp,
@@ -272,11 +297,16 @@ def main(argv=None) -> int:
         calls = 2 * len(batches) + (t["groups"] // 2)       # warm-up, timed and profiled passes
         per_group = {k: v / (2 * calls) for k, v in kernels.LAUNCHES.items() if v}
         digest = hashlib.sha256()
-        for r in s.process_group(batches[0]):
+        results = s.process_group(batches[0])
+        for r in results:
             for part in (r.bscandisp, r.bscan.cpu().numpy(), r.bscandb.cpu().numpy()):
                 digest.update(part.tobytes())
+        displays[" ".join([variant, precision, str(bpp), *other])] = np.stack(
+            [r.bscandisp for r in results])
         emit(kind="session", variant=variant, precision=precision, bpp=bpp, **other,
              launches_per_group=per_group, outputs_sha256=digest.hexdigest(), **t)
+    if args.displays:
+        np.savez(args.displays, **displays)
     return 0
 
 

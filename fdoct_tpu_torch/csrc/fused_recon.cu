@@ -54,6 +54,47 @@ namespace {
 
 __device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat16 v) { return __bfloat16_as_ushort(v); }
 
+// The constants of the bf16 instances' warp-specialised schedule
+// (fused_recon_ws_kernel below), among them ROUND_STAGES, the interval at
+// which both bf16 schedules round their tensor-core sums.
+namespace ws {
+constexpr int BM = 64;              // (row, frame) pairs per block: the M of one wgmma
+constexpr int BN = 128;             // depths per block: 64 a consumer warpgroup, re and im make N = 128
+constexpr int KT = 64;              // spectral samples per stage: four k16 steps
+constexpr int ROUND_STAGES = 2;     // stages whose products one fragment sums before __fadd_rn
+constexpr int MAX_STAGES = 4;
+constexpr int THREADS = 512;        // warpgroups 0-1 consume (wgmma), 2 forms A, 3 produces (TMA)
+constexpr int PRODUCER_REGS = 40;   // setmaxnreg of the producer warpgroup,
+constexpr int FORMER_REGS = 104;    // of the one that forms A
+constexpr int CONSUMER_REGS = 184;  // and of the consumers: 128 x (40 + 104) + 256 x 184 <= 65,536
+constexpr int OP_BOX = KT * 64 * 2;           // one 64-sample x 64-depth bf16 box
+constexpr int OP_BYTES = 4 * OP_BOX;          // re 0-63 | im 0-63 | re 64-127 | im 64-127
+constexpr int A_BYTES = BM * KT * 2;          // the bf16 A tile of a stage, 64 pairs x KT
+constexpr int A_TILES = 3;                    // a ring of A tiles, read by both consumer warpgroups
+constexpr int SMEM_LIMIT = 232448;            // shared memory a block may take
+constexpr int SMEM_EXTRA = 1024 + 2 * MAX_STAGES * 8;   // 1,024-byte alignment + the ring's barriers
+static_assert((PRODUCER_REGS + FORMER_REGS) * 128 + CONSUMER_REGS * 256 <= 65536,
+              "the register file");
+static_assert(OP_BOX % 1024 == 0 && A_BYTES % 1024 == 0, "1,024-byte aligned regions");
+
+template <typename In> __host__ __device__ constexpr bool raw() {
+  return !std::is_same<In, float>::value;
+}
+
+// The input rows of a stage, [pair][KT] In.
+template <typename In> __host__ __device__ constexpr int in_bytes() {
+  return BM * KT * static_cast<int>(sizeof(In));
+}
+// One stage: operator | input rows | pi [R][KT] f32 | inv_background [R][KT]
+// f32 (raw frames only), R = BM / F rows; a multiple of 1,024 bytes.
+template <typename In> __host__ __device__ constexpr int stage_bytes(int R) {
+  return OP_BYTES + in_bytes<In>() + (raw<In>() ? 2 * R * KT * static_cast<int>(sizeof(float)) : 0);
+}
+
+// log2 of the frames in flight, at every number of frames.
+constexpr int FS = 3;
+}  // namespace ws
+
 // ---------------------------------------------------------------------------
 // fused_recon_tc_kernel<In, Op>: the group sum on the tensor cores, for raw
 // u8 or u16 frames (In = uint8_t or uint16_t, the ratio formed on chip) or
@@ -111,7 +152,11 @@ __device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat16 v) { return __bfloat
 // bf16 operator (KT = 64), the shapes TMA cannot address (the others run
 // the warp-specialised schedule below): A by ldmatrix, the depth-contiguous
 // operator by ldmatrix.trans, so the operator needs no repacking; rows are
-// padded to 144 and 272 bytes so neither load has bank conflicts.  What
+// padded to 144 and 272 bytes so neither load has bank conflicts.  The
+// products go into a fragment that starts at zero every ws::ROUND_STAGES
+// stages and is then added to the running sums with __fadd_rn, as the
+// warp-specialised schedule rounds them (see its note): 64 more registers a
+// thread, and the same sums bit for bit.  What
 // bounds it: the L2 -> SM traffic (the operator tile once per 64-pair tile,
 // the frame rows once per 64-depth tile: 384 MiB a flagship group for raw
 // frames, 768 MiB for a yr stack), the tile pass and two barriers a stage,
@@ -294,10 +339,10 @@ __device__ __forceinline__ void tc_ratio_tile(const uint8_t* stage, uint8_t* a_s
   }
 }
 
-// One staged chunk through the bf16 tensor cores: acc[mt][j] re (j < 4), im
-// (j >= 4)
+// One staged chunk through the bf16 tensor cores, its products added to d
+// (the tensor cores' truncating sums): d[mt][j] re (j < 4), im (j >= 4)
 __device__ __forceinline__ void tc_mma_stage_bf16(const uint8_t* a_s, const uint8_t* op_s,
-                                                  float (&acc)[2][8][4], const tc::Frag& f) {
+                                                  float (&d)[2][8][4], const tc::Frag& f) {
   using T = TcOp<__nv_bfloat16>;
   const uint32_t a_base = smem_addr(a_s);
   const uint32_t b_base = smem_addr(op_s);
@@ -318,8 +363,8 @@ __device__ __forceinline__ void tc_mma_stage_bf16(const uint8_t* a_s, const uint
       ldmatrix_x4_trans(b, b_base + krow * T::OP_LD + n * 2);
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
-        mma_bf16(acc[mt][j], a[mt], b[0], b[1]);
-        mma_bf16(acc[mt][4 + j], a[mt], b[2], b[3]);
+        mma_bf16(d[mt][j], a[mt], b[0], b[1]);
+        mma_bf16(d[mt][4 + j], a[mt], b[2], b[3]);
       }
     }
   }
@@ -371,6 +416,25 @@ __device__ __forceinline__ void tc_mma_stage_tf32x3(const uint8_t* a_s, const ui
   }
 }
 
+// d = 0; acc += d in round-to-nearest f32 (the end of a round: d holds its
+// products' truncating tensor-core sums)
+__device__ __forceinline__ void tc_zero(float (&d)[2][8][4]) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[mt][j][e] = 0.f;
+}
+__device__ __forceinline__ void tc_add_rn(float (&acc)[2][8][4], const float (&d)[2][8][4]) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = __fadd_rn(acc[mt][j][e], d[mt][j][e]);
+}
+
 template <typename In, typename Op, bool VEC>
 __global__ void __launch_bounds__(tc::THREADS)
 fused_recon_tc_kernel(const In* __restrict__ x, const float* __restrict__ pi,
@@ -392,6 +456,8 @@ fused_recon_tc_kernel(const In* __restrict__ x, const float* __restrict__ pi,
   float mag[2][2][4][2] = {};          // [mt][h][j][e], this thread's frame slot
   for (int b0 = 0; b0 < B; b0 += 1 << fs) {
     float acc[2][8][4] = {};
+    float part[2][8][4] = {};          // bf16: a round's fragment
+    int kt = 0;                        // the stage of this chunk of frames
     tc::stage_ring(
         tc_smem, stage_bytes, nk,
         [&](uint8_t* stage, int kt) {
@@ -406,8 +472,14 @@ fused_recon_tc_kernel(const In* __restrict__ x, const float* __restrict__ pi,
             __syncthreads();                 // the A tile is whole
             a_tile = a_s;
           }
-          if constexpr (std::is_same<Op, float>::value) tc_mma_stage_tf32x3(a_tile, op_s, acc, f);
-          else tc_mma_stage_bf16(a_tile, op_s, acc, f);
+          if constexpr (std::is_same<Op, float>::value) {
+            tc_mma_stage_tf32x3(a_tile, op_s, acc, f);
+          } else {                           // rounds of ws::ROUND_STAGES stages from the chunk's first
+            if (kt % ws::ROUND_STAGES == 0) tc_zero(part);
+            tc_mma_stage_bf16(a_tile, op_s, part, f);
+            if (kt % ws::ROUND_STAGES == ws::ROUND_STAGES - 1 || kt == nk - 1) tc_add_rn(acc, part);
+          }
+          ++kt;
         });
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -478,9 +550,20 @@ int launch_tc(const void* x, const void* pi, const void* inv_bg, const void* op_
 // pallas_kernels.py:90-123).  The same sums as the mma.sync instances above,
 // bit for bit: the same bf16 A operand (the ratio formed op by op as
 // tc_ratio_tile forms it, or the f32 ratio rounded with
-// __float2bfloat16_rn), k16 steps in the same order into one f32
-// accumulator per chunk of frames, and tc::add_magnitude / the frame-slot
-// butterfly of tc::sum_frame_slots after it.
+// __float2bfloat16_rn), k16 steps in the same order into a fragment that
+// starts at zero every ROUND_STAGES stages and is then added to f32 running
+// sums with __fadd_rn, and tc::add_magnitude / the frame-slot butterfly of
+// tc::sum_frame_slots after the last.
+//
+// The rounding.  The tensor cores' f32 sums are not rounded to nearest
+// (see the 3xTF32 note above).  A chunk's 128 k16 steps chained into one
+// accumulator erred 2.7x chip_smoke.py's BF16_F64_TOL against the float64
+// product of the same rounded operands, on white-noise frames against the
+// flagship operator, where cuBLAS f32 reads 0.5x and the JAX kernels (f32
+// sums) 0.2x.  tests/test_torch_bf16_rounding.py models the sums (k16 steps
+// truncated to 24 bits, a fragment every ROUND_STAGES stages added in f32):
+// 3.2x never rounded, 0.15x at ROUND_STAGES = 2 (128 samples), 0.36x at 4,
+// 0.86x at 8.
 //
 // What bounds it.  The products, 17.2 GFLOP a flagship group, take 17.4 us
 // at the dense bf16 peak; the compulsory traffic (8-32 MiB of frames or
@@ -490,113 +573,84 @@ int launch_tc(const void* x, const void* pi, const void* inv_bg, const void* op_
 //   * staging by every thread (cp.async, an address and a register per 16
 //     bytes): TMA moves every tile, issued by one thread of a producer
 //     warpgroup that does nothing else.  It waits on the ring's "empty"
-//     mbarriers and arms the "full" ones, so the consumers never wait for a
-//     slot to be reloaded, and it gives most of its registers to them
-//     (setmaxnreg: 40 a thread against the consumers' 232; 128 x 40 + 256 x
-//     232 <= 65,536);
-//   * the L2 -> SM traffic (384 MiB a flagship group for raw u8 frames at
-//     64 x 64 tiles): a block is 128 (row, frame) pairs x 128 depths, so a
-//     flagship group moves 128 MiB of operator (32 pair tiles x 4 MiB) and
-//     64 MiB of frames, pi and inv_background (4 depth tiles x 16 MiB); a
-//     u16 group 96 MiB of frames and pi / inv_background, a yr group 128
+//     mbarriers and arms the "full" ones;
+//   * the registers the rounding takes: a consumer thread holds 64 running
+//     sums and a round's fragment of 64 (at m64n256 over 128 pairs, 256
+//     would not fit), so a block is 64 (row, frame) pairs x 128 depths and
+//     each of two consumer warpgroups issues wgmma.mma_async.m64n128k16 (the
+//     block's 64 pairs x re and im of 64 depths, warpgroup w depths 64w ..
+//     64w + 63), four back to back a 64-sample stage, on A and B in shared
+//     memory.  A flagship group then moves 256 MiB of operator from the L2
+//     (64 pair tiles x 4 MiB) and 64 MiB of frames, pi and inv_background
+//     (4 depth tiles x 16 MiB); a u16 group 96 MiB of those, a yr group 128
 //     MiB of ratio;
-//   * mma.sync's small tiles and two block-wide barriers a stage: two
-//     consumer warpgroups each issue wgmma.mma_async.m64n256k16 (64 pairs x
-//     re and im of 128 depths, 128 f32 sums a thread) on A and B in shared
-//     memory, four back to back a 64-sample stage, and synchronise only
-//     within their warpgroup;
-//   * the A tile: each consumer warpgroup forms its 64 pairs' bf16 ratio once
-//     a stage into a K-major tile with the 128-byte swizzle (16-byte chunk c
-//     of row r at chunk c ^ (r & 7)), double-buffered, while its previous
-//     stage's wgmmas run.  Forming A in registers while a wgmma that reads
-//     other A registers is in flight made ptxas serialise the wgmmas
-//     (C7513); shared memory has no such hazard.  The stores are made
-//     visible to wgmma by fence.proxy.async and a named barrier over the
-//     warpgroup; a first named barrier makes sure every warp of it is past
-//     the wgmmas that last read the buffer.  The counts become f32 by a
-//     byte permute and an add (ws_count), not by a conversion instruction.
-// Measured on an NVIDIA H100 (PERF.md; bench_sessions.py, ws_trace.py):
-// ~45 us of device time a flagship group of u8 or u16 frames, ~37 us of an
-// f32 ratio, 2.1-2.6x the bound; ~43 us for a group of one frame.  The
-// loads alone take ~15 us (the L2 -> SM traffic is not what bounds it), the
-// consumers' path alone the whole time: per stage a consumer warp spends ~40 % of its
-// cycles forming its A values, ~25 % waiting for the stage to land and
-// ~20 % storing the tile behind its fence and barriers.  A in registers
-// formed a stage ahead (wgmma's RS form) and clusters of two blocks that
-// multicast the operator measured 30 % slower.
+//   * the A tile: a fourth warpgroup forms each stage's, the block's 64
+//     pairs' bf16 ratio in a K-major tile with the 128-byte swizzle
+//     (16-byte chunk c of row r at chunk c ^ (r & 7)), into a ring of
+//     A_TILES tiles that both consumer warpgroups read, so each output takes
+//     the forming that a block of 128 pairs would and the consumers spend no
+//     time on it.  Its stores are made visible to wgmma by fence.proxy.async
+//     before it arrives on the tile's "full" mbarrier; the consumers release
+//     a tile on its "empty" one once the wgmmas that read it are done.
+//     Forming A in registers while a wgmma that reads other A registers is
+//     in flight made ptxas serialise the wgmmas (C7513); shared memory has
+//     no such hazard.  The counts become f32 by a byte permute and an add
+//     (ws_count), not by a conversion instruction;
+//   * the end of a round: its fragment is added to the running sums at the
+//     next round's first stage, once that stage's A tile is ready and just
+//     before its wgmmas start the fragment anew (the round's wgmmas have run
+//     meanwhile), so the tensor cores wait only for the 64 adds.
+// Registers (setmaxnreg): the producer warpgroup 40 a thread, the forming
+// one 104, the consumers 184; 128 x (40 + 104) + 256 x 184 = 65,536.
+// Measured on an NVIDIA H100 (PERF.md section 6; bench_sessions.py,
+// ws_trace.py): ~50 us of device time a flagship group of u8 frames, ~52 us
+// of u16 frames or of an f32 ratio, ~50 us for a group of one frame; the
+// forming-and-consuming form without the fourth warpgroup took ~57 us, and
+// rings of five stages, an L2 prefetch, clusters of two blocks that
+// multicast the operator, 128-sample stages, two fragments in turn (spilled)
+// and a persistent grid measured no faster or slower.  The operator's bytes
+// per output, twice the 128-pair block's through the L2 and shared memory,
+// cost most where forming A is cheap: an f32 ratio (a block of 128 pairs
+// whose sums were chained unrounded took ~37 us).
 //
 // The block tile and the pairs.  Pair m = row * F + frame (tc::pair_row /
 // pair_frame) with F = 8 frames in flight at every number of frames B
-// (ws::FS), so a block holds R = 16 rows and 512 rows are 4 depth tiles x
-// 32 row tiles = 128 blocks, one wave on 132 SMs, whatever B is.  A group
+// (ws::FS), so a block holds R = 8 rows and 512 rows are 4 depth tiles x
+// 64 row tiles = 256 blocks, two waves on 132 SMs, whatever B is.  A group
 // of fewer than 8 frames (one frame a launch on the per-frame and
 // saveframes routes) takes zero frames: TMA fills them without reading
 // memory and no A value is formed for them, and the wgmmas multiply their
 // zeros on tensor cores that would otherwise idle.  Fewer frames in flight
-// would give B = 1 fewer blocks of the same work each: two frames (F = 2,
-// 32 blocks) took 70 us a launch against 43 us at F = 8 (PERF.md).  Groups
-// of more than 8 frames run in chunks of 8 (MULTI: |re + i im| is then
-// added to a frame slot per chunk in 64 more registers a thread; a group
-// of at most 8 frames adds it once, after the last stage, into the
-// accumulators themselves).
+// would give B = 1 fewer blocks of the same work each: two frames (F = 2)
+// took 70 us a launch against 43 us at F = 8 (PERF.md).  Groups of more
+// than 8 frames run in chunks of 8, each starting its rounds at its first
+// stage (MULTI: |re + i im| is then added to a frame slot per chunk in 32
+// more registers a thread; a group of at most 8 frames adds it once, after
+// the last stage, into the running sums themselves).
 //
 // The ring.  A stage holds KT = 64 samples: the operator as four 64 x 64
-// bf16 boxes (re 0-63, re 64-127, im 0-63, im 64-127), MN-major with the
-// 128-byte swizzle; the input rows pair-major ([row][frame][64 samples]
-// through a 3-D tensor map of dims (sample, frame, row)), unswizzled (a
-// warp reads whole rows); for raw frames pi and inv_background
-// [16][64] f32.  48 KiB (u8), 56 KiB (u16) or 64 KiB (f32) a stage; beside
-// two A tiles of 8 KiB per consumer warpgroup, 4 (u8) or 3 (u16, f32)
-// stages fit in 227 KB.  TMA fills elements outside a tensor with zero, so
-// rows past ``rows``, frames past B, samples past n_in and depths past
-// ndisp cost no memory traffic.
+// bf16 boxes (re 0-63, im 0-63, re 64-127, im 64-127: warpgroup w reads
+// boxes 2w and 2w + 1 as one B of N = 128), MN-major with the 128-byte
+// swizzle; the input rows pair-major ([row][frame][64 samples] through a 3-D
+// tensor map of dims (sample, frame, row)), unswizzled (a warp reads whole
+// rows); for raw frames pi and inv_background [8][64] f32.  40 KiB (u8), 44
+// KiB (u16) or 48 KiB (f32) a stage; beside the three A tiles of 8 KiB, 4
+// stages fit in 227 KB.  A stage's slot is free once the forming
+// warpgroup has read its rows and the consumers' wgmmas its operator.  TMA
+// fills elements outside a tensor with zero, so rows past ``rows``, frames
+// past B, samples past n_in and depths past ndisp cost no memory traffic.
 //
 // The epilogue.  The wgmma accumulator has the mma.sync (g, t) row map: lane
-// (g, t) of consumer warp w holds pairs 16 (w & 3) + g and + 8 of its
-// warpgroup, depths 8j + 2t + (e & 1), re in acc[0..63], im in acc[64..127].
-// The F frame slots of a row lie in lanes 4 * slot apart; they are summed by
-// tc::sum_frame_slots' butterfly and the slot-0 lanes store.  No atomics,
-// deterministic.
+// (g, t) of consumer warp w of warpgroup wg holds pairs 16 (w & 3) + g and
+// + 8, depths 64 wg + 8j + 2t + (e & 1), re in acc[0..31], im in
+// acc[32..63].  The F frame slots of a row lie in lanes 4 * slot apart; they
+// are summed by tc::sum_frame_slots' butterfly and the slot-0 lanes store.
+// No atomics, deterministic.
 //
 // TMA needs 16-byte row strides (n_in % 16 for u8, % 8 for u16, % 4 for f32,
 // ndisp % 8) and 16-byte aligned bases (ws_applies); every other shape runs
 // the mma.sync template launch_tc<In, __nv_bfloat16> from the same C entry,
 // chosen before the launch (ops.kernels.bf16_schedule mirrors the rule).
-
-namespace ws {
-constexpr int BM = 128;             // (row, frame) pairs per block: two consumer warpgroups of 64
-constexpr int BN = 128;             // depths per block; N = 256 with re and im
-constexpr int KT = 64;              // spectral samples per stage: four k16 steps
-constexpr int MAX_STAGES = 4;
-constexpr int THREADS = 384;        // warpgroups 0-1 consume (wgmma), warpgroup 2 produces (TMA)
-constexpr int PRODUCER_REGS = 40;   // setmaxnreg of the producer warpgroup
-constexpr int CONSUMER_REGS = 232;  // and of the consumers: 128 x 40 + 256 x 232 <= 65,536
-constexpr int OP_BOX = KT * 64 * 2;           // one 64-sample x 64-depth bf16 box
-constexpr int OP_BYTES = 4 * OP_BOX;          // re 0-63 | re 64-127 | im 0-63 | im 64-127
-constexpr int A_BYTES = 64 * KT * 2;          // a warpgroup's bf16 A tile, 64 pairs x KT
-constexpr int A_TILES = 4;                    // two a consumer warpgroup
-constexpr int SMEM_LIMIT = 232448;            // shared memory a block may take
-constexpr int SMEM_EXTRA = 1024 + 2 * MAX_STAGES * 8;   // 1,024-byte alignment + barriers
-static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 256 <= 65536, "the register file");
-static_assert(OP_BOX % 1024 == 0 && A_BYTES % 1024 == 0, "1,024-byte aligned regions");
-
-template <typename In> __host__ __device__ constexpr bool raw() {
-  return !std::is_same<In, float>::value;
-}
-
-// The input rows of a stage, [pair][KT] In.
-template <typename In> __host__ __device__ constexpr int in_bytes() {
-  return BM * KT * static_cast<int>(sizeof(In));
-}
-// One stage: operator | input rows | pi [R][KT] f32 | inv_background [R][KT]
-// f32 (raw frames only), R = BM / F rows; a multiple of 1,024 bytes.
-template <typename In> __host__ __device__ constexpr int stage_bytes(int R) {
-  return OP_BYTES + in_bytes<In>() + (raw<In>() ? 2 * R * KT * static_cast<int>(sizeof(float)) : 0);
-}
-
-// log2 of the frames in flight, at every number of frames.
-constexpr int FS = 3;
-}  // namespace ws
 
 // An integer count c < 2^23 as f32, exactly: the bits 0x4B000000 | c are the
 // float 2^23 + c, and subtracting 2^23 is exact.  A byte permute and an add
@@ -642,16 +696,17 @@ __device__ __forceinline__ void ws_samples(float (&y)[8], const uint8_t* in, int
   }
 }
 
-// Warpgroup wg's A tile of one landed stage, formed by its thread t: chunk c
-// = t & 7 (samples 8c..8c+7) of the tile's rows 4u..4u+3, u = t >> 3, so
-// that a warp writes whole 128-byte rows and four frames of one row share
-// one load of pi and inv_background.  PARTIAL (a chunk of fewer than eight
-// frames): pairs of frames at or past ``frames`` are zero, and nothing is
-// read for them; a thread's four pairs are frames 0-3 or 4-7 of one row, so
-// the live ones come first and the first of them reads the row.
+// A landed stage's A tile as thread t of the forming warpgroup forms it:
+// chunk c = t & 7 (samples 8c..8c+7) of the tile's rows 4u..4u+3, u = t >>
+// 3, so that a warp writes whole 128-byte rows and four frames of one row
+// share one load of pi and inv_background.  PARTIAL (a chunk of fewer than
+// eight frames): pairs of frames at or past ``frames`` are zero, and nothing
+// is read for them; a thread's four pairs are frames 0-3 or 4-7 of one row,
+// so the live ones come first and the first of them reads the row.
 template <typename In, bool PARTIAL>
-__device__ __forceinline__ void ws_form_a(uint32_t (&a)[4][4], const uint8_t* stage, int wg, int t,
-                                          int fs, int R, int frames) {
+__device__ __forceinline__ void ws_form_a(uint32_t (&a)[4][4], const uint8_t* stage, int t,
+                                          int frames) {
+  constexpr int R = ws::BM >> ws::FS;
   const uint8_t* in = stage + ws::OP_BYTES;
   const float* pi_s = reinterpret_cast<const float*>(in + ws::in_bytes<In>());
   const float* inv_s = pi_s + R * ws::KT;
@@ -659,15 +714,15 @@ __device__ __forceinline__ void ws_form_a(uint32_t (&a)[4][4], const uint8_t* st
   float p[8], v[8];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int m = 64 * wg + 4 * u + i;
-    if (PARTIAL && tc::pair_frame(m, fs) >= frames) {
+    const int m = 4 * u + i;
+    if (PARTIAL && tc::pair_frame(m, ws::FS) >= frames) {
       a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0u;
       continue;
     }
     if constexpr (ws::raw<In>()) {
-      if (i == 0 || tc::pair_frame(m, fs) == 0) {   // a new row: its pi and inv_background
-        const float* pr = pi_s + tc::pair_row(m, fs) * ws::KT + 8 * c;
-        const float* vr = inv_s + tc::pair_row(m, fs) * ws::KT + 8 * c;
+      if (i == 0) {                    // the row's pi and inv_background
+        const float* pr = pi_s + tc::pair_row(m, ws::FS) * ws::KT + 8 * c;
+        const float* vr = inv_s + tc::pair_row(m, ws::FS) * ws::KT + 8 * c;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const float4 q = *reinterpret_cast<const float4*>(pr + 4 * h);
@@ -696,6 +751,14 @@ __device__ __forceinline__ void ws_store_a(uint8_t* a_s, const uint32_t (&a)[4][
     *reinterpret_cast<uint4*>(a_s + r * 128 + ((c ^ (r & 7)) << 4)) =
         make_uint4(a[i][0], a[i][1], a[i][2], a[i][3]);
   }
+}
+
+// acc += d in round-to-nearest f32: the end of a round, whose products the
+// tensor cores summed into d.
+template <int N>
+__device__ __forceinline__ void ws_add_fragment(float (&acc)[N], const float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = __fadd_rn(acc[i], d[i]);
 }
 
 // |re + i im| of the N (pair, depth) sums of a thread's accumulators (re in
@@ -749,8 +812,10 @@ fused_recon_ws_kernel(const __grid_constant__ CUtensorMap in_map,
   uint8_t* a_tiles = smem + nst * sbytes;
   uint64_t* full = reinterpret_cast<uint64_t*>(a_tiles + ws::A_TILES * ws::A_BYTES);
   uint64_t* empty = full + ws::MAX_STAGES;
+  uint64_t* a_full = empty + ws::MAX_STAGES;
+  uint64_t* a_empty = a_full + ws::A_TILES;
 
-  const int tid = threadIdx.x, wg = tid >> 7;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
   const int row0 = blockIdx.y * R, col0 = blockIdx.x * ws::BN;
   const int nk = (n_in + ws::KT - 1) / ws::KT;
   const int total = nk * ((B + (1 << fs) - 1) >> fs);    // stages of all chunks of frames
@@ -758,26 +823,30 @@ fused_recon_ws_kernel(const __grid_constant__ CUtensorMap in_map,
   if (tid == 0) {
     for (int s = 0; s < nst; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);       // the eight consumer warps
+      mbar_init(&empty[s], 12);      // the four forming and the eight consumer warps
+    }
+    for (int i = 0; i < ws::A_TILES; ++i) {
+      mbar_init(&a_full[i], 4);      // the four forming warps
+      mbar_init(&a_empty[i], 8);     // the eight consumer warps
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (wg == 2) {
+  if (wg == 3) {
     // the producer: one thread issues every copy of stage it into slot it %
     // nst once the slot's previous stage has been released
     setmaxnreg_dec<ws::PRODUCER_REGS>();
-    if (tid == 256) {
+    if (tid == 384) {
       for (int it = 0, s = 0, ph = 0, kt = 0, b0 = 0; it < total; ++it) {
         uint8_t* st = smem + s * sbytes;
         if (it >= nst) mbar_wait(&empty[s], ph ^ 1);
         mbar_expect_tx(&full[s], sbytes);
         const int k0 = kt * ws::KT;
 #pragma unroll
-        for (int h = 0; h < 4; ++h)
-          tma_load_2d(st + h * ws::OP_BOX, h < 2 ? &re_map : &im_map, &full[s],
-                      col0 + (h & 1) * 64, k0);
+        for (int h = 0; h < 4; ++h)      // re 0-63, im 0-63, re 64-127, im 64-127
+          tma_load_2d(st + h * ws::OP_BOX, h & 1 ? &im_map : &re_map, &full[s],
+                      col0 + (h >> 1) * 64, k0);
         tma_load_3d(st + ws::OP_BYTES, &in_map, &full[s], k0, b0, row0);
         if constexpr (ws::raw<In>()) {
           uint8_t* pi_s = st + ws::OP_BYTES + ws::in_bytes<In>();
@@ -791,63 +860,98 @@ fused_recon_ws_kernel(const __grid_constant__ CUtensorMap in_map,
     return;
   }
 
-  // the consumers: warpgroup wg multiplies pairs 64 wg .. 64 wg + 63
+  if (wg == 2) {
+    // the forming warpgroup: stage it's A tile into A tile it % A_TILES,
+    // once the wgmmas that read that tile last are done; it releases the
+    // stage's slot (its rows read) and announces the tile
+    setmaxnreg_dec<ws::FORMER_REGS>();
+    const int t = tid & 127;
+    for (int it = 0, s = 0, ph = 0, kt = 0, b0 = 0, ai = 0, aph = 0; it < total; ++it) {
+      const uint8_t* st = smem + s * sbytes;
+      mbar_wait(&full[s], ph);
+      uint32_t a[4][4];
+      if (B - b0 < (1 << fs))          // the group's last chunk, short of eight frames
+        ws_form_a<In, true>(a, st, t, B - b0);
+      else
+        ws_form_a<In, false>(a, st, t, B - b0);
+      if (it >= ws::A_TILES) mbar_wait(&a_empty[ai], aph ^ 1);
+      ws_store_a(a_tiles + ai * ws::A_BYTES, a, t);
+      fence_proxy_async();             // the stores, before the consumers' wgmmas read them
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(&a_full[ai]);
+        mbar_arrive(&empty[s]);
+      }
+      if (++s == nst) s = 0, ph ^= 1;
+      if (++kt == nk) kt = 0, b0 += 1 << fs;
+      if (++ai == ws::A_TILES) ai = 0, aph ^= 1;
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg multiplies the block's 64 pairs by depths
+  // 64 wg .. 64 wg + 63
   setmaxnreg_inc<ws::CONSUMER_REGS>();
-  const int t = tid & 127, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tq = lane & 3;
-  const int m0 = wg * 64 + (warp & 3) * 16 + g;            // this lane's pairs: m0, m0 + 8
+  const int warp = tid >> 5, g = lane >> 2, tq = lane & 3;
+  const int m0 = (warp & 3) * 16 + g;                      // this lane's pairs: m0, m0 + 8
   const int frame = tc::pair_frame(m0, fs);                // the same for m0 + 8
-  float acc[128];
-  float mag[MULTI ? 64 : 1];
+  float acc[64], part[64];   // the running sums and a round's fragment: re 0-31, im 32-63
+  float mag[MULTI ? 32 : 1];
 #pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < (MULTI ? 64 : 1); ++i) mag[i] = 0.f;
-  uint8_t* a_mine = a_tiles + wg * 2 * ws::A_BYTES;
-  for (int it = 0, s = 0, ph = 0, kt = 0, b0 = 0; it < total; ++it) {
-    const uint8_t* st = smem + s * sbytes;
-    uint8_t* a_s = a_mine + (it & 1) * ws::A_BYTES;
-    mbar_wait(&full[s], ph);
-    uint32_t a[4][4];
-    if (B - b0 < (1 << fs))            // the group's last chunk, short of eight frames
-      ws_form_a<In, true>(a, st, wg, t, fs, R, B - b0);
-    else
-      ws_form_a<In, false>(a, st, wg, t, fs, R, B - b0);
-    named_barrier_sync(1 + wg, 128);   // every warp is past the wgmmas that read a_s last
-    ws_store_a(a_s, a, t);
-    fence_proxy_async();
-    named_barrier_sync(1 + wg, 128);   // the A tile is whole
-    const uint32_t a_addr = smem_addr(a_s), b_addr = smem_addr(st);
+  for (int i = 0; i < (MULTI ? 32 : 1); ++i) mag[i] = 0.f;
+  const uint32_t b_mine = 2 * wg * ws::OP_BOX;             // its B: boxes re, im of its depths
+  for (int it = 0, s = 0, ph = 0, kt = 0, b0 = 0, ai = 0, aph = 0; it < total; ++it) {
+    mbar_wait(&full[s], ph);           // B has landed
+    mbar_wait(&a_full[ai], aph);       // A is formed
+    const bool fresh = kt % ws::ROUND_STAGES == 0;        // a round's first stage
+    if (fresh && kt > 0) {             // the round before ends: its wgmmas ran meanwhile
+      wgmma_wait<0>();
+      wgmma_hold(part);
+      ws_add_fragment(acc, part);
+    }
+    const uint32_t a_addr = smem_addr(a_tiles + ai * ws::A_BYTES);
+    const uint32_t b_addr = smem_addr(smem + s * sbytes) + b_mine;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_m64n256k16_ss(acc, wgmma_desc_k_sw128(a_addr + kk * 32),
+    for (int kk = 0; kk < 4; ++kk)     // a round's first k16 step starts its fragment at zero
+      wgmma_m64n128k16_ss(part, wgmma_desc_k_sw128(a_addr + kk * 32),
                           wgmma_desc_mn_sw128(b_addr + kk * 16 * 128, ws::OP_BOX, 1024),
-                          kt > 0 || kk > 0);
+                          !fresh || kk > 0);
     wgmma_commit();
-    wgmma_wait<1>();                   // the stage before is done: release its slot
+    wgmma_wait<1>();                   // the stage before is done: release its slot and A tile
     if (it > 0) {
       __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s == 0 ? nst - 1 : s - 1]);
+      if (lane == 0) {
+        mbar_arrive(&empty[s == 0 ? nst - 1 : s - 1]);
+        mbar_arrive(&a_empty[ai == 0 ? ws::A_TILES - 1 : ai - 1]);
+      }
     }
-    if (kt == nk - 1) {                // the last stage of a chunk of frames
+    if (kt == nk - 1) {                // the last stage of a chunk of frames ends its last round
       wgmma_wait<0>();
-      wgmma_hold(acc);
-      if constexpr (MULTI) ws_add_magnitudes(mag, acc);
+      wgmma_hold(part);
+      ws_add_fragment(acc, part);
+      if constexpr (MULTI) {
+        ws_add_magnitudes(mag, acc);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      }
     }
     if (++s == nst) s = 0, ph ^= 1;
     if (++kt == nk) kt = 0, b0 += 1 << fs;
+    if (++ai == ws::A_TILES) ai = 0, aph ^= 1;
   }
   if constexpr (MULTI) {
-    ws_store_sums<16>(mag, out, m0, frame, fs, row0, col0, rows, ndisp, tq);
+    ws_store_sums<8>(mag, out, m0, frame, fs, row0, col0 + 64 * wg, rows, ndisp, tq);
   } else {                             // one chunk: the magnitudes in place of re
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < 32; ++i) {
       float v = 0.f;
-      tc::add_magnitude(v, acc[i], acc[64 + i]);
+      tc::add_magnitude(v, acc[i], acc[32 + i]);
       acc[i] = v;
     }
-    ws_store_sums<16>(acc, out, m0, frame, fs, row0, col0, rows, ndisp, tq);
+    ws_store_sums<8>(acc, out, m0, frame, fs, row0, col0 + 64 * wg, rows, ndisp, tq);
   }
 }
 
@@ -869,7 +973,9 @@ fused_recon_ws_kernel(const __grid_constant__ CUtensorMap in_map,
 // What bounds it.  Three TF32 products, 51.5 GFLOP a flagship group, take
 // 0.104 ms at the dense TF32 peak; the compulsory traffic (8-32 MiB of frames
 // or ratio, 8 MiB of pi and inv_background, 16 MiB of operator table) 10-17
-// us.  The ws schedule of the bf16 instances, with these changes:
+// us.  A TMA producer warpgroup and two consumer warpgroups (384 threads;
+// setmaxnreg 40 and 232 a thread), as in the ws schedule of the bf16
+// instances without its forming warpgroup, with these changes:
 //   * wgmma takes tf32 operands K-major only (the transposed layouts are for
 //     16-bit types), so the operator comes as a table built once per
 //     Calibration (ops.kernels.pack_tf32_operator): (hi, lo) x (re, im) x
@@ -912,6 +1018,9 @@ namespace ws32 {
 constexpr int BM = 128;             // (row, frame) pairs per block: two consumer warpgroups of 64
 constexpr int BN = 64;              // depths per block; N = 128 with re and im
 constexpr int KT = 32;              // spectral samples per stage (128 bytes of f32): four k8 steps
+constexpr int THREADS = 384;        // warpgroups 0-1 consume (wgmma), warpgroup 2 produces (TMA)
+constexpr int PRODUCER_REGS = 40;   // setmaxnreg of the producer warpgroup
+constexpr int CONSUMER_REGS = 232;  // and of the consumers: 128 x 40 + 256 x 232 <= 65,536
 constexpr int OP_BOX = KT * 2 * BN * 4;       // one part (hi or lo) of the table: re | im rows
 constexpr int OP_BYTES = 2 * OP_BOX;          // hi | lo
 static_assert(OP_BOX % 1024 == 0, "1,024-byte aligned regions");
@@ -994,7 +1103,7 @@ __device__ __forceinline__ void ws32_form_a(uint32_t (&hi)[4][4], uint32_t (&lo)
 }
 
 template <typename In, bool MULTI>
-__global__ void __launch_bounds__(ws::THREADS, 1)
+__global__ void __launch_bounds__(ws32::THREADS, 1)
 fused_recon_ws32_kernel(const __grid_constant__ CUtensorMap in_map,
                         const __grid_constant__ CUtensorMap pi_map,
                         const __grid_constant__ CUtensorMap inv_map,
@@ -1025,7 +1134,7 @@ fused_recon_ws32_kernel(const __grid_constant__ CUtensorMap in_map,
   if (wg == 2) {
     // the producer: one thread issues every copy of stage it into slot it %
     // nst once the slot's previous stage has been released
-    setmaxnreg_dec<ws::PRODUCER_REGS>();
+    setmaxnreg_dec<ws32::PRODUCER_REGS>();
     if (tid == 256) {
       for (int it = 0, s = 0, ph = 0, kt = 0, b0 = 0; it < total; ++it) {
         uint8_t* st = smem + s * sbytes;
@@ -1048,7 +1157,7 @@ fused_recon_ws32_kernel(const __grid_constant__ CUtensorMap in_map,
   }
 
   // the consumers: warpgroup wg multiplies pairs 64 wg .. 64 wg + 63
-  setmaxnreg_inc<ws::CONSUMER_REGS>();
+  setmaxnreg_inc<ws32::CONSUMER_REGS>();
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tq = lane & 3;
   const int m0 = wg * 64 + (warp & 3) * 16 + g;            // this lane's pairs: m0, m0 + 8
@@ -1080,8 +1189,7 @@ fused_recon_ws32_kernel(const __grid_constant__ CUtensorMap in_map,
     wgmma_hold(part);
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);   // stage it's slot: its A formed, its table read
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+    ws_add_fragment(acc, part);
     if constexpr (MULTI) {
       if (kt == nk - 1) {              // the last stage of a chunk of frames
         ws_add_magnitudes(mag, acc);
@@ -1166,11 +1274,10 @@ int launch_ws(const void* x, const void* pi, const void* inv_bg, const void* op_
                   tensor_map(&maps[4], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, op_im, op_dims,
                              op_strides, op_box, CU_TENSOR_MAP_SWIZZLE_128B);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int nst = std::min(ws::MAX_STAGES,
-                               (ws::SMEM_LIMIT - ws::SMEM_EXTRA - ws::A_TILES * ws::A_BYTES) /
-                                   ws::stage_bytes<In>(R));
+  constexpr int extra = ws::SMEM_EXTRA + 2 * ws::A_TILES * 8 + ws::A_TILES * ws::A_BYTES;
+  constexpr int nst = std::min(ws::MAX_STAGES, (ws::SMEM_LIMIT - extra) / ws::stage_bytes<In>(R));
   static_assert(nst >= 2, "a ring of at least two stages");
-  const int smem = nst * ws::stage_bytes<In>(R) + ws::A_TILES * ws::A_BYTES + ws::SMEM_EXTRA;
+  const int smem = nst * ws::stage_bytes<In>(R) + extra;
   const auto kernel = B > (1 << fs) ? fused_recon_ws_kernel<In, true>
                                     : fused_recon_ws_kernel<In, false>;
   const cudaError_t rc =
@@ -1239,7 +1346,7 @@ int launch_ws32(const void* x, const void* pi, const void* inv_bg, const void* o
   const cudaError_t rc =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  kernel<<<dim3((ndisp + ws32::BN - 1) / ws32::BN, gy), ws::THREADS, smem,
+  kernel<<<dim3((ndisp + ws32::BN - 1) / ws32::BN, gy), ws32::THREADS, smem,
            static_cast<cudaStream_t>(stream)>>>(maps[0], maps[1], maps[2], maps[3],
                                                 static_cast<float*>(out), B, rows, n_in, ndisp,
                                                 nst);

@@ -15,9 +15,13 @@ The first three are ``csrc/fused_recon.cu``, the fourth is
 run on the tensor cores.  With a bfloat16 operator (the 'default'
 precision on CUDA, and the resident kernel) the first three run one
 warp-specialised schedule: a producer warpgroup brings every tile by TMA
-into a ring of shared-memory stages, two consumer warpgroups form the bf16
-ratio once a stage into a shared-memory A tile and run ``wgmma``
-(m64n256k16) on it.  With a float32 operator (the 'highest' precision) the
+into a ring of shared-memory stages, a third warpgroup forms the bf16
+ratio once a stage into a shared-memory A tile and two consumer warpgroups
+run ``wgmma`` (m64n128k16, one warpgroup a half of the depths) on it, each
+round of
+``ws::ROUND_STAGES`` stages into a fragment of its own that is added to the
+float32 sums in round-to-nearest (the tensor cores truncate their sums).
+With a float32 operator (the 'highest' precision) the
 first two run the same shape of schedule as three TF32 products (3xTF32):
 the consumers split the ratio into two TF32 parts in registers (wgmma's A
 from registers), the operator comes already split and K-major (:func:`pack_tf32_operator`, built once per
@@ -60,8 +64,9 @@ INT8_TILE = (32, 32)
 INT8_K_TILE = 64
 
 #: one block of the bf16 instances' wgmma schedule: (row, frame) pairs x
-#: depths (ws::BM, ws::BN of csrc/fused_recon.cu)
-WGMMA_TILE = (128, 128)
+#: depths (ws::BM, ws::BN of csrc/fused_recon.cu): the M of one wgmma by two
+#: consumer warpgroups of 64 depths each (re and im make each N = 128)
+WGMMA_TILE = (64, 128)
 
 #: the edges of the tensor-core schedule (B, rows, n_in, ndisp), at which
 #: the tests and chip_smoke.py hold every instance to its plain version: rows
@@ -227,9 +232,10 @@ def fused_recon_raw_accumulate(raw: torch.Tensor, pi_frame: torch.Tensor,
     and stages pi_frame, inv_background and each operator tile once for all
     of them.  With a bfloat16 operator the warp-specialised schedule runs
     where TMA can address the inputs (:func:`bf16_schedule`): a producer
-    warpgroup brings the tiles by TMA, two consumer warpgroups form the
-    bf16 ratio into shared memory and run ``wgmma`` m64n256k16 (float32
-    sums); elsewhere ``mma.sync`` m16n8k16, the same sums bit for bit.  With
+    warpgroup brings the tiles by TMA, another forms the bf16 ratio into
+    shared memory and two consumer warpgroups run ``wgmma`` m64n128k16 on it
+    (float32 sums, rounded to nearest every 128 samples); elsewhere ``mma.sync``
+    m16n8k16, the same sums bit for bit.  With
     a float32 operator the products run on the TF32 tensor cores as three
     products of the operands' TF32 parts (float32 sums; see
     :func:`split_tf32`): the same warp-specialised schedule,

@@ -63,12 +63,12 @@ def save(tree: Path, out: Path) -> None:
         for part in k3._fields:
             outputs[f"{label} int8_{part}"] = getattr(k3, part).cpu()
     torch.cuda.synchronize()
-    torch.save(outputs, out)
+    torch.save(outputs, str(out))
     print(f"{tree}: {len(outputs)} outputs saved to {out}")
 
 
 def compare(a: Path, b: Path) -> int:
-    got, want = torch.load(a), torch.load(b)
+    got, want = torch.load(str(a)), torch.load(str(b))
     if got.keys() != want.keys():
         print(f"different outputs: {sorted(got.keys() ^ want.keys())}")
         return 1

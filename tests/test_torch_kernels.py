@@ -404,16 +404,19 @@ def test_tile_constants_match_the_sources():
     assert const("hopper_mma.cuh", "KT") == INT8_K_TILE           # namespace tc
     assert "using tc::KT;" in text["int8_bscan.cu"]
     assert INT8_TILE == (32, 32) and "32 x 32 tile" in text["int8_bscan.cu"]
-    # the bf16 instances' warp-specialised schedule (namespace ws): 128 pairs
-    # (two consumer warpgroups of wgmma m64) x 128 depths (re and im make
-    # N = 256), 64 samples a stage, a producer warpgroup beside them, and
-    # registers moved to the consumers within the register file
+    # the bf16 instances' warp-specialised schedule (namespace ws): 64 pairs
+    # (the M of one wgmma) x 128 depths (two consumer warpgroups of 64, re
+    # and im making each N = 128), 64 samples a stage, a warpgroup forming A
+    # and a producer warpgroup beside them, and registers moved to the
+    # consumers within the register file
     assert "namespace ws {" in text["fused_recon.cu"]
     assert WGMMA_TILE == (const("fused_recon.cu", "BM"), const("fused_recon.cu", "BN"))
-    assert WGMMA_TILE == (2 * 64, 256 // 2)
-    assert const("fused_recon.cu", "KT") == 64 and const("fused_recon.cu", "THREADS") == 3 * 128
-    producer, consumer = (const("fused_recon.cu", n) for n in ("PRODUCER_REGS", "CONSUMER_REGS"))
-    assert 128 * producer + 256 * consumer <= 65536 and producer % 8 == consumer % 8 == 0
+    assert WGMMA_TILE == (64, 2 * 64)
+    assert const("fused_recon.cu", "KT") == 64 and const("fused_recon.cu", "THREADS") == 4 * 128
+    producer, former, consumer = (const("fused_recon.cu", n)
+                                  for n in ("PRODUCER_REGS", "FORMER_REGS", "CONSUMER_REGS"))
+    assert 128 * (producer + former) + 256 * consumer <= 65536
+    assert producer % 8 == former % 8 == consumer % 8 == 0
     # the float32-operator instances stage KT / 2 samples (two blocks fit an
     # SM), rows padded to 36 and 136 floats: lane (g, t) of a fragment load
     # reads A row g, sample t and the operator at sample t, depth g, on 32
@@ -453,7 +456,7 @@ def test_every_entry_point_runs_the_tensor_core_kernel():
     for name, x in {"raw_u8_f32": "uint8_t", "raw_u16_f32": "uint16_t",
                     "yr_f32_f32": "float"}.items():
         assert _entry_body(text, f"fdoct_recon_{name}").count(f"launch_f32<{x}>(") == 1, name
-    assert "wgmma_m64n256k16_ss(" in text and "setmaxnreg_inc<" in text
+    assert "wgmma_m64n128k16_ss(part, " in text and "setmaxnreg_inc<" in text
     assert text.count("wgmma_m64n128k8_tf32_rs(part, ") == 3
     assert "tma_load_3d(" in text and "fence_proxy_async()" in text
 

@@ -135,10 +135,11 @@ def test_resident_schedule(shape, ptrs, want):
 
 
 def test_resident_tile_is_two_warpgroups_by_re_and_im():
-    """128 (row, frame) pairs (two wgmma m64 warpgroups) x 128 depths (re and
-    im side by side make wgmma's N of 256)."""
+    """64 (row, frame) pairs (the M of one wgmma) x 128 depths: two consumer
+    warpgroups of 64 depths, re and im side by side making each wgmma's N
+    of 128."""
     pairs, depths = WGMMA_TILE
-    assert pairs == 2 * 64 and 2 * depths == 256
+    assert pairs == 64 and depths == 2 * 64
 
 
 def _meta(t):

@@ -8,7 +8,8 @@ every instance to ``mma.sync``, which the bit-equality checks on the card
 rely on; the ring's stage count, computed from the source's constants as
 the launch computes it, at every number of frames (at least two stages fit
 the 227 KB a block may take, a single frame included); the build hash over
-the shared header.  On a GPU (cases marked ``cuda``): every bf16 instance
+the shared header.  The rounding of the tensor-core sums (ROUND_STAGES) is
+tests/test_torch_bf16_rounding.py's.  On a GPU (cases marked ``cuda``): every bf16 instance
 against its plain version at TC_TOL at the flagship, chip_smoke.py's
 RESIDENT_RAGGED and every ``EDGE_SHAPES`` entry, and equal bit for bit to
 its ``mma.sync`` schedule on the same values through a misaligned view, for
@@ -105,26 +106,33 @@ def _ws_constants() -> dict:
 
 def ws_stages(dtype: torch.dtype, B: int) -> tuple[int, int]:
     """(stages, shared-memory bytes) of a launch, as launch_ws computes them:
-    F = 1 << FS frames in flight whatever B is, R = 128 / F rows; a stage
-    holds the operator, the input rows and (raw frames) pi and
-    inv_background."""
+    F = 1 << FS frames in flight whatever B is, R = BM / F = 8 rows; a stage
+    holds the operator (re and im of BN depths), the input rows and (raw
+    frames) pi and inv_background; beside the ring, A_TILES tiles of BM
+    pairs x KT bf16 samples, which the forming warpgroup writes and both
+    consumer warpgroups read, and the barriers of both rings."""
     c = _ws_constants()
     esize = torch.empty((), dtype=dtype).element_size()
     R = c["BM"] >> c["FS"]
-    op = 4 * c["KT"] * 64 * 2
+    op = 2 * c["BN"] * c["KT"] * 2
     stage = op + c["BM"] * c["KT"] * esize + (2 * R * c["KT"] * 4 if dtype != torch.float32 else 0)
-    a_tiles = 4 * 64 * c["KT"] * 2
-    extra = 1024 + 2 * c["MAX_STAGES"] * 8
+    a_tiles = c["A_TILES"] * c["BM"] * c["KT"] * 2
+    extra = 1024 + 2 * (c["MAX_STAGES"] + c["A_TILES"]) * 8
     nst = min(c["MAX_STAGES"], (c["SMEM_LIMIT"] - extra - a_tiles) // stage)
     return nst, nst * stage + a_tiles + extra
 
 
 def test_ring_constants_match_the_source():
+    """64 pairs (the M of one wgmma: R = 8 rows of 8 frames) x 128 depths a
+    block, 64 samples a stage; the operator as four 64 x 64 boxes (re and
+    im of each warpgroup's 64 depths); one A tile a stage, in a ring of
+    three, formed by one warpgroup for both consumer warpgroups."""
     c = _ws_constants()
-    assert (c["BM"], c["BN"], c["KT"], c["MAX_STAGES"], c["SMEM_LIMIT"]) == (128, 128, 64, 4, 232448)
+    assert (c["BM"], c["BN"], c["KT"], c["MAX_STAGES"], c["SMEM_LIMIT"]) == (64, 128, 64, 4, 232448)
+    assert c["A_TILES"] == 3 and c["BM"] >> c["FS"] == 8
     text = (_build.PACKAGE_ROOT / "csrc" / "fused_recon.cu").read_text()
-    assert "constexpr int A_BYTES = 64 * KT * 2;" in text and "constexpr int A_TILES = 4;" in text
-    assert "constexpr int OP_BYTES = 4 * OP_BOX;" in text
+    assert "constexpr int A_BYTES = BM * KT * 2;" in text
+    assert "constexpr int OP_BYTES = 4 * OP_BOX;" in text and "constexpr int OP_BOX = KT * 64 * 2;" in text
     assert "constexpr int SMEM_EXTRA = 1024 + 2 * MAX_STAGES * 8;" in text
     assert c["FS"] == 3 and "constexpr int fs = ws::FS, R = ws::BM >> fs;" in text
 
@@ -142,11 +150,12 @@ def test_at_least_two_stages_fit(instance, B):
 
 
 def test_flagship_stage_counts():
-    """Four stages of 48 KiB for u8 frames at 8 frames in flight, three for
-    u16 frames and for an f32 ratio."""
-    assert ws_stages(torch.uint8, 8)[0] == 4
-    assert ws_stages(torch.uint16, 8)[0] == 3
-    assert ws_stages(torch.float32, 8)[0] == 3
+    """Four stages at 8 frames in flight for every input type: 40 KiB for u8
+    frames, 44 KiB for u16 frames and 48 KiB for an f32 ratio, beside three
+    A tiles of 8 KiB and the barriers of both rings."""
+    assert ws_stages(torch.uint8, 8) == (4, 4 * 40 * 1024 + 3 * 8192 + 1024 + 14 * 8)
+    assert ws_stages(torch.uint16, 8) == (4, 4 * 44 * 1024 + 3 * 8192 + 1024 + 14 * 8)
+    assert ws_stages(torch.float32, 8) == (4, 4 * 48 * 1024 + 3 * 8192 + 1024 + 14 * 8)
 
 
 def test_build_hash_covers_the_shared_header(tmp_path, monkeypatch):

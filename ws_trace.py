@@ -10,14 +10,17 @@ GPU.
 
 ``--make`` copies the package and inserts the trace into the kernels'
 sources (TRACE_EDITS and INT8_TRACE_EDITS, each anchor found exactly once,
-else it raises): lane 0
-of every consumer warp adds its cycles [0] waiting for a stage to land, [1]
-forming its A values (loads and arithmetic; for ws32 also the TF32 split,
-into registers), [2] at the first named barrier, [3] storing the A tile
-with its fence and second barrier (ws only: ws32 keeps A in registers, so
-both stay 0), [4] issuing the wgmmas, [5] waiting for wgmmas and releasing
-a slot (ws: the stage before's; ws32: this stage's, then adding its
-fragment to the sums), [6] in the chunk epilogue, and [7] its stages; [8]
+else it raises).  ws32: lane 0 of every consumer warp adds its cycles [0]
+waiting for a stage to land, [1] forming its A values (loads, arithmetic
+and the TF32 split, into registers), [4] issuing the wgmmas, [5] waiting
+for them, releasing the slot and adding the stage's fragment to the sums,
+[6] in the chunk epilogue ([2] and [3] stay 0).  ws: lane 0 of every
+consumer warp adds [0] waiting for the stage and its A tile, [4] issuing
+the wgmmas, [5] adding a round's fragment, waiting for the stage before's
+wgmmas and releasing its slot and A tile, [6] the chunk's end; lane 0 of
+every warp of the forming warpgroup adds [2] waiting for the stage and for
+a free A tile, [1] forming A, [3] storing it with its fence and announcing
+it.  The consumer warps add [7] their stages; [8]
 sums the producer's cycles waiting for a free slot.  ``fdoct_ws_trace_read``
 returns the nine sums and clears them.  In kernel 3 (INT8_PARTS; no A to
 form, no barrier) a consumer warp's stage has [0] the wait for the stage,
@@ -31,9 +34,9 @@ dequantisation of a group of at most 8 frames, [3] the frame-slot sum and
 f32 ratio at the flagship inputs of bench_sessions.py, each with the bf16
 operator and with the f32 one (given the Calibration's TF32 table, packed
 once outside the calls), and kernel 3 on bench_sessions.py's int8 inputs,
-once each after a warm-up, and prints the cycles a consumer warp spends a
-stage in each part (kernel 3's part [1] a warp) and the producer's wait a
-stage.
+once each after a warm-up, and prints the cycles a consumer warp (and for
+the bf16 instances a forming warp) spends a stage in each part (kernel 3's
+part [1] a warp) and the producer's wait a stage.
 The trace adds a few per cent of device time; time a traced tree with
 ``bench_sessions.py --kernels-only --tree DIR``.  Every line printed is one
 JSON object with the card's name and power limit.
@@ -54,6 +57,12 @@ ROOT = Path(__file__).resolve().parent
 #: the parts of a consumer warp's stage, in the order of the counters
 PARTS = ("wait full", "form A", "first barrier", "store A + fence + barrier", "issue wgmma",
          "wait wgmma + release", "chunk epilogue")
+#: the bf16 schedule's parts (the counter of each): a consumer warp's stage, and
+#: a forming warp's
+WS_CONSUMER_PARTS = {"wait for the stage and its A tile": 0, "issue wgmma": 4,
+                     "wait wgmma + release + add a round's fragment": 5, "chunk epilogue": 6}
+WS_FORMER_PARTS = {"wait for the stage and a free A tile": 2, "form A": 1,
+                   "store A + fence + announce": 3}
 #: kernel 3's parts: the counter of each; the last three once a warp, after the loop
 INT8_PARTS = {"wait full": 0, "issue wgmma": 4, "wait wgmma + release": 5,
               "chunk end": 6, "dequantise (a warp)": 2, "slot sum (a warp)": 3,
@@ -91,31 +100,49 @@ TRACE_EDITS = [
        "          atomicAdd(&ws_trace_cycles[8], static_cast<unsigned long long>(clock64() - t0));\n"
        f"        }}\n        mbar_expect_tx(&full[s], sbytes);\n        const int k0 = kt * {ns}::KT;\n")
       for ns in ("ws", "ws32")),
-    _after("  uint8_t* a_mine = a_tiles + wg * 2 * ws::A_BYTES;\n", "  WS_TRACE_START;\n"),
-    _after("    mbar_wait(&full[s], ph);\n    uint32_t a[4][4];\n", "    WS_MARK(0);\n"),
-    _after("      ws_form_a<In, false>(a, st, wg, t, fs, R, B - b0);\n", "    WS_MARK(1);\n"),
-    _after("    named_barrier_sync(1 + wg, 128);   // every warp is past the wgmmas that read a_s "
-           "last\n", "    WS_MARK(2);\n"),
-    _after("    named_barrier_sync(1 + wg, 128);   // the A tile is whole\n", "    WS_MARK(3);\n"),
-    _after("                          kt > 0 || kk > 0);\n    wgmma_commit();\n",
+    # ws: the forming warpgroup's parts [1]-[3], its consumers' [0], [4]-[6]
+    _after("    const int t = tid & 127;\n", "    WS_TRACE_START;\n"),
+    _after("      mbar_wait(&full[s], ph);\n      uint32_t a[4][4];\n", "      WS_MARK(2);\n"),
+    _after("        ws_form_a<In, false>(a, st, t, B - b0);\n", "      WS_MARK(1);\n"),
+    _after("      if (it >= ws::A_TILES) mbar_wait(&a_empty[ai], aph ^ 1);\n", "      WS_MARK(2);\n"),
+    _after("        mbar_arrive(&a_full[ai]);\n        mbar_arrive(&empty[s]);\n      }\n",
+           "      WS_MARK(3);\n"),
+    ("      if (++ai == ws::A_TILES) ai = 0, aph ^= 1;\n    }\n    return;\n",
+     "      if (++ai == ws::A_TILES) ai = 0, aph ^= 1;\n    }\n    WS_TRACE_END(0);\n"
+     "    return;\n"),
+    _after("  const uint32_t b_mine = 2 * wg * ws::OP_BOX;             // its B: boxes re, im of "
+           "its depths\n", "  WS_TRACE_START;\n"),
+    _after("    mbar_wait(&a_full[ai], aph);       // A is formed\n", "    WS_MARK(0);\n"),
+    ("    const uint32_t a_addr = smem_addr(a_tiles + ai * ws::A_BYTES);\n",
+     "    WS_MARK(5);\n    const uint32_t a_addr = smem_addr(a_tiles + ai * ws::A_BYTES);\n"),
+    _after("                          !fresh || kk > 0);\n    wgmma_commit();\n",
            "    WS_MARK(4);\n"),
-    _after("      if (lane == 0) mbar_arrive(&empty[s == 0 ? nst - 1 : s - 1]);\n    }\n",
+    _after("        mbar_arrive(&a_empty[ai == 0 ? ws::A_TILES - 1 : ai - 1]);\n      }\n    }\n",
            "    WS_MARK(5);\n"),
-    _after("      if constexpr (MULTI) ws_add_magnitudes(mag, acc);\n    }\n", "    WS_MARK(6);\n"),
-    *(("    if (++kt == nk) kt = 0, b0 += 1 << fs;\n  }\n  if constexpr (MULTI) {\n"
-       f"    ws_store_sums<{j}>(mag",
-       "    if (++kt == nk) kt = 0, b0 += 1 << fs;\n  }\n  WS_TRACE_END(total);\n"
-       f"  if constexpr (MULTI) {{\n    ws_store_sums<{j}>(mag") for j in (16, 8)),
+    _after("      if constexpr (MULTI) {\n        ws_add_magnitudes(mag, acc);\n#pragma unroll\n"
+           "        for (int i = 0; i < 64; ++i) acc[i] = 0.f;\n      }\n    }\n",
+           "    WS_MARK(6);\n"),
+    ("    if (++ai == ws::A_TILES) ai = 0, aph ^= 1;\n  }\n  if constexpr (MULTI) {\n",
+     "    if (++ai == ws::A_TILES) ai = 0, aph ^= 1;\n  }\n  WS_TRACE_END(total);\n"
+     "  if constexpr (MULTI) {\n"),
+    ("    if (++kt == nk) kt = 0, b0 += 1 << fs;\n  }\n  if constexpr (MULTI) {\n"
+     "    ws_store_sums<8>(mag, out, m0, frame, fs, row0, col0,",
+     "    if (++kt == nk) kt = 0, b0 += 1 << fs;\n  }\n  WS_TRACE_END(total);\n"
+     "  if constexpr (MULTI) {\n    ws_store_sums<8>(mag, out, m0, frame, fs, row0, col0,"),
     # ws32: A formed in registers, no A tile (parts 2 and 3 stay 0)
-    _after("  for (int i = 0; i < (MULTI ? 32 : 1); ++i) mag[i] = 0.f;\n", "  WS_TRACE_START;\n"),
+    ("  for (int i = 0; i < (MULTI ? 32 : 1); ++i) mag[i] = 0.f;\n  for (int it = 0",
+     "  for (int i = 0; i < (MULTI ? 32 : 1); ++i) mag[i] = 0.f;\n  WS_TRACE_START;\n"
+     "  for (int it = 0"),
     _after("    mbar_wait(&full[s], ph);\n    uint32_t hi[4][4], lo[4][4];\n", "    WS_MARK(0);\n"),
     _after("      ws32_form_a<In, false>(hi, lo, st, m0, tq, B - b0);\n", "    WS_MARK(1);\n"),
     _after("      wgmma_m64n128k8_tf32_rs(part, hi[kk], wgmma_desc_k_sw128(b_hi + 32 * kk), 1);\n"
            "    }\n    wgmma_commit();\n", "    WS_MARK(4);\n"),
-    _after("    for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], part[i]);\n",
+    _after("    if (lane == 0) mbar_arrive(&empty[s]);   // stage it's slot: its A formed, its table read\n"
+           "    ws_add_fragment(acc, part);\n",
            "    WS_MARK(5);\n"),
-    ("        for (int i = 0; i < 64; ++i) acc[i] = 0.f;\n      }\n    }\n",
-     "        for (int i = 0; i < 64; ++i) acc[i] = 0.f;\n      }\n    }\n    WS_MARK(6);\n"),
+    _after("// the last stage of a chunk of frames\n        ws_add_magnitudes(mag, acc);\n"
+           "#pragma unroll\n        for (int i = 0; i < 64; ++i) acc[i] = 0.f;\n      }\n    }\n",
+           "    WS_MARK(6);\n"),
     ('}  // extern "C"', _READ + '}  // extern "C"'),
 ]
 
@@ -207,9 +234,13 @@ def read(tree: Path) -> int:
             if trace(ctypes.addressof(sums)) != 0:
                 raise RuntimeError("fdoct_ws_trace_read failed")
         stages = sums[7]
+        if name.endswith("bf16"):          # four forming warps beside eight consumer warps
+            parts = {"consumer": {p: sums[i] / stages for p, i in WS_CONSUMER_PARTS.items()},
+                     "former": {p: sums[i] / (stages / 2) for p, i in WS_FORMER_PARTS.items()}}
+        else:
+            parts = {p: sums[i] / stages for i, p in enumerate(PARTS)}
         print(json.dumps({"tree": str(tree), "kernel": name, "warp_stages": stages,
-                          "cycles_per_warp_stage": {p: sums[i] / stages
-                                                    for i, p in enumerate(PARTS)},
+                          "cycles_per_warp_stage": parts,
                           "producer_wait_cycles_per_stage": sums[8] / (stages / 8),
                           "card": card}), flush=True)
     i8 = int8_inputs(cfg, Calibration.create(cfg, dev), src, src.frames(), dev)
