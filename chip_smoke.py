@@ -79,6 +79,11 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    process_group, then a torch.profiler pass (device busy time, idle share,
    H2D and group-kernel time per group).  bench_sessions.py times the
    kernels and the sessions of another checkout with these functions.
+   Then the bf16 schedule's L2 traffic (l2_phase): for kernel 1 on u8 and
+   u16 frames, kernel 2, the resident entry and a group of one frame the
+   modelled bytes a flagship launch reads from the L2 (wgmma_l2_bytes, a
+   count from the tile's shape, not a trace: every row tile reads the
+   whole operator) beside its device time and the rate they imply.
 6. int8 kernels — int8_bscan_display_fused against its plain version
    (torch._int_mm + torch epilogue) on the card, with and without the linear
    output, at the flagship shape (8 s8 frames of 512 x 2048 and the plan
@@ -665,6 +670,49 @@ def profiled(fn) -> tuple[list, float, dict]:
     return [e for e in prof.events() if e.device_type == cuda], wall_ms, streams
 
 
+def wgmma_l2_bytes(B: int, rows: int, n_in: int, ndisp: int, elem: int, raw: bool) -> int:
+    """The modelled bytes one launch of the bf16 wgmma schedule reads from
+    the L2, counted from its tile, not traced: each row tile (WGMMA_TILE's
+    pairs: 8 rows of 8 frames in flight) reads the operator of every depth
+    tile (re and im, bf16); each depth tile reads the input rows of the B
+    frames (``elem`` bytes a sample; the frames in flight past B are TMA's
+    zeros, read from nowhere) and, for raw frames, pi and inv_background
+    (f32)."""
+    from fdoct_tpu_torch.ops.kernels import WGMMA_TILE
+    pairs, depths = WGMMA_TILE
+    row_tiles, depth_tiles = -(-rows // (pairs // 8)), -(-ndisp // depths)
+    operator = row_tiles * depth_tiles * n_in * depths * 2 * 2
+    inputs = depth_tiles * (B * rows * n_in * elem + (2 * rows * n_in * 4 if raw else 0))
+    return operator + inputs
+
+
+def l2_phase(flag_in: dict, card_line: str) -> None:
+    """Phase 5's lines on the bf16 schedule's L2 traffic: each bf16
+    instance's modelled bytes a flagship launch (wgmma_l2_bytes) beside its
+    device time (torch.profiler) and the rate they imply."""
+    from fdoct_tpu_torch.ops import kernels
+    raw, pi, inv, ops = flag_in["raw"], flag_in["pi"], flag_in["inv"], flag_in["bf16"]
+    B, rows, n_in = raw.shape
+    ndisp = ops[0].shape[1]
+    raw16 = torch.as_tensor(raw.cpu().numpy().astype(np.uint16) << 4).to(raw.device)
+    calls = {"kernel 1 u8": (lambda: kernels.fused_recon_raw_accumulate(raw, pi, inv, *ops),
+                             B, 1, True),
+             "kernel 1 u16": (lambda: kernels.fused_recon_raw_accumulate(raw16, pi, inv, *ops),
+                              B, 2, True),
+             "kernel 2": (lambda: kernels.fused_recon_accumulate(flag_in["yr"], *ops), B, 4, False),
+             "resident": (lambda: kernels.fused_recon_resident(raw, pi, inv, *ops), B, 1, True),
+             "kernel 1 u8, one frame": (
+                 lambda: kernels.fused_recon_raw_accumulate(raw[:1], pi, inv, *ops), 1, 1, True)}
+    for label, (fn, frames, elem, is_raw) in calls.items():
+        nbytes = wgmma_l2_bytes(frames, rows, n_in, ndisp, elem, is_raw)
+        operator = wgmma_l2_bytes(0, rows, n_in, ndisp, elem, False)
+        us = device_us(fn)
+        phase("l2", f"{label} bf16 flagship: {nbytes / 2**20:.0f} MiB modelled from the L2 a "
+              f"launch ({operator / 2**20:.0f} MiB of it the operator), device {us:.2f} us "
+              f"(torch.profiler, median of 20) -> {nbytes / (us * 1e-6) / 1e12:.2f} TB/s "
+              f"modelled | {card_line}")
+
+
 def device_us(fn, calls: int = 20, name: str = "") -> float:
     """Median device time (us) of the kernels that ``calls`` calls of ``fn``
     launch (those whose name holds ``name``), after one call outside the
@@ -1196,6 +1244,7 @@ def main() -> int:
         phase("times", f"product {tuple(stack[op_name].shape)} @ {tuple(cat.shape)} "
               f"{op_name} (cuBLAS, TF32 off): median {products[op_name][0]:.4f} ms single, "
               f"{products[op_name][1]:.4f} ms b2b | {card_line}")
+    l2_phase(flag_in, card_line)
     h2d = cuda_ms(lambda: torch.as_tensor(batches[0]).to(dev))
     mag = fused_recon_raw_accumulate(flag_in["raw"], flag_in["pi"], flag_in["inv"],
                                      *flag_in["bf16"])

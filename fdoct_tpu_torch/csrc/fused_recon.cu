@@ -606,12 +606,24 @@ int launch_tc(const void* x, const void* pi, const void* inv_bg, const void* op_
 // ws_trace.py): ~50 us of device time a flagship group of u8 frames, ~52 us
 // of u16 frames or of an f32 ratio, ~50 us for a group of one frame; the
 // forming-and-consuming form without the fourth warpgroup took ~57 us, and
-// rings of five stages, an L2 prefetch, clusters of two blocks that
-// multicast the operator, 128-sample stages, two fragments in turn (spilled)
-// and a persistent grid measured no faster or slower.  The operator's bytes
-// per output, twice the 128-pair block's through the L2 and shared memory,
-// cost most where forming A is cheap: an f32 ratio (a block of 128 pairs
-// whose sums were chained unrounded took ~37 us).
+// rings of five stages, an L2 prefetch, 128-sample stages, two fragments in
+// turn (spilled), a persistent grid, six A tiles and slots released as soon
+// as their wgmmas finish measured no faster.  The loads and the ring's
+// handoffs alone (ws_trace.py --loads-only: no forming, no wgmma) take ~33
+// us (u8), ~35 (u16), ~38 (f32 ratio), ~31 (u8) with each slot released as
+// soon as its wgmmas finish, a fifth stage adding nothing: the bytes each
+// SM takes in (~80 GB/s each, ~10 TB/s in all), not the bytes the L2
+// serves, set that floor.  With the work both roles wait for the loads,
+// which forming and the wgmmas slow through the shared memory they share
+// with TMA (ld.shared of the wgmmas' 48 KiB a stage in their place costs
+// as much): TMA writes 40 KiB a stage, wgmma reads 48, forming moves 16.
+// So clusters of two row tiles that multicast the operator, though they
+// read 192 MiB from the L2 in place of 320, measured slower (53-56 us;
+// their loads alone ~38), and ~86 us with the slots released by
+// mbarrier.arrive.release.cluster (~1,100 more cycles a stage on each
+// releasing warp).  A block of 128 pairs would halve the operator's bytes
+// per output (an f32 ratio on such a block, its sums chained unrounded,
+// took ~37 us) but leaves no registers for the round's fragment.
 //
 // The block tile and the pairs.  Pair m = row * F + frame (tc::pair_row /
 // pair_frame) with F = 8 frames in flight at every number of frames B

@@ -7,13 +7,17 @@ input type (uint8 rows need n_in % 16, uint16 % 8, float32 % 4; ndisp % 8;
 every instance to ``mma.sync``, which the bit-equality checks on the card
 rely on; the ring's stage count, computed from the source's constants as
 the launch computes it, at every number of frames (at least two stages fit
-the 227 KB a block may take, a single frame included); the build hash over
-the shared header.  The rounding of the tensor-core sums (ROUND_STAGES) is
-tests/test_torch_bf16_rounding.py's.  On a GPU (cases marked ``cuda``): every bf16 instance
-against its plain version at TC_TOL at the flagship, chip_smoke.py's
-RESIDENT_RAGGED and every ``EDGE_SHAPES`` entry, and equal bit for bit to
-its ``mma.sync`` schedule on the same values through a misaligned view, for
-groups of 1, 3, 8 and 12 frames too.
+the 227 KB a block may take, a single frame included); the ring's
+barrier counts from the source; ws_trace.py's loads-only copy; the
+modelled L2 bytes of a flagship launch; the build hash over the shared
+header.  The
+rounding of the tensor-core sums (ROUND_STAGES) is
+tests/test_torch_bf16_rounding.py's.  On a GPU (cases marked ``cuda``):
+every bf16 instance against its plain version at TC_TOL at the flagship,
+chip_smoke.py's RESIDENT_RAGGED and every ``EDGE_SHAPES`` entry, and equal
+bit for bit to its ``mma.sync`` schedule on the same values through a
+misaligned view, for groups of 1, 3, 8 and 12 frames and a single row tile
+(fewer rows than a block holds) too.
 
 TC_TOL (rtol 1e-5, atol 1e-5·max): the kernel and its plain version round
 the same float32 ratio to bf16, and bf16 × bf16 products are exact in
@@ -158,6 +162,81 @@ def test_flagship_stage_counts():
     assert ws_stages(torch.float32, 8) == (4, 4 * 48 * 1024 + 3 * 8192 + 1024 + 14 * 8)
 
 
+# --------------------------------------------------------------------------
+# the ring's barrier counts, the loads-only floor and the L2 traffic
+
+
+def _ws_kernel() -> str:
+    text = (_build.PACKAGE_ROOT / "csrc" / "fused_recon.cu").read_text()
+    body = text[text.index("fused_recon_ws_kernel(const __grid_constant__"):]
+    return body[:body.index("\n}\n")]
+
+
+def _barrier_counts() -> dict:
+    """The arrivals that complete a phase of each barrier, from the source."""
+    body = _ws_kernel()
+    return {name: int(re.search(rf"mbar_init\(&{name}\[\w\], (\d+)\);", body).group(1))
+            for name in ("full", "empty", "a_full", "a_empty")}
+
+
+def test_the_barrier_counts_are_the_warps_of_each_role():
+    """A slot is free once the four forming warps (its rows read) and the
+    eight consumer warps (its operator read by their wgmmas) have arrived;
+    an A tile is announced by the four forming warps and freed by the eight
+    consumer warps; the producer's expect_tx is a stage's one arrival."""
+    assert _barrier_counts() == {"full": 1, "empty": 12, "a_full": 4, "a_empty": 8}
+
+
+def _ws_trace():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("ws_trace", _build.PACKAGE_ROOT.parent /
+                                                  "ws_trace.py")
+    ws_trace = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ws_trace)
+    return ws_trace
+
+
+def test_loads_only_strips_the_work_and_keeps_the_handoffs(tmp_path):
+    """ws_trace.py --loads-only: the bf16 kernel keeps every load, wait and
+    arrival but forms, stores and multiplies nothing; the f32 and int8
+    schedules and the shipped source are untouched; no trace is inserted."""
+    ws_trace = _ws_trace()
+    out = ws_trace.make(tmp_path, loads_only=True) / "fdoct_tpu_torch" / "csrc"
+    shipped = _build.PACKAGE_ROOT / "csrc"
+    text = (out / "fused_recon.cu").read_text()
+    body = text[text.index("fused_recon_ws_kernel(const __grid_constant__"):]
+    body = body[:body.index("\n}\n")]
+    before = _ws_kernel()
+    for gone in ("ws_form_a<In", "ws_store_a(", "wgmma_m64n128k16_ss("):
+        assert gone in before and gone not in body, gone
+    for kept in ("mbar_wait(", "mbar_arrive(", "tma_load_", "mbar_expect_tx(", "fence_proxy_async"):
+        assert body.count(kept) == before.count(kept), kept
+    assert "clock64" not in text
+    ws32 = "fused_recon_ws32_kernel(const __grid_constant__"
+    shipped_text = (shipped / "fused_recon.cu").read_text()
+    assert text[text.index(ws32):] == shipped_text[shipped_text.index(ws32):]
+    assert (out / "int8_bscan.cu").read_text() == (shipped / "int8_bscan.cu").read_text()
+    assert (out / "hopper_mma.cuh").read_text() == (shipped / "hopper_mma.cuh").read_text()
+
+
+def test_wgmma_l2_bytes_at_the_flagship():
+    """chip_smoke.wgmma_l2_bytes, a model of the tile's reads: each of the
+    64 row tiles reads the whole 4 MiB bf16 operator (256 MiB), each of the
+    4 depth tiles every frame (u8 8 MiB, u16 16 MiB, an f32 ratio 32 MiB)
+    and, for raw frames, pi and inv_background (8 MiB); a group of one
+    frame reads 1 MiB of frames."""
+    import chip_smoke
+
+    mib = 2 ** 20
+    flagship = (512, 2048, 512)
+    assert chip_smoke.wgmma_l2_bytes(8, *flagship, 1, True) == 320 * mib
+    assert chip_smoke.wgmma_l2_bytes(8, *flagship, 2, True) == 352 * mib
+    assert chip_smoke.wgmma_l2_bytes(8, *flagship, 4, False) == 384 * mib
+    assert chip_smoke.wgmma_l2_bytes(1, *flagship, 1, True) == 292 * mib
+    assert chip_smoke.wgmma_l2_bytes(0, *flagship, 1, False) == 256 * mib
+
+
 def test_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
     """An edit of hopper_mma.cuh alone rebuilds the library."""
     header = _build.HEADERS[0]
@@ -254,12 +333,12 @@ def test_cuda_instance_matches_plain(cuda, shape, instance):
 @pytest.mark.cuda
 @pytest.mark.parametrize("instance", list(INSTANCES))
 @pytest.mark.parametrize("shape", [FLAGSHIP, RESIDENT_RAGGED, (1, 70, 1040, 200),
-                                   (3, 70, 1040, 200), (12, 70, 1040, 200)],
-                         ids=["flagship", "resident-ragged", "B1", "B3", "B12"])
+                                   (3, 70, 1040, 200), (12, 70, 1040, 200), (8, 5, 1040, 200)],
+                         ids=["flagship", "resident-ragged", "B1", "B3", "B12", "one-row-tile"])
 def test_cuda_wgmma_equals_mma_sync_bit_for_bit(cuda, shape, instance):
     """The warp-specialised schedule and the mma.sync one on the same values
     (the second through a misaligned view, which the rule sends to
-    mma.sync): the same sums, bit for bit."""
+    mma.sync): the same sums, bit for bit, one row tile (5 rows) too."""
     t = problem(shape, 22, cuda)
     x = misaligned(t[instance])
     assert schedule(t, instance) == "wgmma" and schedule(t, instance, x) == "mma.sync"
@@ -270,12 +349,13 @@ def test_cuda_wgmma_equals_mma_sync_bit_for_bit(cuda, shape, instance):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("instance", list(INSTANCES))
-@pytest.mark.parametrize("B", [1, 3, 8, 12])
-def test_cuda_frames_per_group(cuda, B, instance):
+@pytest.mark.parametrize("B,rows", [(1, 48), (3, 48), (8, 48), (12, 48), (1, 8)],
+                         ids=["1", "3", "8", "12", "1-one-row-tile"])
+def test_cuda_frames_per_group(cuda, B, rows, instance):
     """Groups of 1 (eight frames in flight, seven zero and not formed), 3,
     8 and 12 (two chunks, the second of four frames) at a flagship-wide
-    shape."""
-    t = problem((B, 48, 2048, 512), 23 + B, cuda)
+    shape, and a one-frame group of a single row tile."""
+    t = problem((B, rows, 2048, 512), 23 + B, cuda)
     assert schedule(t, instance) == "wgmma"
     got = run(t, instance)
     want = run(t, instance, kernel=False)

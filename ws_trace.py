@@ -7,22 +7,34 @@ GPU.
 
     python3 ws_trace.py --make DIR    # DIR/fdoct_tpu_torch: this checkout's package, traced
     python3 ws_trace.py --read DIR    # its seven instances at the flagship, once each
+    python3 ws_trace.py --make DIR --loads-only
 
-``--make`` copies the package and inserts the trace into the kernels'
-sources (TRACE_EDITS and INT8_TRACE_EDITS, each anchor found exactly once,
-else it raises).  ws32: lane 0 of every consumer warp adds its cycles [0]
+``--make`` copies this checkout's package and inserts the trace into the
+kernels' sources (TRACE_EDITS and INT8_TRACE_EDITS, each anchor found
+exactly once, else it raises).  With ``--loads-only`` it inserts no trace
+and strips the bf16 schedule's work instead (LOADS_ONLY_EDITS): the
+forming warpgroup waits for each stage and a free A tile, then announces
+the tile and releases the stage without forming or storing it; the
+consumers wait for the stage and its A tile and release both as before,
+without issuing a wgmma; the producer is unchanged.  Its results are wrong
+by design: time it (``bench_sessions.py --kernels-only --tree DIR``) for
+the floor that the loads and the ring's handoffs alone set.  The edits
+are anchored to this checkout's source: for another checkout's floor, run
+that checkout's own ws_trace.py.
+
+The trace.  ws32: lane 0 of every consumer warp adds its cycles [0]
 waiting for a stage to land, [1] forming its A values (loads, arithmetic
 and the TF32 split, into registers), [4] issuing the wgmmas, [5] waiting
 for them, releasing the slot and adding the stage's fragment to the sums,
 [6] in the chunk epilogue ([2] and [3] stay 0).  ws: lane 0 of every
-consumer warp adds [0] waiting for the stage and its A tile, [4] issuing
-the wgmmas, [5] adding a round's fragment, waiting for the stage before's
-wgmmas and releasing its slot and A tile, [6] the chunk's end; lane 0 of
-every warp of the forming warpgroup adds [2] waiting for the stage and for
-a free A tile, [1] forming A, [3] storing it with its fence and announcing
-it.  The consumer warps add [7] their stages; [8]
+consumer warp adds [0] waiting for the stage, [9] then for its A tile, [4]
+issuing the wgmmas, [5] adding a round's fragment, waiting for the stage
+before's wgmmas and releasing its slot and A tile, [6] the chunk's end;
+lane 0 of every warp of the forming warpgroup adds [2] waiting for the
+stage, [1] forming A, [10] waiting for a free A tile, [3] storing A with
+its fence and announcing it.  The consumer warps add [7] their stages; [8]
 sums the producer's cycles waiting for a free slot.  ``fdoct_ws_trace_read``
-returns the nine sums and clears them.  In kernel 3 (INT8_PARTS; no A to
+returns the eleven sums and clears them.  In kernel 3 (INT8_PARTS; no A to
 form, no barrier) a consumer warp's stage has [0] the wait for the stage,
 [4] the issue, [5] the wait for the stage before's wgmmas and the slot's
 release, [6] the chunk's end (the wait for its last wgmmas and, past 8
@@ -59,9 +71,9 @@ PARTS = ("wait full", "form A", "first barrier", "store A + fence + barrier", "i
          "wait wgmma + release", "chunk epilogue")
 #: the bf16 schedule's parts (the counter of each): a consumer warp's stage, and
 #: a forming warp's
-WS_CONSUMER_PARTS = {"wait for the stage and its A tile": 0, "issue wgmma": 4,
+WS_CONSUMER_PARTS = {"wait for the stage": 0, "wait for its A tile": 9, "issue wgmma": 4,
                      "wait wgmma + release + add a round's fragment": 5, "chunk epilogue": 6}
-WS_FORMER_PARTS = {"wait for the stage and a free A tile": 2, "form A": 1,
+WS_FORMER_PARTS = {"wait for the stage": 2, "form A": 1, "wait for a free A tile": 10,
                    "store A + fence + announce": 3}
 #: kernel 3's parts: the counter of each; the last three once a warp, after the loop
 INT8_PARTS = {"wait full": 0, "issue wgmma": 4, "wait wgmma + release": 5,
@@ -70,16 +82,16 @@ INT8_PARTS = {"wait full": 0, "issue wgmma": 4, "wait wgmma + release": 5,
 
 _COUNTERS = """// The stage trace (ws_trace.py): cycles a part of the loop, summed over
 // the consumer warps' lane 0, and the producer's waits for a free slot.
-__device__ unsigned long long ws_trace_cycles[9];
-#define WS_TRACE_START unsigned ws_tr[7] = {}; long long ws_mark = clock64()
+__device__ unsigned long long ws_trace_cycles[11];
+#define WS_TRACE_START unsigned ws_tr[9] = {}; long long ws_mark = clock64()
 #define WS_MARK(i) do { const long long now = clock64(); ws_tr[i] += static_cast<unsigned>(now - ws_mark); ws_mark = now; } while (0)
-#define WS_TRACE_END(stages) do { if ((threadIdx.x & 31) == 0) { _Pragma("unroll") for (int i = 0; i < 7; ++i) atomicAdd(&ws_trace_cycles[i], static_cast<unsigned long long>(ws_tr[i])); atomicAdd(&ws_trace_cycles[7], static_cast<unsigned long long>(stages)); } } while (0)
+#define WS_TRACE_END(stages) do { if ((threadIdx.x & 31) == 0) { _Pragma("unroll") for (int i = 0; i < 7; ++i) atomicAdd(&ws_trace_cycles[i], static_cast<unsigned long long>(ws_tr[i])); atomicAdd(&ws_trace_cycles[7], static_cast<unsigned long long>(stages)); atomicAdd(&ws_trace_cycles[9], static_cast<unsigned long long>(ws_tr[7])); atomicAdd(&ws_trace_cycles[10], static_cast<unsigned long long>(ws_tr[8])); } } while (0)
 
 """
 _READ = """int fdoct_ws_trace_read(unsigned long long* host) {
   cudaError_t rc = cudaMemcpyFromSymbol(host, ws_trace_cycles, sizeof(ws_trace_cycles));
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  const unsigned long long zero[9] = {};
+  const unsigned long long zero[11] = {};
   return static_cast<int>(cudaMemcpyToSymbol(ws_trace_cycles, zero, sizeof(zero)));
 }
 
@@ -104,7 +116,7 @@ TRACE_EDITS = [
     _after("    const int t = tid & 127;\n", "    WS_TRACE_START;\n"),
     _after("      mbar_wait(&full[s], ph);\n      uint32_t a[4][4];\n", "      WS_MARK(2);\n"),
     _after("        ws_form_a<In, false>(a, st, t, B - b0);\n", "      WS_MARK(1);\n"),
-    _after("      if (it >= ws::A_TILES) mbar_wait(&a_empty[ai], aph ^ 1);\n", "      WS_MARK(2);\n"),
+    _after("      if (it >= ws::A_TILES) mbar_wait(&a_empty[ai], aph ^ 1);\n", "      WS_MARK(8);\n"),
     _after("        mbar_arrive(&a_full[ai]);\n        mbar_arrive(&empty[s]);\n      }\n",
            "      WS_MARK(3);\n"),
     ("      if (++ai == ws::A_TILES) ai = 0, aph ^= 1;\n    }\n    return;\n",
@@ -112,7 +124,8 @@ TRACE_EDITS = [
      "    return;\n"),
     _after("  const uint32_t b_mine = 2 * wg * ws::OP_BOX;             // its B: boxes re, im of "
            "its depths\n", "  WS_TRACE_START;\n"),
-    _after("    mbar_wait(&a_full[ai], aph);       // A is formed\n", "    WS_MARK(0);\n"),
+    _after("    mbar_wait(&full[s], ph);           // B has landed\n", "    WS_MARK(0);\n"),
+    _after("    mbar_wait(&a_full[ai], aph);       // A is formed\n", "    WS_MARK(7);\n"),
     ("    const uint32_t a_addr = smem_addr(a_tiles + ai * ws::A_BYTES);\n",
      "    WS_MARK(5);\n    const uint32_t a_addr = smem_addr(a_tiles + ai * ws::A_BYTES);\n"),
     _after("                          !fresh || kk > 0);\n    wgmma_commit();\n",
@@ -175,13 +188,30 @@ INT8_TRACE_EDITS = [
 ]
 
 
-def make(dest: Path) -> Path:
+#: edits of fused_recon.cu for --loads-only: the bf16 schedule's forming
+#: warpgroup forms and stores no A tile, its consumers issue no wgmma
+LOADS_ONLY_EDITS = [
+    ("      if (B - b0 < (1 << fs))          // the group's last chunk, short of eight frames\n"
+     "        ws_form_a<In, true>(a, st, t, B - b0);\n      else\n"
+     "        ws_form_a<In, false>(a, st, t, B - b0);\n", ""),
+    ("      ws_store_a(a_tiles + ai * ws::A_BYTES, a, t);\n", ""),
+    ("#pragma unroll\n    for (int kk = 0; kk < 4; ++kk)     // a round's first k16 step starts its "
+     "fragment at zero\n      wgmma_m64n128k16_ss(part, wgmma_desc_k_sw128(a_addr + kk * 32),\n"
+     "                          wgmma_desc_mn_sw128(b_addr + kk * 16 * 128, ws::OP_BOX, 1024),\n"
+     "                          !fresh || kk > 0);\n", ""),
+]
+
+
+def make(dest: Path, loads_only: bool = False) -> Path:
     """DEST/fdoct_tpu_torch: this checkout's package with the trace in
-    fused_recon.cu and int8_bscan.cu."""
+    fused_recon.cu and int8_bscan.cu, or with ``loads_only`` the bf16
+    schedule without its forming and its wgmmas."""
     shutil.rmtree(dest / "fdoct_tpu_torch", ignore_errors=True)
     shutil.copytree(ROOT / "fdoct_tpu_torch", dest / "fdoct_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    for name, edits in (("fused_recon.cu", TRACE_EDITS), ("int8_bscan.cu", INT8_TRACE_EDITS)):
+    plan = ((("fused_recon.cu", LOADS_ONLY_EDITS),) if loads_only else
+            (("fused_recon.cu", TRACE_EDITS), ("int8_bscan.cu", INT8_TRACE_EDITS)))
+    for name, edits in plan:
         path = dest / "fdoct_tpu_torch" / "csrc" / name
         text = path.read_text()
         for old, new in edits:
@@ -226,7 +256,7 @@ def read(tree: Path) -> int:
             f"yr f32 {op}": lambda op=op, kw=kw: kernels.fused_recon_accumulate(
                 x["yr"], *x[op], **kw)})
     card = card_line()
-    sums = (ctypes.c_ulonglong * 9)()
+    sums = (ctypes.c_ulonglong * 11)()
     for name, fn in calls.items():
         for _ in range(2):            # a warm-up call, its counts cleared; then the one read
             fn()
@@ -268,9 +298,11 @@ def main(argv=None) -> int:
     group = ap.add_mutually_exclusive_group(required=True)
     group.add_argument("--make", metavar="DIR", help="write DIR/fdoct_tpu_torch, traced")
     group.add_argument("--read", metavar="DIR", help="read the trace of DIR's seven instances")
+    ap.add_argument("--loads-only", action="store_true",
+                    help="with --make: no trace; the bf16 schedule without forming or wgmma")
     args = ap.parse_args(argv)
     if args.make:
-        print(make(Path(args.make).resolve()))
+        print(make(Path(args.make).resolve(), args.loads_only))
         return 0
     if not torch.cuda.is_available():
         print("ws_trace: torch.cuda.is_available() is false; this needs a GPU", file=sys.stderr)
