@@ -46,6 +46,7 @@ message on stderr, where the JAX CLI raises a bare ``TimeoutError``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -72,6 +73,23 @@ class SourceTimeoutError(TimeoutError):
             f"command fires no trigger pulses; fire them (fdoct-torch capture, or the t/k/| "
             f"keys in fdoct-torch live), run the daemon free-running, or pass --idle-timeout 0 "
             f"to wait for operator-paced pulses")
+
+
+@contextlib.contextmanager
+def _traced(args):
+    """``--trace LOGDIR``: ``torch.profiler`` over the block, its Chrome trace
+    written into LOGDIR and the program's spans (``SPANS.report()``) printed
+    to stderr when the block ends.  Without ``--trace`` a plain block."""
+    if not getattr(args, "trace", ""):
+        yield
+        return
+    from fdoct_tpu_torch.utils.profiling import SPANS, device_trace
+    print(f"profiler trace → {args.trace}", file=sys.stderr)
+    try:
+        with device_trace(args.trace):
+            yield
+    finally:
+        print(SPANS.report(), file=sys.stderr)
 
 
 def _load_cfg(args):
@@ -468,12 +486,8 @@ def cmd_live(args) -> int:
         it = iter(src.frames())
 
     n = 0
-    tracer = None
-    if getattr(args, "trace", ""):
-        from fdoct_tpu_torch.utils.profiling import device_trace
-        tracer = device_trace(args.trace)
-        tracer.__enter__()
-        print(f"profiler trace → {args.trace}", file=sys.stderr)
+    tracer = _traced(args)
+    tracer.__enter__()
 
     # graceful shutdown: SIGTERM/SIGINT request a clean loop exit (like the
     # 'x' key) so the exit-time checkpoint/footer/close still run.  The
@@ -573,8 +587,7 @@ def cmd_live(args) -> int:
     finally:
         if sig_seen:
             print(f"signal {sig_seen[0]}: finishing up (checkpoint + close)", file=sys.stderr)
-        if tracer is not None:
-            tracer.__exit__(None, None, None)
+        tracer.__exit__(None, None, None)
         # join the producer before main() closes the source: a live
         # producer polling a just-unmapped ring would crash the process
         if streamer is not None:
@@ -791,42 +804,44 @@ def cmd_cscan(args) -> int:
         if best:
             calib = autofocused_calibration(cfg, best, device=dev)
 
-    # on a mesh each rank copies its block, and the volume comes back whole
-    frames = (torch.as_tensor(volume_raw).to(dev) if mesh is None
-              else shard_frames(volume_raw, mesh))
-    # int8-direct display volumes when the config asks and the folding
-    # applies; dispersion-swept calibrations fold the same way since the
-    # phase lives inside the operator
-    if (cfg.matmul_precision == "int8_direct" and args.method == "fused"
-            and volume_raw.dtype == np.uint8 and int8_direct_supported(cfg)[0]):
-        plan = Int8DirectPlan.create(calib, cfg, bg, pi, device=dev)
-        if lead:
-            print(f"int8-direct volume path (bg rank-1 residual "
-                  f"{float(plan.bg_rank1_resid):.2e})", file=sys.stderr)
-        vol = sharded_cscan_volume_int8(frames, plan, cfg, mesh, gather_full=True)
-    else:
-        vol = sharded_cscan_volume(frames, bg, pi, calib, cfg, mesh, method=args.method,
-                                   gather_full=True)
-    if not lead:
+    with _traced(args):
+        # on a mesh each rank copies its block, and the volume comes back whole
+        frames = (torch.as_tensor(volume_raw).to(dev) if mesh is None
+                  else shard_frames(volume_raw, mesh))
+        # int8-direct display volumes when the config asks and the folding
+        # applies; dispersion-swept calibrations fold the same way since the
+        # phase lives inside the operator
+        if (cfg.matmul_precision == "int8_direct" and args.method == "fused"
+                and volume_raw.dtype == np.uint8 and int8_direct_supported(cfg)[0]):
+            plan = Int8DirectPlan.create(calib, cfg, bg, pi, device=dev)
+            if lead:
+                print(f"int8-direct volume path (bg rank-1 residual "
+                      f"{float(plan.bg_rank1_resid):.2e})", file=sys.stderr)
+            vol = sharded_cscan_volume_int8(frames, plan, cfg, mesh, gather_full=True)
+        else:
+            vol = sharded_cscan_volume(frames, bg, pi, calib, cfg, mesh, method=args.method,
+                                       gather_full=True)
+        if not lead:
+            return 0
+
+        sink = RunWriter(args.outdir, cfg.dirdescr, fmt="npz")
+        sink.save_data("cscan", to_host(vol))
+        db = to_db(vol + 1e-5, eps=0.0, compat=cfg.compat)
+        for i in range(0, vol.shape[0], max(1, vol.shape[0] // 8)):
+            u8 = to_host(to_uint8(normalize_minmax(db[i])))
+            write_png(sink.dir / f"cscan_frame{i:03d}.png", apply_jet(u8))
+
+        # volumetric views: en-face MIP + surface topography
+        u8 = to_host(to_uint8(normalize_minmax(enface_projection(db, "max"))))
+        write_png(sink.dir / "enface_mip.png", apply_jet(u8))
+        surf = surface_map(vol)
+        sink.save_data("surface", to_host(surf))
+        write_png(sink.dir / "surface_map.png",
+                  to_host(to_uint8(normalize_minmax(surf.to(torch.float32)))))
+        sink.close()
+        print(f"C-scan {tuple(vol.shape)} written to {sink.dir} "
+              "(+ enface_mip.png, surface_map.png)")
         return 0
-
-    sink = RunWriter(args.outdir, cfg.dirdescr, fmt="npz")
-    sink.save_data("cscan", to_host(vol))
-    db = to_db(vol + 1e-5, eps=0.0, compat=cfg.compat)
-    for i in range(0, vol.shape[0], max(1, vol.shape[0] // 8)):
-        u8 = to_host(to_uint8(normalize_minmax(db[i])))
-        write_png(sink.dir / f"cscan_frame{i:03d}.png", apply_jet(u8))
-
-    # volumetric views: en-face MIP + surface topography
-    u8 = to_host(to_uint8(normalize_minmax(enface_projection(db, "max"))))
-    write_png(sink.dir / "enface_mip.png", apply_jet(u8))
-    surf = surface_map(vol)
-    sink.save_data("surface", to_host(surf))
-    write_png(sink.dir / "surface_map.png",
-              to_host(to_uint8(normalize_minmax(surf.to(torch.float32)))))
-    sink.close()
-    print(f"C-scan {tuple(vol.shape)} written to {sink.dir} (+ enface_mip.png, surface_map.png)")
-    return 0
 
 
 def cmd_sweep(args) -> int:
@@ -1122,6 +1137,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="reconstruct the volume over a ('data', 'ascan') device mesh, one "
                          "process per device (default: this device alone)")
     sp.add_argument("--dispersion-sweep", action="store_true")
+    sp.add_argument("--trace", metavar="LOGDIR", default="",
+                    help="write a torch.profiler Chrome trace of the volume and its views here")
     sp.set_defaults(fn=cmd_cscan)
 
     sp = sub.add_parser("sweep", help="dispersion autofocus sweep")

@@ -62,6 +62,7 @@ from fdoct_tpu_torch.pipeline import (
     BscanOutputs, apodize_ratio, ascan_mags, preprocess, ratio_group_sum, raw_kernel_applies,
     reconstruct_group,
 )
+from fdoct_tpu_torch.utils.profiling import span
 
 #: the row-indexed leaves of an Int8DirectPlan: a rank keeps its rows of
 #: these, and the operator, the scales and the packed operator whole
@@ -451,13 +452,16 @@ def sharded_cscan_volume(frames: torch.Tensor, background: torch.Tensor,
     The frames are not split into chunks: at the flagship (512 × 2048 u8
     frames, 512 depths, float32) F = 512 holds a 2 GiB float32 ratio stack
     and 1 GiB of products at once, well inside one H100 (``chip_smoke.py``
-    phases 14 and 16 print the peak of device memory)."""
-    if mesh is not None:
-        return build_cscan_volume(mesh, calib, cfg, method, gather_full)(frames, background,
-                                                                         pi_frame)
-    yr = apodize_ratio(preprocess(frames, cfg), background, pi_frame, cfg)
-    mags = ascan_mags(yr, calib, method, cfg.matmul_precision)       # (F, oph, ndisp)
-    return mags.transpose(-1, -2).contiguous()
+    phases 14 and 16 print the peak of device memory).
+
+    The span ``cscan.volume`` covers the host's enqueue of the volume."""
+    with span("cscan.volume"):
+        if mesh is not None:
+            return build_cscan_volume(mesh, calib, cfg, method, gather_full)(frames, background,
+                                                                             pi_frame)
+        yr = apodize_ratio(preprocess(frames, cfg), background, pi_frame, cfg)
+        mags = ascan_mags(yr, calib, method, cfg.matmul_precision)       # (F, oph, ndisp)
+        return mags.transpose(-1, -2).contiguous()
 
 
 def sharded_cscan_volume_int8(frames: torch.Tensor, plan, cfg, mesh=None,
@@ -466,9 +470,11 @@ def sharded_cscan_volume_int8(frames: torch.Tensor, plan, cfg, mesh=None,
     magnitudes like :func:`sharded_cscan_volume`, each frame through the
     folded s8 operator (two s8 products), the rank's rows of the plan on a
     mesh.  ``cfg`` is accepted for interface symmetry (the plan already
-    encodes the geometry)."""
+    encodes the geometry).  The span ``cscan.volume`` covers the host's
+    enqueue of the volume."""
     del cfg
-    if mesh is not None:
-        return _assemble_volume(_int8_mags(frames, plan, mesh), mesh, gather_full)
-    mags = reconstruct_int8_direct(shift_u8_to_s8(frames.contiguous()), plan)
-    return mags.transpose(-1, -2).contiguous()
+    with span("cscan.volume"):
+        if mesh is not None:
+            return _assemble_volume(_int8_mags(frames, plan, mesh), mesh, gather_full)
+        mags = reconstruct_int8_direct(shift_u8_to_s8(frames.contiguous()), plan)
+        return mags.transpose(-1, -2).contiguous()
