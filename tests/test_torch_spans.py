@@ -36,7 +36,8 @@ from fdoct_tpu_torch.utils import profiling, to_host
 from fdoct_tpu_torch.utils.profiling import StageTimer, count, span
 
 ROOT = Path(__file__).resolve().parents[1]
-READERS = ("cscan.d2h_copy_ms", "cscan.d2h_wait_ms", "cscan.d2h_gb_per_s")
+READERS = ("cscan.d2h_copy_ms", "cscan.d2h_wait_ms", "cscan.d2h_gb_per_s",
+           "cscan.d2h_reused_share")
 SMALL = dict(width=256, height=40, binvalue=1, averages=1, numfftpoints=512,
              numdisplaypoints=128, lambdamin=816e-9, lambdamax=884e-9, dirdescr="spans",
              dtype="float32")
@@ -185,7 +186,8 @@ def reader(name):
     return Catalog(ROOT).reader(name)
 
 
-def made_snapshot(spans, copy_s=0.9, wait_s=0.12, volumes=3, nbytes=1_624_800_000):
+def made_snapshot(spans, copy_s=0.9, wait_s=0.12, volumes=3, nbytes=1_624_800_000,
+                  reused=1_073_741_824):
     spans.totals.update({"cscan.volume": 0.003, "to_host": copy_s + wait_s + 0.001,
                          "to_host.wait": wait_s, "to_host.copy": copy_s})
     spans.counts.update({"cscan.volume": volumes, "to_host": 36, "to_host.wait": 36,
@@ -195,6 +197,7 @@ def made_snapshot(spans, copy_s=0.9, wait_s=0.12, volumes=3, nbytes=1_624_800_00
     spans.parents.update({"cscan.volume": None, "to_host": None, "to_host.wait": "to_host",
                           "to_host.copy": "to_host"})
     spans.counters["to_host.bytes"] = nbytes
+    spans.counters["to_host.reused_bytes"] = reused
 
 
 TRACED = {"kind": "cscan", "trace": {"units": 3, "window_us": 1.0}, "bound_s": 1e-3}
@@ -205,6 +208,12 @@ def test_readers_follow_their_formulas(spans):
     assert reader("cscan.d2h_copy_ms")(TRACED) == pytest.approx(0.9 / 3 * 1e3)
     assert reader("cscan.d2h_wait_ms")(TRACED) == pytest.approx(0.12 / 3 * 1e3)
     assert reader("cscan.d2h_gb_per_s")(TRACED) == pytest.approx(1_624_800_000 / 0.9 / 1e9)
+    assert reader("cscan.d2h_reused_share")(TRACED) == pytest.approx(1_073_741_824
+                                                                     / 1_624_800_000)
+    spans.counters["to_host.reused_bytes"] = 0            # every block made for its copy
+    assert reader("cscan.d2h_reused_share")(TRACED) == 0
+    del spans.counters["to_host.reused_bytes"]            # a program that does not count it
+    assert reader("cscan.d2h_reused_share")(TRACED) is None
 
 
 @pytest.mark.parametrize("name", READERS)
@@ -312,8 +321,20 @@ def test_spans_add_no_device_event_on_the_card(cuda, spans):
                                       "fdoct.to_host.wait", "fdoct.to_host.copy"}
     assert all(e.device_type == DeviceType.CPU for e in host)
     snap = spans.snapshot()
-    assert snap["counters"] == {"to_host.bytes": got.nbytes + row.nbytes}
+    assert set(snap["counters"]) == {"to_host.bytes", "to_host.reused_bytes"}
+    assert snap["counters"]["to_host.bytes"] == got.nbytes + row.nbytes
+    assert 0 <= snap["counters"]["to_host.reused_bytes"] <= got.nbytes + row.nbytes
     assert snap["spans"]["to_host.wait"]["parent"] == "to_host"
     assert snap["spans"]["to_host.copy"]["parent"] == "to_host"
     assert snap["spans"]["to_host"]["count"] == 2 and snap["spans"]["cscan.volume"]["count"] == 1
     np.testing.assert_array_equal(got, vol.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_volume_outputs_on_the_card_alike_pinned_and_through_cpu(cuda):
+    pinned = volume_outputs(cuda)
+    paged = volume_outputs(cuda, host=lambda t: t.cpu().numpy())
+    assert pinned.keys() == paged.keys()
+    for k in pinned:
+        assert pinned[k].dtype == paged[k].dtype and np.array_equal(pinned[k], paged[k]), k
+        assert pinned[k].base.is_pinned(), k
