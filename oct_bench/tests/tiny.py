@@ -1,6 +1,16 @@
 """A tiny copy of the benchmark for the CPU tests: the real metric readers,
-traffic kinds and limits, with the configurations cut to a few rows and
-samples and the mixes to a few frames."""
+traffic kinds and limits, with every configuration and mix that
+``BENCHMARK.json`` names cut by its file under ``tests/small/``, found by
+name:
+
+- ``small/configs/<config>.json``: the ``pipeline`` fields changed for the
+  CPU (a few rows and samples);
+- ``small/traffic/<mix>.json``: the mix's fields changed (a few frames);
+- ``small/kinds/<kind>.json``: ``timed``, the ``[module, function]`` pairs
+  of the program whose results the kind's timed path returns (where the
+  tests plant their faults), and ``checks``, the numbers its ``readings``
+  gives.
+"""
 
 from __future__ import annotations
 
@@ -10,33 +20,35 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]          # oct_bench/
 REPO = HERE.parent
-
-#: configuration → the fields changed for the CPU
-SMALL = {
-    "flagship-2048-u8": {"width": 256, "height": 24, "averages": 4, "numfftpoints": 256,
-                         "numdisplaypoints": 96},
-    "flir-spinjnt-720-u16": {"width": 96, "height": 20, "averages": 5, "numfftpoints": 384,
-                             "numdisplaypoints": 48},
-}
-TRAFFIC = {
-    "cscan-512": {"frames": 6, "warmup_volumes": 1, "traced_volumes": 2},
-}
+SMALL = Path("oct_bench/tests/small")               # under a checkout's root
 
 
-def make_root(dest: Path) -> Path:
-    """``dest`` made a checkout root of the tiny benchmark; returns it."""
-    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+def small(root: Path, sub: str, name: str) -> dict:
+    """The file ``small/<sub>/<name>.json`` of the checkout at ``root``."""
+    path = Path(root) / SMALL / sub / f"{name}.json"
+    if not path.exists():
+        what = {"configs": "configuration", "traffic": "traffic mix", "kinds": "traffic kind"}
+        raise FileNotFoundError(f"no tiny file for {what[sub]} {name!r}: {path} is missing")
+    return json.loads(path.read_text())
+
+
+def make_root(dest: Path, src: Path = REPO) -> Path:
+    """``dest`` made a checkout root of the tiny benchmark of the checkout at
+    ``src``; returns it."""
+    src = Path(src)
+    bench = json.loads((src / "BENCHMARK.json").read_text())
     pkg = dest / "oct_bench"
-    for sub in ("metrics", "limits", "traffic"):
-        shutil.copytree(HERE / sub, pkg / sub, ignore=shutil.ignore_patterns("__pycache__"))
-    (pkg / "configs").mkdir(parents=True)
+    for sub in ("metrics", "limits", "traffic", "tests/small"):
+        shutil.copytree(src / "oct_bench" / sub, pkg / sub,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     for c in bench["configs"]:
-        conf = json.loads((REPO / c["file"]).read_text())
-        conf["pipeline"].update(SMALL[c["name"]])
+        conf = json.loads((src / c["file"]).read_text())
+        conf["pipeline"].update(small(src, "configs", c["name"]))
+        (dest / c["file"]).parent.mkdir(parents=True, exist_ok=True)
         (dest / c["file"]).write_text(json.dumps(conf))
-    for name, change in TRAFFIC.items():
-        mix = json.loads((HERE / "traffic" / f"{name}.json").read_text())
-        mix.update(change)
+    for name in sorted({w["traffic"] for w in bench["workloads"]}):
+        mix = json.loads((src / "oct_bench/traffic" / f"{name}.json").read_text())
+        mix.update(small(src, "traffic", name))
         (pkg / "traffic" / f"{name}.json").write_text(json.dumps(mix))
     (dest / "BENCHMARK.json").write_text(json.dumps(bench))
     return dest
