@@ -6,6 +6,8 @@ resampling, dispersion phase and the display-truncated inverse DFT) is linear
 in ``yr``.  :meth:`Calibration.create` composes it into one complex matrix
 M = op_re + i·op_im (n_raw × ndisp) on the host in numpy float64, exactly as
 ``fdoct_tpu/calibration.py`` does, and casts once to tensors on a device.
+:func:`split_spectrum_operator` stacks M with the same chain under Gaussian
+k-domain bands, for the angiography volume (:mod:`fdoct_tpu_torch.angio`).
 """
 
 from __future__ import annotations
@@ -75,34 +77,72 @@ def reference_grids(cfg) -> dict[str, np.ndarray]:
                 nearest_idx=nearest, frac=frac, deltak=deltak)
 
 
-def _fused_operator(cfg, g: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
-    """Window, dispersion phase and M in float64 (calibration.py:150-181 of
-    the JAX package): push the identity through the linear chain."""
+def _linear_chain(cfg, g: Mapping[str, np.ndarray], win: np.ndarray, phase: np.ndarray,
+                  kweights: np.ndarray | None = None) -> np.ndarray:
+    """The operator(s) of the linear chain in float64, the identity pushed
+    through it (calibration.py:150-181 of the JAX package): DC removal, the
+    camera-side window ``win``, zero-pad, k-linear resample, then each row
+    of the k-domain weights ``kweights`` ((bands, nfft), or None for none),
+    the dispersion phase and the display-truncated inverse DFT.  Returns
+    (n_raw, ndisp), or (bands, n_raw, ndisp) with weights, complex."""
     opw = cfg.opw
     mult = max(cfg.increasefftpointsmultiplier, 1)
     nfft = cfg.numfftpoints
     ndisp = min(cfg.numdisplaypoints, nfft)
-    win = _windows.get_window(cfg.window, opw).astype(np.float64)
-
-    if cfg.dispersion_a2 or cfg.dispersion_a3:
-        kl = g["klinear"]
-        x = (kl - (kl[0] + kl[-1]) / 2) / ((kl[-1] - kl[0]) / 2)
-        phase = cfg.dispersion_a2 * x**2 + cfg.dispersion_a3 * x**3
-    else:
-        phase = np.zeros(nfft)
 
     E = np.eye(opw)
     X = (E - E.mean(axis=-1, keepdims=True)) * win           # DC removal, window
     X = _np_zeropad_rowwise(X, mult, cfg.bandpassfilter)      # zero-pad ×mult
     X = X @ resample_matrix(g["nearest_idx"], g["frac"], opw * mult,
                             compat=cfg.compat)                # k-linear resample
+    if kweights is not None:
+        X = X * kweights[..., None, :]                        # k-domain weights
     # dispersion ⊙ unnormalized inverse DFT truncated to the displayed depths
     # (OpenCV DFT_INVERSE has no 1/N, BscanFFT.cpp:1185; colRange, 1195)
     F = np.exp((2j * _PI / nfft) * (np.arange(nfft)[:, None] * np.arange(ndisp)[None, :]))
     if phase.any():
         F = np.exp(1j * phase)[:, None] * F
-    M = X.astype(complex) @ F
+    return X.astype(complex) @ F
+
+
+def _fused_operator(cfg, g: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Window, dispersion phase and M in float64: the chain of
+    :func:`_linear_chain` with the configured window and no k-domain
+    weights."""
+    win = _windows.get_window(cfg.window, cfg.opw).astype(np.float64)
+    if cfg.dispersion_a2 or cfg.dispersion_a3:
+        kl = g["klinear"]
+        x = (kl - (kl[0] + kl[-1]) / 2) / ((kl[-1] - kl[0]) / 2)
+        phase = cfg.dispersion_a2 * x**2 + cfg.dispersion_a3 * x**3
+    else:
+        phase = np.zeros(cfg.numfftpoints)
+    M = _linear_chain(cfg, g, win, phase)
     return dict(window=win, phase=phase, op_re=M.real, op_im=M.imag)
+
+
+def gaussian_bands(nfft: int, centres, width: float) -> np.ndarray:
+    """(bands, nfft) float64 Gaussian weights on the k-linear bins f = 0 …
+    nfft−1: g(f) = exp(−4 ln 2 (f − c)² / w²) for each centre c (in bins),
+    of full width at half maximum w (bins)."""
+    f = np.arange(nfft, dtype=np.float64)
+    c = np.asarray(centres, dtype=np.float64)[:, None]
+    return np.exp(-4.0 * np.log(2.0) * (f - c) ** 2 / float(width) ** 2)
+
+
+def split_spectrum_operator(cfg, centres, width: float) -> np.ndarray:
+    """The split-spectrum operator [M | M₁ … M_B] in float64, (n_raw, (1 +
+    B)·ndisp) complex: the full-band M (:func:`_fused_operator`'s) and, for
+    each Gaussian band of :func:`gaussian_bands` (``centres`` and ``width``
+    in k-linear bins), M's chain with no camera-side window and the band's
+    weights on the k-linear grid after the resample (SSADA, Jia et al.,
+    Opt. Express 20(4):4710, 2012)."""
+    cfg.validate()
+    g = reference_grids(cfg)
+    full = _fused_operator(cfg, g)
+    bands = _linear_chain(cfg, g, np.ones(cfg.opw), full["phase"],
+                          gaussian_bands(cfg.numfftpoints, centres, width))
+    M = full["op_re"] + 1j * full["op_im"]
+    return np.concatenate([M, *bands], axis=-1)
 
 
 def _quant_cols(A: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

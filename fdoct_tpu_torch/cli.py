@@ -16,7 +16,8 @@ outputs, on the port's session, sources and sinks:
 - ``viewport`` — frame saver (ViewportSaver role).
 - ``fps``      — source frame-rate measurement.
 - ``xml2m|xml2mm|xml2ms`` — FileStorage-XML → MATLAB converters.
-- ``cscan``    — volumetric C-scan with an optional dispersion sweep.
+- ``cscan``    — volumetric C-scan with an optional dispersion sweep;
+  ``--angio`` makes OCT-angiography volumes (SSADA) of repeated B-scans.
 - ``sweep``    — dispersion autofocus sweep.
 - ``selftest`` — deployment self-check.
 - ``bench``    — the throughput benchmark: A-scans/s of the per-group
@@ -760,7 +761,9 @@ def cmd_cscan(args) -> int:
     """Volumetric C-scan: optional dispersion sweep, per-frame
     reconstruction of the whole volume on the device (with ``--mesh``, each
     rank its block of frames and rows, the volume gathered whole), npz
-    volume + per-frame PNGs + en-face MIP + surface map out (rank 0)."""
+    volume + per-frame PNGs + en-face MIP + surface map out (rank 0).  With
+    ``--angio`` the frames are ``--repeats`` repeated B-scans a position
+    (:func:`_write_angio`)."""
     from fdoct_tpu_torch.autofocus import autofocused_calibration, sweep_volume
     from fdoct_tpu_torch.calibration import Calibration
     from fdoct_tpu_torch.int8direct import Int8DirectPlan, int8_direct_supported
@@ -795,6 +798,7 @@ def cmd_cscan(args) -> int:
     calib = Calibration.create(cfg, dev)
     bg, pi = _background(bg_raw, cfg, dev)
 
+    swept = cfg              # with the sweep's a2, which the angiography operator takes
     if args.dispersion_sweep:
         grid = torch.linspace(-8.0, 8.0, 33, dtype=torch.float64)
         _, best = sweep_volume(torch.as_tensor(volume_raw[:1]).to(dev), bg, pi, calib, cfg,
@@ -803,11 +807,14 @@ def cmd_cscan(args) -> int:
             print(f"dispersion sweep: a2 = {best:+.2f}")
         if best:
             calib = autofocused_calibration(cfg, best, device=dev)
+            swept = cfg.replace(dispersion_a2=best, dispersion_a3=0.0)
 
     with _traced(args):
         # on a mesh each rank copies its block, and the volume comes back whole
         frames = (torch.as_tensor(volume_raw).to(dev) if mesh is None
                   else shard_frames(volume_raw, mesh))
+        if getattr(args, "angio", False):
+            return _write_angio(args, frames, bg, pi, swept, mesh, dev, lead)
         # int8-direct display volumes when the config asks and the folding
         # applies; dispersion-swept calibrations fold the same way since the
         # phase lives inside the operator
@@ -842,6 +849,42 @@ def cmd_cscan(args) -> int:
         print(f"C-scan {tuple(vol.shape)} written to {sink.dir} "
               "(+ enface_mip.png, surface_map.png)")
         return 0
+
+
+def _write_angio(args, frames, bg, pi, cfg, mesh, dev, lead) -> int:
+    """``cscan --angio``: the SSADA structure and decorrelation volumes of
+    position-major frames (``--repeats`` a position; ``sharded_angio_volume``
+    on one card or on the mesh), written as npz with the en-face angiogram
+    and the structural dB MIP as grayscale PNGs (rank 0).  ``cfg`` carries
+    the dispersion sweep's a2, which every band operator takes as M does."""
+    from fdoct_tpu_torch.angio import AngioConfig, SplitSpectrumOperator, angio_views
+    from fdoct_tpu_torch.parallel import sharded_angio_volume
+    from fdoct_tpu_torch.sinks import RunWriter
+    from fdoct_tpu_torch.utils.imageio import write_png
+
+    if args.method != "fused":
+        raise SystemExit("cscan --angio computes the split-spectrum products: --method fused only")
+    acfg = AngioConfig(repeats=args.repeats).validate()
+    if args.frames % acfg.repeats:
+        raise SystemExit(f"cscan --angio: --frames {args.frames} is not a whole number of "
+                         f"positions of {acfg.repeats} repeats")
+    try:
+        op = SplitSpectrumOperator.create(cfg, acfg, dev)
+        vol = sharded_angio_volume(frames, bg, pi, op, cfg, mesh, acfg, gather_full=True)
+    except ValueError as e:              # an int8 precision, a block that splits a position
+        raise SystemExit(f"cscan --angio: {e}") from e
+    if not lead:
+        return 0
+    sink = RunWriter(args.outdir, cfg.dirdescr, fmt="npz")
+    sink.save_data("structure", to_host(vol[0]))
+    sink.save_data("decorrelation", to_host(vol[1]))
+    views = angio_views(vol[0], vol[1], cfg.compat)
+    write_png(sink.dir / "angio_enface.png", to_host(views["angio_enface"]))
+    write_png(sink.dir / "structure_mip.png", to_host(views["structure_mip"]))
+    sink.close()
+    print(f"OCT-A {tuple(vol.shape[1:])} x2 (structure, decorrelation) written to {sink.dir} "
+          "(+ angio_enface.png, structure_mip.png)")
+    return 0
 
 
 def cmd_sweep(args) -> int:
@@ -1139,6 +1182,12 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--dispersion-sweep", action="store_true")
     sp.add_argument("--trace", metavar="LOGDIR", default="",
                     help="write a torch.profiler Chrome trace of the volume and its views here")
+    sp.add_argument("--angio", action="store_true",
+                    help="OCT angiography (SSADA): the frames are --repeats B-scans a "
+                         "position; writes the structure and decorrelation volumes, the "
+                         "en-face angiogram and the structural MIP")
+    sp.add_argument("--repeats", type=int, default=2,
+                    help="repeated B-scans a position for --angio (default 2)")
     sp.set_defaults(fn=cmd_cscan)
 
     sp = sub.add_parser("sweep", help="dispersion autofocus sweep")

@@ -14,11 +14,12 @@ from fdoct_tpu_torch.parallel.distributed import WorldOfOne, initialize_multihos
 from fdoct_tpu_torch.parallel.mesh import make_mesh, mesh_device
 from fdoct_tpu_torch.parallel.sharded import (
     build_session_bscan_step, build_session_bscan_step_int8, gather_rows, shard_frames,
-    sharded_bscan_step, sharded_bscan_step_int8, sharded_cscan_volume, sharded_cscan_volume_int8,
+    sharded_angio_volume, sharded_bscan_step, sharded_bscan_step_int8, sharded_cscan_volume,
+    sharded_cscan_volume_int8,
 )
 
 __all__ = [
     "WorldOfOne", "build_session_bscan_step", "build_session_bscan_step_int8", "gather_rows",
-    "initialize_multihost", "make_mesh", "mesh_device", "shard_frames", "sharded_bscan_step",
+    "initialize_multihost", "make_mesh", "mesh_device", "shard_frames", "sharded_angio_volume", "sharded_bscan_step",
     "sharded_bscan_step_int8", "sharded_cscan_volume", "sharded_cscan_volume_int8",
 ]

@@ -49,6 +49,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from fdoct_tpu_torch.angio import AngioConfig, ratio_ssada
 from fdoct_tpu_torch.calibration import Calibration
 from fdoct_tpu_torch.int8direct import reconstruct_int8_direct, shift_u8_to_s8
 from fdoct_tpu_torch.ops import (
@@ -62,7 +63,7 @@ from fdoct_tpu_torch.pipeline import (
     BscanOutputs, apodize_ratio, ascan_mags, preprocess, ratio_group_sum, raw_kernel_applies,
     reconstruct_group,
 )
-from fdoct_tpu_torch.utils.profiling import span
+from fdoct_tpu_torch.utils.profiling import count, span
 
 #: the row-indexed leaves of an Int8DirectPlan: a rank keeps its rows of
 #: these, and the operator, the scales and the packed operator whole
@@ -420,15 +421,23 @@ def _assemble_volume(mags: torch.Tensor, mesh: DeviceMesh, gather_full: bool) ->
     return vol
 
 
+def _sharded_ratio(frames: torch.Tensor, background: torch.Tensor, pi_frame: torch.Tensor,
+                   cfg, mesh: DeviceMesh) -> torch.Tensor:
+    """The rank's apodization ratio rows of its block of a volume, (f_loc,
+    h_loc, W): the sharded preprocess, then the ratio to its rows of S(k)
+    and π, each frame normalized by its own range over 'ascan'."""
+    dtype = getattr(torch, cfg.dtype)
+    y = _preprocess_sharded(frames, cfg, mesh)
+    return apodize_ratio(y, _rows(background, mesh).to(dtype), _rows(pi_frame, mesh).to(dtype),
+                         cfg, ascan_axis=mesh.get_group("ascan"))
+
+
 def build_cscan_volume(mesh: DeviceMesh, calib: Calibration, cfg, method: str = "fused",
                        gather_full: bool = False):
     """The sharded C-scan volume as a callable, ``vol(frames, background,
     pi_frame)`` on the rank's block of a (F, H, W) volume."""
     def vol(frames, background, pi_frame):
-        dtype = getattr(torch, cfg.dtype)
-        y = _preprocess_sharded(frames, cfg, mesh)
-        yr = apodize_ratio(y, _rows(background, mesh).to(dtype), _rows(pi_frame, mesh).to(dtype),
-                           cfg, ascan_axis=mesh.get_group("ascan"))
+        yr = _sharded_ratio(frames, background, pi_frame, cfg, mesh)
         return _assemble_volume(ascan_mags(yr, calib, method, cfg.matmul_precision), mesh,
                                 gather_full)
 
@@ -478,3 +487,39 @@ def sharded_cscan_volume_int8(frames: torch.Tensor, plan, cfg, mesh=None,
             return _assemble_volume(_int8_mags(frames, plan, mesh), mesh, gather_full)
         mags = reconstruct_int8_direct(shift_u8_to_s8(frames.contiguous()), plan)
         return mags.transpose(-1, -2).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Angiography volumes (split-spectrum amplitude decorrelation, angio.py)
+# ---------------------------------------------------------------------------
+
+
+def sharded_angio_volume(frames: torch.Tensor, background: torch.Tensor,
+                         pi_frame: torch.Tensor, op, cfg, mesh=None,
+                         acfg: AngioConfig = AngioConfig(),
+                         gather_full: bool = False) -> torch.Tensor:
+    """The SSADA structure and decorrelation of a volume of position-major
+    frames, stacked: (2, P, ndisp, oph), structure first
+    (:mod:`fdoct_tpu_torch.angio`; ``op`` its ``SplitSpectrumOperator``).
+
+    The mesh contract is :func:`sharded_cscan_volume`'s: ``frames`` is the
+    rank's block (:func:`shard_frames`), frames over 'data', rows over
+    'ascan'; each rank's block of frames must be whole groups of
+    ``acfg.repeats`` (else ValueError).  One all-gather over 'ascan' (and
+    over 'data' with ``gather_full``) assembles both volumes; the rank
+    returns its positions, or all P with ``gather_full``.  With
+    ``mesh=None`` the whole volume on the frames' device, every frame in
+    one product with the stacked operator, each normalized by its own
+    range as in the C-scan volume.
+
+    The span ``angio.volume`` covers the host's enqueue of the volume."""
+    with span("angio.volume"):
+        count("angio.frames", frames.shape[0])
+        if mesh is None:
+            yr = apodize_ratio(preprocess(frames, cfg), background, pi_frame, cfg)
+            s, d = ratio_ssada(yr, op, acfg, cfg.matmul_precision)     # (P, H, nd) each
+            return torch.stack([s.transpose(-1, -2), d.transpose(-1, -2)])
+        yr = _sharded_ratio(frames, background, pi_frame, cfg, mesh)
+        s, d = ratio_ssada(yr, op, acfg, cfg.matmul_precision)         # (p_loc, h_loc, nd) each
+        vol = _assemble_volume(torch.cat([s, d], dim=-1), mesh, gather_full)
+        return vol.unflatten(1, (2, -1)).movedim(1, 0).contiguous()

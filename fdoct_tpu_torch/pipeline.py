@@ -161,7 +161,10 @@ def _operator(calib: Calibration,
 def _op_matmul_pair(yr: torch.Tensor, calib: Calibration,
                     precision: str) -> tuple[torch.Tensor, torch.Tensor]:
     """The (re, im) operator products with one precision policy for every
-    consumer, so |ascan_complex(yr)| equals ascan_mags_fused(yr)."""
+    consumer, so |ascan_complex(yr)| equals ascan_mags_fused(yr).
+
+    ``calib`` is the calibration (its M) or another operator with the same
+    tables (``angio.SplitSpectrumOperator``)."""
     _check_precision(precision)
     if _int8_tables_apply(precision, calib):
         return _op_matmul_pair_int8(yr, calib)
