@@ -12,9 +12,10 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 
 1. device  — needs CUDA (there is no CPU branch); prints the card's name and
    power limit and turns TF32 off for matmuls and cuDNN.
-2. build   — compiles csrc/fused_recon.cu and csrc/int8_bscan.cu with nvcc
-   for sm_90a (one nvcc per source, in parallel) and prints ptxas's
-   registers, shared memory and spills per kernel, and for each of the six
+2. build   — compiles csrc/fused_recon.cu, csrc/int8_bscan.cu and
+   csrc/angio_product.cu with nvcc for sm_90a (one nvcc per source, in
+   parallel) and prints ptxas's registers, shared memory and spills per
+   kernel, and for each of the six
    warp-specialised kernels (fused_recon_ws_kernel<u8, u16, f32 input;
    MULTI: more frames than are in flight>) its registers at launch, the
    registers of each role after setmaxnreg and its spills (a spill is
@@ -284,6 +285,22 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    parent's per-group copy of its display floor, and group ms, device busy
    and idle share of the eager step and of the replay, turns E R R E.
 
+20. angio   — the angiography volume's split-spectrum product
+   (angio_product_phase): ops.kernels.split_spectrum_mags at the
+   octa500-angio800 cell's full shape: the cell's volume entry
+   (sharded_angio_volume, one card, 'highest', float32) on 800 seeded
+   frames launches it once and no other kernel (counts set to 0 just
+   before); then on 800 frames x 400 A-lines of seeded ratio rows, 2048
+   samples, the cell's operator of 3,200 columns, its TF32 table from
+   SplitSpectrumOperator.create, the schedule it takes (wgmma),
+   against its plain version (cuBLAS f32 and the magnitudes) at TOL["f32"]
+   and against the float64 product on every 97th row at F64_TOL (the TF32
+   control beyond it), bit for bit kernel 2's f32 instance at B = 1 on the
+   same stack and its mma.sync form on 16 frames through a misaligned view;
+   ptxas's registers and spills of split_spectrum_mags_kernel; its times
+   beside the plain version's, the bound and cuBLAS's f32 product of the
+   stack with [op_re | op_im].
+
 On CUDA every session path of phases 4-18 that takes process_group's fast
 path replays its captured graph, the mesh's too (the per-frame path runs
 eagerly),
@@ -293,7 +310,8 @@ graphs'.
 The line before the last is {"kernels": [...]}, one entry per instance
 (kernels 1-2 each with a bf16 and an f32 operator, kernel 1's two u16
 instances ("input": "u16", launches from phase 17's sessions), kernel 3,
-the resident kernel): every time in it was measured in this run; "ms"/"plain_ms" are
+the resident kernel, and phase 20's split-spectrum product, which replaces
+no TPU kernel: "replaces" null, "launches" from its phase's volume): every time in it was measured in this run; "ms"/"plain_ms" are
 single calls and "ms_b2b"/"plain_ms_b2b" back-to-back calls (phase 5);
 "launches" is the count from the instance's session paths, phases 4, 13,
 14, 15 and 16 (for the resident kernel, which no session runs, the count from
@@ -1276,6 +1294,7 @@ def main() -> int:
     for key, n in mesh_launches.items():
         launches[key] += n
     u16_entries = u16_phases(cfg, calib, products, card_line, dev)
+    angio_entry = angio_product_phase(card_line, dev)
     bench_phase(card_line, dev)
     for key, n in graphs_phase(cfg, calib, card_line, dev).items():
         if key == ("int8_bscan_display_fused", "s8"):
@@ -1316,7 +1335,8 @@ def main() -> int:
                 entries[-1]["mesh_launches"] = mesh_launches[(name, op)]
     phase("total", f"{time.perf_counter() - t_start:.1f} s wall clock, the build included")
     resident_entry.update(white_noise_keys(white["fused_recon_resident"]))
-    print(json.dumps({"kernels": entries + u16_entries + [int8_entry, resident_entry]}),
+    print(json.dumps({"kernels": entries + u16_entries + [int8_entry, resident_entry,
+                                                          angio_entry]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2809,6 +2829,132 @@ def u16_phases(cfg, calib, products: dict, card_line: str, dev: torch.device) ->
             "library_ms": None, "product_ms": products[op][0],
             "product_ms_b2b": products[op][1]})
     return entries
+
+
+#: the octa500-angio800 cell's configuration, whose full shape phase 20 runs
+ANGIO_CONFIG = "oct_bench/configs/octa500-6mm-ssada.json"
+ANGIO_FRAMES = 800
+ANGIO_SOURCE = "fdoct_tpu_torch/csrc/angio_product.cu"
+MMA_ANGIO = ("wgmma.mma_async.m64n128k8.f32.tf32.tf32 (3xTF32: lo.hi + hi.lo + hi.hi, each "
+             "stage's sums added in round-to-nearest f32; persistent warp-specialised blocks "
+             "over tiles of 128 rows x 64 columns: a TMA producer warpgroup, two consumer "
+             "warpgroups, A from registers, the K-major TF32 table from shared memory)")
+
+
+def angio_product_phase(card_line: str, dev: torch.device) -> dict:
+    """Phase 20: ops.kernels.split_spectrum_mags at the octa500-angio800
+    cell's full shape: the cell's volume entry (sharded_angio_volume on one
+    card, 'highest', float32) on ANGIO_FRAMES seeded frames, the launch
+    counts set to 0 just before it, launching it once and no other kernel;
+    then on seeded ratio rows of ANGIO_FRAMES frames against the cell's
+    split-spectrum operator and its TF32 table, its schedule, its
+    plain version (TOL["f32"]), the float64 product on every 97th row
+    (F64_TOL, which the TF32 control must fail), kernel 2's f32 instance at
+    B = 1 and the mma.sync form on a misaligned view of 16 frames (both
+    torch.equal), ptxas's lines of its kernel, and its times beside the
+    plain version's, the bound and cuBLAS's f32 product of the stack with
+    [op_re | op_im].  Returns its entry of the {"kernels": [...]} line."""
+    from fdoct_tpu_torch import angio
+    from fdoct_tpu_torch.config import PipelineConfig
+    from fdoct_tpu_torch.ops import _build, kernels
+    from fdoct_tpu_torch.ops.kernels import (
+        LAUNCHES, f32_schedule, fused_recon_accumulate, split_spectrum_mags,
+        split_spectrum_mags_reference,
+    )
+    from fdoct_tpu_torch.parallel import sharded_angio_volume
+    from fdoct_tpu_torch.pipeline import preprocess
+    from oct_bench import frames as bench_frames
+    log = _build.library_path().with_suffix(".log").read_text().splitlines()
+    for i, ln in enumerate(log):
+        if "Compiling entry function" in ln and "split_spectrum_mags_kernel" in ln:
+            for more in log[i + 2:i + 4]:
+                phase("angio", f"split_spectrum_mags_kernel: {more.strip()}")
+    cfg = PipelineConfig(**json.loads((Path(__file__).resolve().parent / ANGIO_CONFIG)
+                                      .read_text())["pipeline"])
+    t0 = time.perf_counter()
+    op = angio.SplitSpectrumOperator.create(cfg, angio.AngioConfig(), dev)
+    phase("angio", f"the split-spectrum operator {tuple(op.op_re.shape)} and its TF32 table "
+          f"{tuple(op.op_tf32.shape)} built in {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device=dev).manual_seed(SEED + 26)
+    yr = torch.randn((ANGIO_FRAMES * cfg.height, cfg.width), generator=g, device=dev)
+    rows, n_in = yr.shape
+    def run(x: torch.Tensor = yr) -> torch.Tensor:
+        return split_spectrum_mags(x, op.op_re, op.op_im, op.op_tf32)
+
+    # the volume's route: the cell's entry on one card at its precision and
+    # type, on seeded frames, the counts set to 0 just before
+    gv = bench_frames.generator(SEED + 26, dev)
+    raw = bench_frames.sample_frames(cfg, ANGIO_FRAMES, gv, dev)
+    bg = torch.clamp_min(preprocess(bench_frames.background_frames(cfg, 1, gv, dev)[0], cfg),
+                         1.0)
+    check(cfg.matmul_precision == "highest" and cfg.dtype == "float32",
+          f"the cell's volume runs at {cfg.matmul_precision!r} in {cfg.dtype}")
+    kernels.reset_launches()
+    vol = sharded_angio_volume(raw, bg, torch.zeros_like(bg), op, cfg)
+    torch.cuda.synchronize()
+    moved = {k: v for k, v in LAUNCHES.items() if v}
+    launches = LAUNCHES["split_spectrum_mags"]
+    phase("angio", f"sharded_angio_volume {tuple(raw.shape)} -> {tuple(vol.shape)}: launches "
+          f"{moved}")
+    check(moved == {"split_spectrum_mags": 1} and bool(vol.isfinite().all()),
+          f"the angiography volume launched {moved}, not split_spectrum_mags once")
+    del raw, vol
+    got = run()
+    sched = f32_schedule(torch.float32, n_in, op.op_re.shape[1],
+                         [yr.data_ptr(), op.op_tf32.data_ptr()])
+    check(sched == "wgmma", f"split_spectrum_mags on the {sched} schedule")
+    want = split_spectrum_mags_reference(yr, op.op_re, op.op_im)
+    res = compare(got, want, TOL["f32"], TOL["f32"] * float(want.abs().max()))
+    del want
+    sub = slice(0, rows, 97)
+    want64 = torch.hypot(yr[sub].double() @ op.op_re.double(), yr[sub].double() @ op.op_im.double())
+    atol = F64_TOL * float(want64.abs().max())
+    f64 = {k: compare(v, want64, F64_TOL, atol)["worst_share_of_tol"]
+           for k, v in {"kernel": got[sub],
+                        "cuBLAS f32": split_spectrum_mags_reference(yr[sub], op.op_re, op.op_im),
+                        "TF32 control": tf32_control(yr[sub][None], op.op_re, op.op_im)
+                        }.items()}
+    del want64
+    k2_equal = bool(torch.equal(got, fused_recon_accumulate(yr[None], op.op_re, op.op_im,
+                                                            op_tf32=op.op_tf32)))
+    few = yr[:16 * cfg.height]
+    mma_equal = bool(torch.equal(got[:few.shape[0]], run(misaligned(few))))
+    phase("angio", f"split_spectrum_mags {tuple(yr.shape)} @ {tuple(op.op_re.shape)} -> "
+          f"{tuple(got.shape)} schedule {sched}: vs plain max_abs_err {res['max_abs_err']:.3e}, "
+          f"worst {res['worst_share_of_tol']:.3e} of tol (rtol=atol/max={TOL['f32']}); vs the "
+          "float64 product (every 97th row): " + ", ".join(f"{k} worst {v:.3e}"
+                                                             for k, v in f64.items())
+          + f" of tol (rtol=atol/max={F64_TOL}); torch.equal kernel 2 f32 at B = 1 {k2_equal}, "
+          f"the mma.sync form (16 frames, a misaligned view) {mma_equal}")
+    check(res["finite"] and res["worst_share_of_tol"] <= 1.0 and f64["kernel"] <= 1.0
+          and f64["TF32 control"] > 1.0 and k2_equal and mma_equal,
+          "split_spectrum_mags disagrees with its plain version, float64 or kernel 2")
+    del got
+    timed = {"kernel": cuda_ms(run, runs=10), "plain": cuda_ms(
+        lambda: split_spectrum_mags_reference(yr, op.op_re, op.op_im), runs=5),
+        "kernel_b2b": cuda_ms(run, runs=3, per=3),
+        "plain_b2b": cuda_ms(lambda: split_spectrum_mags_reference(yr, op.op_re, op.op_im),
+                             runs=3, per=3)}
+    cat = torch.cat((op.op_re, op.op_im), dim=1).contiguous()
+    product = cuda_ms(lambda: torch.matmul(yr, cat), runs=5)
+    mags = torch.empty((rows, op.op_re.shape[1]), device=dev)
+    bound = bound_keys("f32", 2 * rows * n_in * op.op_re.shape[1], [yr, op.op_re, op.op_im],
+                       mags)
+    times = "; ".join(f"{what} median {m:.4f} ms (min {lo:.4f}, max {hi:.4f})"
+                      for what, (m, lo, hi) in timed.items())
+    phase("angio", f"split_spectrum_mags at the cell's shape: {times}; CUDA events, kernel 10 "
+          f"samples, plain 5, *_b2b 3 samples of 3 back-to-back calls | bound "
+          f"{bound['bound_ms']:.2f} ms ({bound['bound_by']}) | cuBLAS f32 product "
+          f"{tuple(yr.shape)} @ {tuple(cat.shape)} median {product[0]:.2f} ms | {card_line}")
+    return {"name": "split_spectrum_mags", "route": "cuda", "source": ANGIO_SOURCE,
+            "replaces": None, "launches": launches, "operator": "f32", "mma": MMA_ANGIO,
+            "schedule": sched, "bit_equal_to_mma_sync": mma_equal,
+            "bit_equal_to_kernel_2_at_b1": k2_equal, "max_abs_err": res["max_abs_err"],
+            "worst_share_of_tol": res["worst_share_of_tol"], "f64_tol": F64_TOL,
+            "worst_share_of_f64_tol": f64["kernel"],
+            "cublas_f32_share_of_f64_tol": f64["cuBLAS f32"],
+            "tf32_control_share_of_f64_tol": f64["TF32 control"], **time_keys(timed), **bound,
+            "library_ms": None, "product_ms": product[0]}
 
 
 def bench_phase(card_line: str, dev: torch.device) -> None:

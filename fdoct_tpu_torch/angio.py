@@ -13,8 +13,13 @@ full-band magnitude averaged over the repeats.
 Every band is linear in the apodization ratio, as M is, so one product of
 the ratio rows with the stacked operator [M | M₁ … M_M]
 (:func:`fdoct_tpu_torch.calibration.split_spectrum_operator`) gives every
-magnitude, under the precision policy of M's products
-(``pipeline._op_matmul_pair``).  Each term is computed as (Aₙ − Aₙ₊₁)² /
+magnitude.  At 'highest' on CUDA, on float32 ratios, one hand-written kernel
+computes the product and its magnitudes
+(:func:`fdoct_tpu_torch.ops.kernels.split_spectrum_mags`: 3xTF32 on the
+tensor cores, float32-grade, no product written to device memory);
+elsewhere the product runs under the precision policy of M's products
+(``pipeline._op_matmul_pair``) and the magnitudes are formed in the real
+part's memory.  Each term is computed as (Aₙ − Aₙ₊₁)² /
 (Aₙ² + Aₙ₊₁²), the same quantity 1 − Aₙ·Aₙ₊₁/(½Aₙ² + ½Aₙ₊₁²) with no
 cancellation; a term whose two magnitudes are both zero counts 0 (the
 repeats agree).
@@ -25,11 +30,13 @@ position r.  The volume's entry, on one card or on a mesh, is
 (P, ndisp, H), as the C-scan volume's (F, ndisp, H).  The int8 precisions
 have no band tables and are refused.
 
-The spans ``angio.products`` (the split-spectrum products) and
-``angio.decorrelation`` (magnitudes, structure and SSADA) and the counters
-``angio.product_bytes`` (the device bytes of the product tensors) and
-``angio.frames`` record while a profiler session runs
-(:mod:`fdoct_tpu_torch.utils.profiling`).
+The spans ``angio.products`` (the split-spectrum products and their
+magnitudes) and ``angio.decorrelation`` (structure and SSADA) and the
+counters ``angio.product_bytes`` (the device bytes of the tensors the
+product writes: re and im, or the kernel's magnitudes),
+``angio.kernel_frames`` (the frames whose products the kernel computed, 0
+on the other route) and ``angio.frames`` record while a profiler session
+runs (:mod:`fdoct_tpu_torch.utils.profiling`).
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import torch
 
 from fdoct_tpu_torch.calibration import split_spectrum_operator
 from fdoct_tpu_torch.ops import normalize_minmax, to_db, to_uint8
+from fdoct_tpu_torch.ops.kernels import pack_tf32_operator, split_spectrum_mags
 from fdoct_tpu_torch.pipeline import _op_matmul_pair
 from fdoct_tpu_torch.utils.profiling import count, span
 from fdoct_tpu_torch.volume import enface_projection
@@ -96,14 +104,17 @@ class SplitSpectrumOperator:
     """[M | M₁ … M_B] on a device: (n_raw, (1 + B)·ndisp) in the working
     type, and rounded once to bfloat16 for the bf16 products; the operator
     pair ``pipeline._op_matmul_pair`` takes.  Columns b·ndisp … (b+1)·ndisp−1
-    are band b, band 0 the full band M.  It has no TF32 table (no kernel
-    takes it) and no int8 tables (:func:`check_precision`)."""
+    are band b, band 0 the full band M.  ``op_tf32`` is the float32
+    operator as :func:`~fdoct_tpu_torch.ops.kernels.split_spectrum_mags`
+    takes it (:func:`~fdoct_tpu_torch.ops.kernels.pack_tf32_operator`,
+    (2, 2, (1 + B)·ndisp, n_raw), 105 MB at the OCTA-500 shape), None for
+    another type.  It has no int8 tables (:func:`check_precision`)."""
 
     op_re: torch.Tensor
     op_im: torch.Tensor
     op_re_bf16: torch.Tensor
     op_im_bf16: torch.Tensor
-    op_tf32 = None
+    op_tf32: torch.Tensor | None = None
     op_re_q = None
 
     @classmethod
@@ -119,7 +130,9 @@ class SplitSpectrumOperator:
         op_re = torch.as_tensor(op.real).to(dtype).to(device)
         op_im = torch.as_tensor(op.imag).to(dtype).to(device)
         return cls(op_re=op_re, op_im=op_im,
-                   op_re_bf16=op_re.to(torch.bfloat16), op_im_bf16=op_im.to(torch.bfloat16))
+                   op_re_bf16=op_re.to(torch.bfloat16), op_im_bf16=op_im.to(torch.bfloat16),
+                   op_tf32=(pack_tf32_operator(op_re, op_im) if dtype == torch.float32
+                            else None))
 
 
 def check_precision(precision: str) -> None:
@@ -150,19 +163,41 @@ def ssada(mags: torch.Tensor, repeats: int, bands: int) -> tuple[torch.Tensor, t
     return structure, total.div_((repeats - 1) * bands)
 
 
+def kernel_applies(yr: torch.Tensor, op: SplitSpectrumOperator, precision: str) -> bool:
+    """Whether :func:`ratio_ssada` takes the magnitudes from
+    :func:`~fdoct_tpu_torch.ops.kernels.split_spectrum_mags`: at 'highest'
+    (a float32 operator), on CUDA, on a float32 ratio.  Everywhere else
+    (the bf16 products of 'default', the CPU, float64) the product runs in
+    ``pipeline._op_matmul_pair``."""
+    return (precision == "highest" and yr.device.type == "cuda"
+            and yr.dtype == torch.float32 and op.op_re.dtype == torch.float32)
+
+
+def _band_mags(yr: torch.Tensor, op: SplitSpectrumOperator,
+               precision: str) -> tuple[torch.Tensor, int, int]:
+    """The magnitudes (F, rows, (1 + B)·ndisp) of the ratio stack's product
+    with the stacked operator, the device bytes the product wrote and the
+    frames the kernel computed: the kernel's where :func:`kernel_applies`,
+    else the operator pair's, formed in the real part's memory."""
+    if kernel_applies(yr, op, precision):
+        mags = split_spectrum_mags(yr.contiguous(), op.op_re, op.op_im, op.op_tf32)
+        return mags, mags.nbytes, yr.shape[0]
+    re, im = _op_matmul_pair(yr, op, precision)
+    return re.mul_(re).addcmul_(im, im).sqrt_(), re.nbytes + im.nbytes, 0
+
+
 def ratio_ssada(yr: torch.Tensor, op: SplitSpectrumOperator, acfg: AngioConfig,
                 precision: str) -> tuple[torch.Tensor, torch.Tensor]:
     """(structure, decorrelation), each (P, rows, ndisp), of a ratio stack
-    (F, rows, W): one product with the stacked operator, its magnitudes
-    (formed in the real part's memory), then :func:`ssada`."""
+    (F, rows, W): the magnitudes of one product with the stacked operator,
+    then :func:`ssada`."""
     check_precision(precision)
     check_repeats(yr.shape[0], acfg.repeats)
     with span("angio.products"):
-        re, im = _op_matmul_pair(yr, op, precision)
-    count("angio.product_bytes", re.nbytes + im.nbytes)
+        mags, written, kernel_frames = _band_mags(yr, op, precision)
+    count("angio.product_bytes", written)
+    count("angio.kernel_frames", kernel_frames)
     with span("angio.decorrelation"):
-        mags = re.mul_(re).addcmul_(im, im).sqrt_()
-        del re, im
         return ssada(mags, acfg.repeats, acfg.bands)
 
 

@@ -370,13 +370,6 @@ __device__ __forceinline__ void tc_mma_stage_bf16(const uint8_t* a_s, const uint
   }
 }
 
-// x = hi + lo + e, |e| <= 2^-21 |x|, hi and lo TF32 (low 13 bits zero): hi
-// rounds x to nearest, ties away from zero; lo truncates the exact x - hi
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi))) & 0xffffe000u;
-}
-
 // One staged chunk through the TF32 tensor cores, three products per pair of
 // operands: acc[mt][j] re (j < 4), im (j >= 4).  Each 16-pair tile mt sums
 // the stage's MMAs into a zeroed fragment, added to acc in round-to-nearest

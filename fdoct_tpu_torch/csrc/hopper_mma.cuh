@@ -1,6 +1,7 @@
-// What the tensor-core kernels of fused_recon.cu and int8_bscan.cu share
-// (sm_90a): PTX wrappers for 16-byte cp.async staging, ldmatrix fragment
-// loads and the three mma.sync shapes (s8, bf16, tf32), the block schedule
+// What the tensor-core kernels of fused_recon.cu, int8_bscan.cu and
+// angio_product.cu share (sm_90a): PTX wrappers for 16-byte cp.async
+// staging, ldmatrix fragment loads and the three mma.sync shapes (s8, bf16,
+// tf32), the 3xTF32 split of an f32 operand, the block schedule
 // of namespace tc, Hopper's asynchronous pieces (mbarrier, TMA tensor
 // loads, wgmma with A and B from shared memory, named barriers, the
 // async-proxy fence, setmaxnreg) that the warp-specialised schedules of the
@@ -77,6 +78,15 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The 3xTF32 split of an f32 operand (the f32-operator instances of
+// fused_recon.cu and the split-spectrum product of angio_product.cu): x = hi
+// + lo + e, |e| <= 2^-21 |x|, hi and lo TF32 (low 13 bits zero): hi rounds x
+// to nearest, ties away from zero; lo truncates the exact x - hi
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi))) & 0xffffe000u;
 }
 
 // The block schedule of every tensor-core kernel.  A block of four warps

@@ -1,10 +1,11 @@
 """Build the hand-written CUDA kernels with nvcc and load them with ctypes.
 
-Every source under ``csrc/`` (``fused_recon.cu``, ``int8_bscan.cu``) has a
-plain C interface, so each compiles in seconds without PyTorch's headers;
-both include ``hopper_mma.cuh``, the inline-PTX wrappers (``cp.async``,
-``ldmatrix``, ``mma.sync``, ``wgmma``, ``mbarrier``, TMA tensor loads) and
-the block schedule their tensor-core kernels share, which need the
+Every source under ``csrc/`` (``fused_recon.cu``, ``int8_bscan.cu``,
+``angio_product.cu``) has a plain C interface, so each compiles in seconds
+without PyTorch's headers; each includes ``hopper_mma.cuh``, the
+inline-PTX wrappers (``cp.async``, ``ldmatrix``, ``mma.sync``, ``wgmma``,
+``mbarrier``, TMA tensor loads) and the block schedule their tensor-core
+kernels share, which need the
 ``sm_90a`` target and no extra flag or library.  The warp-specialised
 schedules' TMA tensor maps are encoded on the host with
 ``cuTensorMapEncodeTiled``, which ``hopper_mma.cuh`` obtains at run time
@@ -48,6 +49,7 @@ SIGNATURES = {
     "fdoct_recon_yr_f32_bf16": [_PTR] * 4 + [_INT] * 4 + [_PTR],
     "fdoct_recon_resident_u8_bf16": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     "fdoct_int8_bscan": [_PTR] * 7 + [_FLOAT] * 4 + [_PTR] * 4 + [_INT] * 5 + [_PTR],
+    "fdoct_split_spectrum_mags_f32": [_PTR] * 5 + [_INT] * 3 + [_PTR],
 }
 
 _lock = threading.Lock()

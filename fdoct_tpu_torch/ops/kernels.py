@@ -10,8 +10,14 @@ Hopper counterparts of the four Pallas kernels of ``fdoct_tpu/ops/pallas_kernels
 - :func:`int8_bscan_display_fused`: the int8-direct group step, s8 frames
   against a quantized operator with the display epilogue fused.
 
+and, with no TPU counterpart (the JAX package leaves it to XLA),
+:func:`split_spectrum_mags`: |yr @ (op_re + i·op_im)| of an angiography
+volume's ratio rows against the wide split-spectrum operator, the
+'highest' route of ``angio.ratio_ssada``.
+
 The first three are ``csrc/fused_recon.cu``, the fourth is
-``csrc/int8_bscan.cu``; :mod:`fdoct_tpu_torch.ops._build` builds both.  All
+``csrc/int8_bscan.cu``, the fifth ``csrc/angio_product.cu``;
+:mod:`fdoct_tpu_torch.ops._build` builds them.  All
 run on the tensor cores.  With a bfloat16 operator (the 'default'
 precision on CUDA, and the resident kernel) the first three run one
 warp-specialised schedule: a producer warpgroup brings every tile by TMA
@@ -53,7 +59,8 @@ from fdoct_tpu_torch.ops import _build
 
 #: kernel launches per wrapper since the last reset (CPU calls do not count)
 LAUNCHES = {"fused_recon_raw_accumulate": 0, "fused_recon_accumulate": 0,
-            "fused_recon_resident": 0, "int8_bscan_display_fused": 0}
+            "fused_recon_resident": 0, "int8_bscan_display_fused": 0,
+            "split_spectrum_mags": 0}
 
 #: tile (rows, depths) of the int8 kernel's min/max partials: one pair per
 #: tile of db
@@ -82,17 +89,22 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _magnitude_sum(yr: torch.Tensor, op_re: torch.Tensor,
-                   op_im: torch.Tensor) -> torch.Tensor:
-    """Σ_b |yr[b] @ (op_re + i·op_im)| in torch ops.  A bfloat16 operator
-    rounds yr to bfloat16 and multiplies in float32 (torch's bf16 @ bf16
-    would round the products' sums to bfloat16)."""
+def _magnitudes(yr: torch.Tensor, op_re: torch.Tensor, op_im: torch.Tensor) -> torch.Tensor:
+    """|yr @ (op_re + i·op_im)| in torch ops.  A bfloat16 operator rounds yr
+    to bfloat16 and multiplies in float32 (torch's bf16 @ bf16 would round
+    the products' sums to bfloat16)."""
     if op_re.dtype == torch.bfloat16:
         yr = yr.to(torch.bfloat16).float()
         op_re, op_im = op_re.float(), op_im.float()
     re = torch.matmul(yr, op_re)
     im = torch.matmul(yr, op_im)
-    return torch.sqrt(re * re + im * im).sum(dim=0)
+    return torch.sqrt(re * re + im * im)
+
+
+def _magnitude_sum(yr: torch.Tensor, op_re: torch.Tensor,
+                   op_im: torch.Tensor) -> torch.Tensor:
+    """Σ_b |yr[b] @ (op_re + i·op_im)| in torch ops (:func:`_magnitudes`)."""
+    return _magnitudes(yr, op_re, op_im).sum(dim=0)
 
 
 def fused_recon_raw_accumulate_reference(raw, pi_frame, inv_background, op_re, op_im):
@@ -323,6 +335,62 @@ def f32_schedule(dtype: torch.dtype, n_in: int, ndisp: int, ptrs) -> str:
     per_16 = {torch.uint8: 16, torch.uint16: 8, torch.float32: 4}[dtype]
     aligned = all(int(p) % 16 == 0 for p in ptrs)
     return "wgmma" if n_in % per_16 == 0 and n_in % 4 == 0 and aligned else "mma.sync"
+
+
+def split_spectrum_mags_reference(yr, op_re, op_im):
+    """Plain version of :func:`split_spectrum_mags`."""
+    return _magnitudes(yr, op_re, op_im)
+
+
+def split_spectrum_mags(yr: torch.Tensor, op_re: torch.Tensor, op_im: torch.Tensor,
+                        op_tf32: torch.Tensor | None = None) -> torch.Tensor:
+    """|yr @ (op_re + i·op_im)|, row by row.
+
+    yr: (..., n_in) float32 ratio rows (float64 with a float64 operator, CPU
+    only), contiguous; op_re, op_im: (n_in, ncols) float32.  Returns (...,
+    ncols) float32.  Replaces no TPU kernel: the angiography volume's
+    split-spectrum product (:mod:`fdoct_tpu_torch.angio`, every frame's rows
+    against [M | M₁ … M_B], 3,200 columns at the OCTA-500 shape) and the
+    magnitudes the volume keeps of it, which cuBLAS's two f32 products and
+    their magnitude passes computed in 8.2 GB of intermediates.
+
+    On CUDA the products run as three TF32 products on the tensor cores
+    (float32 sums, each stage's added in round-to-nearest; see
+    :func:`split_tf32`), from ``op_tf32`` (:func:`pack_tf32_operator` of the
+    operator, a ``SplitSpectrumOperator``'s ``op_tf32``, or packed here per
+    call when not given): a warp-specialised TMA + ``wgmma`` m64n128k8 tf32
+    schedule of persistent blocks over tiles of 128 rows x 64 columns where
+    :func:`f32_schedule` says ``"wgmma"``, else the ``mma.sync`` template of
+    :func:`fused_recon_accumulate` at B = 1 on op_re and op_im; both give
+    the sums of :func:`fused_recon_accumulate`'s f32 instances at B = 1, bit
+    for bit (``csrc/angio_product.cu``).
+    """
+    if yr.ndim < 1 or yr.numel() == 0:
+        raise ValueError(f"yr must be non-empty (..., n_in) rows, got {tuple(yr.shape)}")
+    if not yr.is_contiguous():
+        raise ValueError("yr must be contiguous")
+    if yr.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"yr on {yr.device}: only cpu and cuda are supported")
+    n_in = yr.shape[-1]
+    ncols = _check_operator(op_re, op_im, n_in, yr.device)
+    if yr.dtype != op_re.dtype or op_re.dtype == torch.bfloat16:
+        raise TypeError(f"yr is {yr.dtype} and the operator {op_re.dtype}; both must be "
+                        "float32 (or float64 on the CPU)")
+    if op_tf32 is not None:
+        _check_tf32_table(op_tf32, op_re, n_in, ncols, yr.device)
+    if yr.device.type == "cpu":
+        return split_spectrum_mags_reference(yr, op_re, op_im)
+    rows = yr.numel() // n_in
+    mags = torch.empty((*yr.shape[:-1], ncols), dtype=torch.float32, device=yr.device)
+    table = pack_tf32_operator(op_re, op_im) if op_tf32 is None else op_tf32
+    with torch.cuda.device(yr.device):
+        stream = torch.cuda.current_stream(yr.device).cuda_stream
+        rc = _build.load().fdoct_split_spectrum_mags_f32(
+            *(t.data_ptr() for t in (yr, op_re, op_im, table, mags)), rows, n_in, ncols, stream)
+    if rc != 0:
+        raise RuntimeError(f"fdoct_split_spectrum_mags_f32 launch failed: cudaError {rc}")
+    LAUNCHES["split_spectrum_mags"] += 1
+    return mags
 
 
 def fused_recon_resident_reference(raw, pi_frame, inv_background, op_re, op_im):

@@ -449,8 +449,9 @@ def test_spans_and_counters_record_only_under_a_profiler(spans):
         "angio.volume": 1, "angio.products": 1, "angio.decorrelation": 1}
     assert snap["spans"]["angio.products"]["parent"] == "angio.volume"
     assert snap["spans"]["angio.decorrelation"]["parent"] == "angio.volume"
-    # the product tensors: re and im, F·rows × (1 + 4)·ndisp float32 each
-    assert snap["counters"] == {"angio.frames": FRAMES,
+    # the product tensors: re and im, F·rows × (1 + 4)·ndisp float32 each;
+    # the CPU's route counts no kernel frames
+    assert snap["counters"] == {"angio.frames": FRAMES, "angio.kernel_frames": 0,
                                 "angio.product_bytes": 2 * FRAMES * cfg.height * 5 * 96 * 4}
     names = {e.name for e in prof.events()}
     assert {"fdoct.angio.volume", "fdoct.angio.products", "fdoct.angio.decorrelation"} <= names
@@ -470,3 +471,104 @@ def test_the_readers_read_the_spans(spans):
     assert cat.reader("angio.product_gb")(layer) == 3.0
     assert cat.reader("angio.d2h_wait_ms")(layer) >= 0.0
     assert cat.reader("angio.compute_roofline")(dict(layer, kind="cscan")) is None
+    share = cat.reader("angio.kernel_frame_share")
+    assert share(layer) is None                                 # no frames recorded yet
+    spans.add("angio.frames", 800)
+    assert share(layer) is None                                 # a program that counts none
+    spans.add("angio.kernel_frames", 0)
+    assert share(layer) == 0.0                                  # the kernel never took them
+    spans.add("angio.kernel_frames", 400)
+    assert share(layer) == 0.5
+    assert share(dict(layer, kind="cscan")) is None and share(dict(layer, trace=None)) is None
+
+
+# --------------------------------------------------------------------------
+# the route of the split-spectrum product
+
+
+class _Stack:
+    """What kernel_applies reads of a ratio stack: its device and type."""
+
+    def __init__(self, device: str, dtype: torch.dtype):
+        self.device, self.dtype = torch.device(device), dtype
+
+
+@pytest.mark.parametrize("device,dtype,precision,takes", [
+    ("cuda", torch.float32, "highest", True),
+    ("cuda", torch.float32, "default", False),
+    ("cuda", torch.float32, "bf16", False),
+    ("cuda", torch.float64, "highest", False),
+    ("cpu", torch.float32, "highest", False),
+])
+def test_the_kernel_takes_only_highest_float32_on_cuda(device, dtype, precision, takes):
+    cfg = cfg_of(dtype="float32")
+    op = angio.SplitSpectrumOperator.create(cfg, angio.AngioConfig(), CPU)
+    assert op.op_tf32 is not None and op.op_tf32.shape == (2, 2, 5 * 96, cfg.width)
+    assert angio.kernel_applies(_Stack(device, dtype), op, precision) is takes
+    op64 = angio.SplitSpectrumOperator.create(cfg_of(dtype="float64"), angio.AngioConfig(), CPU)
+    assert op64.op_tf32 is None
+    assert not angio.kernel_applies(_Stack(device, dtype), op64, precision)
+
+
+@pytest.mark.parametrize("dtype,precision", [("float32", "highest"), ("float64", "highest"),
+                                             ("float32", "default")])
+def test_the_cpu_volume_keeps_the_operator_pair(monkeypatch, dtype, precision):
+    """On the CPU, in float64 and at 'default' the product runs in
+    pipeline._op_matmul_pair, once a volume, and the kernel's launch count
+    stays 0."""
+    from fdoct_tpu_torch.ops import kernels
+    cfg = cfg_of(dtype=dtype, matmul_precision=precision)
+    raw, bg, pi = volume_inputs(cfg)
+    calls = []
+    pair = angio._op_matmul_pair
+    monkeypatch.setattr(angio, "_op_matmul_pair", lambda *a: calls.append(a) or pair(*a))
+    kernels.reset_launches()
+    program(cfg, raw, bg, pi)
+    assert len(calls) == 1 and calls[0][2] == precision
+    assert kernels.LAUNCHES["split_spectrum_mags"] == 0
+
+
+def test_the_kernel_route_counts_its_frames_and_writes_only_the_magnitudes(monkeypatch, spans):
+    """The kernel's route, taken on the CPU (the wrapper's plain version):
+    no operator pair, the counters of the magnitudes, and the volume of the
+    pair's route to float32 rounding."""
+    cfg = cfg_of(dtype="float32", matmul_precision="highest")
+    raw, bg, pi = volume_inputs(cfg)
+    want = program(cfg, raw, bg, pi)
+    monkeypatch.setattr(angio, "kernel_applies", lambda yr, op, precision: True)
+    monkeypatch.setattr(angio, "_op_matmul_pair", None)          # never called on this route
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = program(cfg, raw, bg, pi)
+    snap = spans.snapshot()
+    assert {k: v["count"] for k, v in snap["spans"].items()} == {
+        "angio.volume": 1, "angio.products": 1, "angio.decorrelation": 1}
+    # the magnitudes: F·rows × (1 + 4)·ndisp float32, half the pair's bytes
+    assert snap["counters"] == {"angio.frames": FRAMES, "angio.kernel_frames": FRAMES,
+                                "angio.product_bytes": FRAMES * cfg.height * 5 * 96 * 4}
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5, atol=1e-6 * float(w.max()))
+
+
+@pytest.mark.cuda
+def test_cuda_highest_launches_the_kernel_once_a_volume_and_the_cscan_never():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from fdoct_tpu_torch.ops import kernels
+    from fdoct_tpu_torch.parallel import sharded_cscan_volume
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = cfg_of(dtype="float32", matmul_precision="highest")
+    raw, bg, pi = volume_inputs(cfg)
+    op = angio.SplitSpectrumOperator.create(cfg, angio.AngioConfig(), dev)
+    kernels.reset_launches()
+    for _ in range(2):
+        got = sharded_angio_volume(raw.to(dev), bg.float().to(dev), pi.float().to(dev), op, cfg)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {"split_spectrum_mags": 2}
+    s_gap, d_gap = gaps((got[0].cpu(), got[1].cpu()), reference(SMALL, raw, bg, pi))
+    assert s_gap < F32_STRUCTURE_TOL and d_gap < F32_DECORR_TOL, (s_gap, d_gap)
+    kernels.reset_launches()
+    sharded_cscan_volume(raw.to(dev), bg.float().to(dev), pi.float().to(dev),
+                         calibration.Calibration.create(cfg, dev), cfg)
+    torch.cuda.synchronize()
+    assert not any(kernels.LAUNCHES.values())

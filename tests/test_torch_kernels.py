@@ -341,7 +341,8 @@ def test_u16_entries_are_kernel_1s_template():
     f32 instances' dispatch (the warp-specialised 3xTF32 schedule, or the
     mma.sync template), the bf16 one the bf16 instances' dispatch (the
     warp-specialised schedule, or the mma.sync template); LAUNCHES keeps
-    one key per TPU kernel."""
+    one key per TPU kernel, and one for the angiography product, which
+    replaces none."""
     text = (_build.PACKAGE_ROOT / "csrc" / "fused_recon.cu").read_text()
     assert kernels.RAW_ENTRY == {torch.uint8: "fdoct_recon_raw_u8",
                                  torch.uint16: "fdoct_recon_raw_u16"}
@@ -353,7 +354,8 @@ def test_u16_entries_are_kernel_1s_template():
         body = text[text.index(f"int fdoct_recon_{name}("):]
         assert body[:body.index("}")].count(f"{call}(") == 1, name
     assert set(LAUNCHES) == {"fused_recon_raw_accumulate", "fused_recon_accumulate",
-                             "fused_recon_resident", "int8_bscan_display_fused"}
+                             "fused_recon_resident", "int8_bscan_display_fused",
+                             "split_spectrum_mags"}
 
 
 def test_yr_wrapper_rejects_mismatched_dtype():
