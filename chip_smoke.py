@@ -150,7 +150,7 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    those groups streamed again, paced and unpaced (from a list, so the next
    batch is queued when a step starts and its copy is issued before the
    step), and fdoct_tpu_torch.bench_ingest at the flagship (phases 1-5:
-   pageable and pinned H2D bandwidth, the host copy into a pinned slot,
+   pageable and pinned H2D bandwidth, the host copy into pinned memory,
    ingest-inclusive A-scans/s, the 500 fps FLIR emulation, the bandwidth
    500 fps needs, the camera ring's frames to the device per frame).
 12. stepwise — Session(method="gather") and Session(method="hilbert"), one
@@ -3082,16 +3082,17 @@ def eager_step(s, batch: np.ndarray):
     step for ``batch``, called eagerly, not replayed: on one device
     ``session_group_pipeline[_int8]`` on the frames, on a mesh
     ``session_mesh_pipeline[_int8]`` on the rank's blocks, each copied to
-    the card through the session's pinned staging."""
+    the card through ``utils.to_device``."""
     from fdoct_tpu_torch.parallel.sharded import batch_block
+    from fdoct_tpu_torch.utils import to_device
 
     dtype = torch.from_numpy(batch[:0]).dtype
     groups, avg = len(batch) // s.averagestoggle, s.averagestoggle
     if s.mesh is None:
         _, _, step = s._group_step(batch.shape, dtype, groups, avg)
-        return step(s._to_device(batch))
+        return step(to_device(batch, s.device))
     _, _, step = s._mesh_step(batch.shape, dtype, groups, avg)
-    return step(s._to_device(batch_block(batch, s.mesh, groups)))
+    return step(to_device(batch_block(batch, s.mesh, groups), s.device))
 
 
 def eager_outputs(s, batch: np.ndarray):
@@ -3122,28 +3123,31 @@ def host_parts(s, batch: np.ndarray, replay: bool) -> dict:
     """Median host ms per group of each part of one ``process_group`` of
     ``batch`` on the CUDA fast path, the parts timed one after the other
     as process_group runs them: the route and key (``_group_step``, on a
-    mesh ``_mesh_step``), the copy into the pinned staging buffer
-    (``np.copyto``; on a mesh of the rank's blocks, a strided view), the H2D
-    copy's enqueue, the step (eager: its launches; replay: the graph's launch and
-    the outputs' clones), the D2H of the uint8 displays (which waits for
-    the device) and the per-group bookkeeping (``_emit_group_results``)."""
+    mesh ``_mesh_step``), the copy into a pinned block of the caching host
+    allocator (``utils.to_device``'s block and ``np.copyto``; on a mesh of
+    the rank's blocks, a strided view), the H2D copy's enqueue, the step
+    (eager: its launches; replay: the graph's launch and the outputs'
+    clones), the D2H of the uint8 displays (which waits for the device) and
+    the per-group bookkeeping (``_emit_group_results``)."""
     from fdoct_tpu_torch.parallel.sharded import batch_block
+    from fdoct_tpu_torch.utils import _pinned_empty
 
     dtype = torch.from_numpy(batch[:0]).dtype
     groups, avg = len(batch) // s.averagestoggle, s.averagestoggle
     route = s._group_step if s.mesh is None else s._mesh_step
-    s.process_group(batch)                           # the staging buffer and the graph
+    s.process_group(batch)                           # the pinned block and the graph
 
     def host():                                      # what process_group stages
         return batch if s.mesh is None else batch_block(batch, s.mesh, groups)
-    pinned, _ = s._staging[(host().shape, batch.dtype)]
     samples: dict = {}
     for _ in range(BREAKDOWN_RUNS):
         torch.cuda.synchronize()
         t = [time.perf_counter()]
         key, state, step = route(batch.shape, dtype, groups, avg)
         t.append(time.perf_counter())
-        np.copyto(pinned.numpy(), host())
+        staged = host()
+        pinned = _pinned_empty(staged.shape, dtype)
+        np.copyto(pinned.numpy(), staged)
         t.append(time.perf_counter())
         captured = s.graphs.lookup(key, state)
         static = captured.inputs[0].copy_(pinned, non_blocking=True)

@@ -20,14 +20,14 @@
    native shared-memory ring (``sources.camera.RingWriter``, as the capture
    daemon writes it) and read by a :class:`~fdoct_tpu_torch.sources.camera.
    CameraSource` attached to it, each frame as it arrives, then the batch's
-   H2D copy: through ``RingReader.latest_into`` straight into a pinned slot
-   of ``streaming._PinnedRing`` and a ``non_blocking`` copy on a side stream
-   (the route ``run_streaming`` takes), against ``RingReader.latest`` (a
+   H2D copy: through ``RingReader.latest_into`` straight into a pinned block
+   of PyTorch's caching host allocator and a ``non_blocking`` copy on a side
+   stream (the route ``run_streaming`` takes), against ``RingReader.latest`` (a
    fresh array per frame), ``np.stack`` and a pageable copy.  Every device
    batch is checked to equal the pushed frames.
 
 Every streamed display is checked against a direct ``reconstruct_bscan`` of
-the same frames, byte for byte (a pinned slot refilled too early would show
+the same frames, byte for byte (a pinned block refilled too early would show
 here).  Times (CUDA only) are CUDA-event medians and minima of 20 copies, and
 host-clock spans of whole streamed runs and of phase 5's batches (20 after 3
 warm-up, each ending in a synchronise); on the CPU everything is computed
@@ -56,7 +56,8 @@ from fdoct_tpu_torch.calibration import Calibration
 from fdoct_tpu_torch.config import PipelineConfig
 from fdoct_tpu_torch.pipeline import reconstruct_bscan
 from fdoct_tpu_torch.sources.camera import CameraSource, RingWriter
-from fdoct_tpu_torch.streaming import _PinnedRing, run_streaming
+from fdoct_tpu_torch.streaming import run_streaming
+from fdoct_tpu_torch.utils import _pinned_empty
 
 FLAGSHIP = dict(height=512, width=2048, numfftpoints=2048, numdisplaypoints=512)
 FLIR = dict(height=480, width=720, numfftpoints=720, numdisplaypoints=360)
@@ -106,8 +107,8 @@ def bandwidth(device: torch.device, shape: dict) -> dict:
         med, best = h2d_ms(copy)
         out[name] = {"median_ms": med, "min_ms": best, "MBps_at_median": nbytes / med / 1e3,
                      "MBps_best": nbytes / best / 1e3}
-    # the host's share of the pinned route: one batch written into a pinned
-    # slot, as run_streaming and the session's staging write it
+    # the host's share of the pinned route: one batch written into pinned
+    # memory, as run_streaming and utils.to_device write it
     slot = pinned[0].numpy()
     times = []
     for k in range(3 + COPIES):
@@ -190,14 +191,14 @@ def ring_to_device(device: torch.device, shape: dict) -> dict:
                     raise RuntimeError("the ring's frames differ from the pushed ones")
                 return {**out, "frames_equal": True, "pinned_slot": "not measured",
                         "copying": "not measured"}
-            ring = _PinnedRing(BATCH)
             copy_stream = torch.cuda.Stream(device)
 
             def pinned_slot() -> torch.Tensor:
-                ring.advance()
-                fill(ring.take(pool[0]))
-                dev, copied = ring.copy(BATCH, device, copy_stream)
-                copied.synchronize()
+                block = _pinned_empty(pool.shape, torch.uint8)
+                fill(block.numpy())
+                with torch.cuda.stream(copy_stream):
+                    dev = block.to(device, non_blocking=True)
+                copy_stream.synchronize()
                 return dev
 
             def copying() -> torch.Tensor:

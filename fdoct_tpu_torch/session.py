@@ -68,7 +68,7 @@ from fdoct_tpu_torch.pipeline import (
 )
 from fdoct_tpu_torch.plugins import ROIPlugin, VibrometryPlugin
 from fdoct_tpu_torch.sinks import RunWriter
-from fdoct_tpu_torch.utils import to_host
+from fdoct_tpu_torch.utils import to_device, to_host
 from fdoct_tpu_torch.utils.imageio import write_png
 from fdoct_tpu_torch.utils.profiling import FpsMeter
 
@@ -186,9 +186,6 @@ class Session:
         self._i8key: tuple | None = None
         self._pi_fold: torch.Tensor | None = None
         self._pi_fold_key: tuple | None = None
-        # (shape, dtype) of host frames → (pinned staging buffer, event of
-        # its last copy to the card); CUDA sessions only
-        self._staging: dict[tuple, tuple[torch.Tensor, torch.cuda.Event]] = {}
         # the f32 step's display floor: a device scalar written before each
         # step, so that a captured graph reads the current bscanthreshold
         self._thresh = torch.zeros((), dtype=dt, device=self.device)
@@ -461,35 +458,6 @@ class Session:
             self.max_intensity = int((raw.int() if wide else raw).max())
             self._say(f"fps = {reading:.0f}  Max Intensity = {self.max_intensity}")
 
-    def _to_device(self, frames, out: torch.Tensor | None = None) -> torch.Tensor:
-        """Frames on the session's device.  A tensor there is used as it is;
-        a pinned host tensor (the caller keeps it unchanged until the session
-        next synchronises, as ``process_group`` does at its display copy) is
-        copied with ``non_blocking``; host frames bound for CUDA go through a
-        page-locked staging buffer kept per shape and dtype.  With ``out``
-        (a captured step's static input, on CUDA) the frames are copied into
-        it, from the staging buffer for host frames."""
-        if torch.is_tensor(frames):
-            if out is not None:
-                return out.copy_(frames, non_blocking=frames.is_pinned())
-            return frames.to(self.device, non_blocking=frames.is_pinned())
-        host = np.asarray(frames)
-        if self.device.type != "cuda":
-            return torch.as_tensor(host).to(self.device)
-        key = (host.shape, host.dtype)
-        if key not in self._staging:
-            self._staging[key] = (torch.from_numpy(np.empty(host.shape, host.dtype)).pin_memory(),
-                                  torch.cuda.Event())
-        pinned, copied = self._staging[key]
-        copied.synchronize()                 # its previous copy has landed
-        np.copyto(pinned.numpy(), host)
-        if out is not None:
-            dev = out.copy_(pinned, non_blocking=True)
-        else:
-            dev = pinned.to(self.device, non_blocking=True)
-        copied.record(torch.cuda.current_stream(self.device))
-        return dev
-
     def _dark(self) -> torch.Tensor | None:
         """The dark frame the dark variant subtracts (BscanDark.cpp:1269)."""
         return self.data_yd if self.variant == "dark" else None
@@ -575,7 +543,7 @@ class Session:
         the frame completes an averaging group."""
         cfg = self.cfg
         self._tick_fps(raw)
-        raw = self._to_device(raw)
+        raw = to_device(raw, self.device)
         if raw.ndim == 3:
             raw = channel_select(raw, cfg.channelnum)     # BscanFFTwebcam.cpp:1015-1039
         if cfg.saveinterferograms:
@@ -697,7 +665,13 @@ class Session:
         graph (:meth:`_replay`).  Otherwise (a pending capture, a triggered
         capture, mid-group entry, manual averaging, output rebinning, a
         batch not divisible by the averaging count, strict-sim) it runs
-        :meth:`process` frame by frame, and says why once."""
+        :meth:`process` frame by frame, and says why once.
+
+        ``frames`` reach the device through :func:`~fdoct_tpu_torch.utils.
+        to_device`.  A pinned host tensor is copied ``non_blocking``: the
+        caller keeps it unchanged until the session next synchronises, as
+        this call does at its display copy.  Host arrays may be overwritten
+        as soon as it returns."""
         cfg = self.cfg
         n = len(frames)
         avg = self.averagestoggle
@@ -717,7 +691,7 @@ class Session:
         if self.device.type == "cuda":
             farr, (outs, frame_mags) = self._replay(host, key, state, step)
         else:
-            farr = self._to_device(host)
+            farr = to_device(host, self.device)
             outs, frame_mags = step(farr)
         raw = None
         if cfg.saveinterferograms:
@@ -778,11 +752,11 @@ class Session:
         captured (that call runs the step eagerly once)."""
         captured = self.graphs.lookup(key, state)
         if captured is not None:
-            static = self._to_device(host, out=captured.inputs[0])
+            static = to_device(host, self.device, out=captured.inputs[0])
             return static, captured.replay()
         static = torch.empty(tuple(host.shape), dtype=as_torch_dtype(host.dtype),
                              device=self.device)
-        self._to_device(host, out=static)
+        to_device(host, self.device, out=static)
         return static, self.graphs.capture(key, state, step, (static,))
 
     # ------------------------------------------------------------------
@@ -880,8 +854,8 @@ class Session:
         if self.device.type == "cuda":
             _, (outs, mags) = self._replay(blocks, key, state, step)
         else:
-            outs, mags = step(self._to_device(blocks))
-        raw = self._to_device(host).clone() if cfg.saveinterferograms else None
+            outs, mags = step(to_device(blocks, self.device))
+        raw = to_device(host, self.device).clone() if cfg.saveinterferograms else None
         return self._emit_group_results(outs, outs.bscandisp.cpu().numpy(), avg, raw, mags)
 
     def _emit_group_results(self, outs: BscanOutputs, disp: np.ndarray, avg: int,
@@ -927,7 +901,7 @@ class Session:
         if "b" in self._pending:
             if self.variant == "sim" and self.source is not None:
                 # sim reads the dedicated background image (BscanFFTsim.cpp:806)
-                bg = preprocess(self._to_device(self.source.background()), cfg)
+                bg = preprocess(to_device(self.source.background(), self.device), cfg)
                 self.data_yb = bg.to(self.data_yb.dtype)
                 self._pending.discard("b")
                 self._say("S(k) saved.")
@@ -935,7 +909,7 @@ class Session:
                 self._capture_background(y)
         if "p" in self._pending:
             if self.variant == "sim" and self.source is not None:
-                pi = preprocess(self._to_device(self.source.pi_frame()), cfg)
+                pi = preprocess(to_device(self.source.pi_frame(), self.device), cfg)
                 self.data_yp = pi.to(self.data_yp.dtype)
             else:
                 yp = y

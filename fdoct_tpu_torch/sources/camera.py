@@ -10,9 +10,8 @@ needed.
 The port's own copy of ``fdoct_tpu/sources/camera.py`` (standard library and
 numpy).  It loads the repository's ``native/`` ring library and daemons, as
 that module does; :meth:`RingReader.latest_into` writes a frame straight
-into caller memory, such as a pinned slot of
-:class:`fdoct_tpu_torch.streaming._PinnedRing`
-(:mod:`fdoct_tpu_torch.bench_ingest` phase 5).
+into caller memory, such as a pinned block of PyTorch's caching host
+allocator (:mod:`fdoct_tpu_torch.bench_ingest` phase 5).
 """
 
 from __future__ import annotations

@@ -8,13 +8,15 @@ device on the host.  The JAX package gets the overlap from its asynchronous
 ``device_put``; here it is explicit:
 
 - on a CUDA device each batch is written straight into a page-locked
-  (pinned) host slot of a small ring as its frames are dequeued (one host
-  copy, as ``np.stack`` costs), then copied with ``non_blocking=True`` on a
-  side copy stream;
+  (pinned) block of PyTorch's caching host allocator as its frames are
+  dequeued (one host copy, as ``np.stack`` costs), then copied with
+  ``non_blocking=True`` on a side copy stream;
 - the compute stream waits on the copy's event just before the step reads
   the batch, and ``record_stream`` keeps the caching allocator from handing
   the device buffer to the next copy while the step still reads it;
-- a slot is refilled only after its last copy's event has completed.
+- the block is dropped once its copy is issued: the host allocator records
+  an event on the copy stream and hands the block out again only once that
+  event has completed, so a block is never refilled under a copy.
 
 On the CPU the same loop runs with plain tensors and no streams: the device
 given decides the route.
@@ -31,12 +33,11 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
-from fdoct_tpu_torch.parallel.mesh import axis_size, mesh_device
+from fdoct_tpu_torch.parallel.mesh import mesh_device
 from fdoct_tpu_torch.parallel.sharded import local_block
+from fdoct_tpu_torch.pipeline import as_torch_dtype
+from fdoct_tpu_torch.utils import _pinned_empty, to_device
 
-#: pinned host slots in the ring of a CUDA run: the batch being stepped, the
-#: next one (copy in flight) and one more being filled
-PINNED_SLOTS = 3
 _END = object()
 
 
@@ -128,7 +129,7 @@ class FrameStreamer:
 
         ``out``, given the batch's first frame, returns the array the batch
         is written into (``n`` frames of that frame's shape and dtype, e.g.
-        a pinned slot); each frame is copied there as it is dequeued and the
+        a pinned block); each frame is copied there as it is dequeued and the
         filled rows are returned.  Without it the frames are stacked."""
         frames: list[np.ndarray] = []
         buf = None
@@ -162,51 +163,6 @@ class FrameStreamer:
             self._thread.join(timeout=join_timeout_s)
 
 
-class _PinnedRing:
-    """``PINNED_SLOTS`` page-locked batch buffers, each with the event of its
-    last copy to the device.  Allocated once, on the first frame (pinning
-    costs milliseconds), and again only if the frames change shape or type."""
-
-    def __init__(self, batch: int):
-        self.batch = batch
-        self.key: tuple | None = None
-        self.slots: list[torch.Tensor] = []
-        self.views: list[np.ndarray] = []
-        self.events = [torch.cuda.Event() for _ in range(PINNED_SLOTS)]
-        self.used = [False] * PINNED_SLOTS
-        self.i = -1
-
-    def take(self, frame: np.ndarray) -> np.ndarray:
-        """The next slot as a numpy view, once its last copy has completed."""
-        key = (frame.shape, frame.dtype)
-        if key != self.key:
-            for ev, used in zip(self.events, self.used):
-                if used:
-                    ev.synchronize()
-            host = np.empty((PINNED_SLOTS, self.batch, *frame.shape), frame.dtype)
-            self.slots = list(torch.from_numpy(host).pin_memory())
-            self.views = [s.numpy() for s in self.slots]
-            self.key = key
-        if self.used[self.i]:
-            self.events[self.i].synchronize()    # never refill a slot under copy
-        return self.views[self.i]
-
-    def advance(self) -> None:
-        """Move to the next slot; :meth:`take` then returns it."""
-        self.i = (self.i + 1) % PINNED_SLOTS
-
-    def copy(self, k: int, device: torch.device,
-             stream: torch.cuda.Stream) -> tuple[torch.Tensor, torch.cuda.Event]:
-        """The first ``k`` frames of the current slot on ``device``: the copy
-        issued on ``stream`` (``non_blocking``) and the event recorded after
-        it, which :meth:`take` waits on before the slot is refilled."""
-        with torch.cuda.stream(stream):
-            dev = self.slots[self.i][:k].to(device, non_blocking=True)
-            self.events[self.i].record(stream)
-        self.used[self.i] = True
-        return dev, self.events[self.i]
-
-
 class _Feed:
     """Host batches → device batches for :func:`run_streaming`; with a mesh,
     each batch's block of this rank."""
@@ -220,18 +176,23 @@ class _Feed:
         self.mesh = mesh
         self.pinned = put is None and device.type == "cuda"
         if self.pinned:
-            self.ring = _PinnedRing(batch if mesh is None else batch // axis_size(mesh, "data"))
             self.copy_stream = torch.cuda.Stream(device)
             self.compute = torch.cuda.current_stream(device)
 
     def next(self) -> tuple[torch.Tensor, torch.cuda.Event | None] | None:
         """The next batch on the device, its copy issued; None at the end."""
         if self.pinned and self.mesh is None:
-            self.ring.advance()
-            host = self.streamer.get_batch(self.batch, out=self.ring.take)
+            block = None
+
+            def take(frame: np.ndarray) -> np.ndarray:
+                nonlocal block
+                block = _pinned_empty((self.batch, *frame.shape), as_torch_dtype(frame.dtype))
+                return block.numpy()
+
+            host = self.streamer.get_batch(self.batch, out=take)
             if host is None:
                 return None
-            return self.ring.copy(len(host), self.device, self.copy_stream)
+            return self._copy(block[:len(host)])
         host = self.streamer.get_batch(self.batch)
         if host is None:
             return None
@@ -241,10 +202,16 @@ class _Feed:
             host = local_block(host, self.mesh)       # only this block is pinned and copied
         if not self.pinned:
             return torch.as_tensor(np.ascontiguousarray(host)).to(self.device), None
-        self.ring.advance()
-        slot = self.ring.take(host[0])
-        np.copyto(slot[:len(host)], host)
-        return self.ring.copy(len(host), self.device, self.copy_stream)
+        return self._copy(host)
+
+    def _copy(self, host) -> tuple[torch.Tensor, torch.cuda.Event]:
+        """``host`` (a pinned block, or frames :func:`to_device` stages in
+        one) on the device: the copy issued on the side stream, where the
+        host allocator records the event that keeps the block until the copy
+        has landed, and that stream's event after it, for :meth:`ready`."""
+        with torch.cuda.stream(self.copy_stream):
+            dev = to_device(host, self.device)
+        return dev, self.copy_stream.record_event()
 
     def ready(self, item: tuple[torch.Tensor, torch.cuda.Event | None]) -> torch.Tensor:
         """The batch, once the compute stream waits on its copy."""
@@ -279,8 +246,8 @@ def run_streaming(
     complete: each step's work is waited for (a CUDA event on the compute
     stream) after the next step has been issued, the last before returning.
 
-    ``device`` is where the step's frames go (required; on CUDA through the
-    pinned ring and a side copy stream, see the module docstring).
+    ``device`` is where the step's frames go (required; on CUDA through
+    pinned host blocks and a side copy stream, see the module docstring).
     ``sharding``, a ('data', 'ascan') device mesh of ``device``'s type: the
     step gets this rank's (b_loc, h_loc, W) block of each batch on the
     rank's device (``parallel.shard_frames``), and only the block is pinned

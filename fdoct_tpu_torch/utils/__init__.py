@@ -25,6 +25,42 @@ def to_host(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def to_device(x, device, out: torch.Tensor | None = None) -> torch.Tensor:
+    """``x`` on ``device``, or copied into ``out`` (a tensor there) and
+    ``out`` returned.
+
+    A tensor is copied with ``non_blocking`` when it is pinned: the caller
+    keeps it unchanged until it next synchronises with the copy's stream.
+    Host frames bound for a CUDA device are written once (``np.copyto``,
+    which also gathers a strided view) into a pinned block of PyTorch's
+    caching host allocator and copied from it ``non_blocking`` on the
+    current stream; the block is dropped at once.  For that copy the
+    allocator records an event on the stream and hands the block out again
+    only once the event has completed, so a block is never refilled under a
+    copy, and the caller may overwrite its frames as soon as this returns.
+    Where pinning fails, and for every other device, the frames go through
+    ``torch.as_tensor`` (no copy on the CPU without ``out``)."""
+    device = torch.device(device)
+    if torch.is_tensor(x):
+        if out is not None:
+            return out.copy_(x, non_blocking=x.is_pinned())
+        return x.to(device, non_blocking=x.is_pinned())
+    host = np.asarray(x)
+    if device.type == "cuda":
+        try:
+            block = _pinned_empty(host.shape, getattr(torch, host.dtype.name))
+        except RuntimeError:            # pinned host memory exhausted
+            pass
+        else:
+            np.copyto(block.numpy(), host)
+            if out is not None:
+                return out.copy_(block, non_blocking=True)
+            return block.to(device, non_blocking=True)
+    if out is not None:
+        return out.copy_(torch.as_tensor(host))
+    return torch.as_tensor(host).to(device)
+
+
 def _host_copy(x: torch.Tensor) -> tuple[np.ndarray, bool]:
     """``x`` in host memory, and whether it went the pinned route.
 

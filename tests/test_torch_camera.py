@@ -136,15 +136,15 @@ def test_ring_frames_cross_packages(tmp_path, build, writer_pkg, bpp):
 @native
 def test_latest_into_writes_a_pinned_slot_view(tmp_path, build):
     """latest_into fills the rows of a batch buffer in place, as it fills a
-    slot of streaming._PinnedRing (its numpy view), and rejects a buffer of
-    another type."""
+    pinned block of the caching host allocator (its numpy view), and rejects
+    a buffer of another type."""
     from fdoct_tpu_torch.sources.camera import RingReader, RingWriter
 
     path = tmp_path / "zc.ring"
     w = RingWriter(path, 32, 8, nslots=4)
     r = RingReader(path)
     try:
-        slot = torch.zeros((3, 8, 32), dtype=torch.uint8).numpy()   # a pinned slot's view
+        slot = torch.zeros((3, 8, 32), dtype=torch.uint8).numpy()   # a pinned block's view
         frames = np.arange(3 * 256, dtype=np.uint16).reshape(3, 8, 32).astype(np.uint8)
         for k, f in enumerate(frames):
             w.push(f)

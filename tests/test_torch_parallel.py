@@ -522,6 +522,22 @@ def test_cuda_mesh_volume_matches_one_device(cuda_world):
     torch.testing.assert_close(mesh, one, rtol=0, atol=0)
 
 
+@pytest.mark.cuda
+def test_cuda_mesh_stream_gives_the_step_the_source_frames(cuda_world):
+    """run_streaming(sharding=) on a 1 × 1 nccl mesh: the rank's block of
+    each batch goes through utils.to_device on the side copy stream, and
+    the step sees exactly the frames the source gave."""
+    from fdoct_tpu_torch.streaming import run_streaming
+
+    frames = np.random.default_rng(2).integers(0, 255, (24, 16, 64), dtype=np.uint8)
+    got, stats = run_streaming(iter(list(frames)), lambda d: d.clone(), batch=8, n_batches=3,
+                               device="cuda", sharding=cuda_world)
+    assert stats.batches_done == 3
+    for i, d in enumerate(got):
+        assert d.device.type == "cuda"
+        np.testing.assert_array_equal(d.cpu().numpy(), frames[8 * i:8 * i + 8])
+
+
 def test_dataclass_configs_agree(jx):
     """The worker builds the port's configs from the same fields the JAX
     side uses."""

@@ -1,5 +1,5 @@
 """The port's streaming ingest (``fdoct_tpu_torch.streaming``) and the
-session's ingest seam (``Session._to_device``).
+session's ingest seam (``utils.to_device`` on the session's device).
 
 ``FrameStreamer`` is held to the JAX class's cases (tests/test_streaming.py:
 ordering, drop-oldest under backpressure, rate limiting, timeout → None) and
@@ -7,8 +7,8 @@ to the rest of its contract (a producer's exception re-raised, ``None``
 frames skipped, a short final batch, ``out`` slots).  ``run_streaming`` on the
 CPU is held to the JAX function on the same seeded frames (float32, rtol
 1e-5, atol 1e-5·max), and a CPU ``Session`` behind it to a direct
-``process_group`` bit for bit.  Cases marked ``cuda`` run the pinned ring and
-the staging buffer on the card and skip here.
+``process_group`` bit for bit.  Cases marked ``cuda`` run the pinned blocks of
+the caching host allocator on the card and skip here.
 """
 
 import itertools
@@ -20,11 +20,12 @@ import pytest
 import torch
 
 from fdoct_tpu_torch import pipeline as tp
+from fdoct_tpu_torch import utils
 from fdoct_tpu_torch.calibration import Calibration
 from fdoct_tpu_torch.config import PipelineConfig
 from fdoct_tpu_torch.session import Session
 from fdoct_tpu_torch.sources.synthetic import SyntheticSource
-from fdoct_tpu_torch.streaming import PINNED_SLOTS, FrameStreamer, run_streaming
+from fdoct_tpu_torch.streaming import FrameStreamer, run_streaming
 
 H, W = 8, 64
 SMALL = dict(width=W, height=H, averages=4, numfftpoints=128, numdisplaypoints=40,
@@ -297,13 +298,16 @@ def test_producer_exception_surfaces_from_run_streaming():
 
 @pytest.mark.parametrize("make", [
     lambda a: a, lambda a: torch.as_tensor(a), lambda a: list(a)], ids=["numpy", "tensor", "list"])
-def test_session_ingest_on_the_cpu(make):
+def test_session_ingest_on_the_cpu(make, monkeypatch):
+    def never(shape, dtype):
+        raise AssertionError("pinned staging is for CUDA devices only")
+
+    monkeypatch.setattr(utils, "_pinned_empty", never)
     cfg, calib, src, bg = small_case(seed=4)
     frames = np.stack(list(itertools.islice(src.frames(), 8)))
     s = Session(cfg, device="cpu", calib=calib)
-    dev = s._to_device(make(frames))
+    dev = utils.to_device(make(frames), s.device)
     assert dev.device.type == "cpu" and torch.equal(dev, torch.as_tensor(frames))
-    assert s._staging == {}                      # pinned staging is for CUDA sessions only
 
 
 # ---------------------------------------------------------------------------
@@ -311,9 +315,11 @@ def test_session_ingest_on_the_cpu(make):
 
 
 @pytest.mark.cuda
-def test_cuda_pinned_ring_is_never_refilled_under_a_copy(cuda):
+def test_cuda_pinned_block_is_never_refilled_under_a_copy(cuda):
     """Every frame differs; a slow step keeps copies and refills racing.
-    Each batch the step sees must be exactly the frames the source gave."""
+    Each batch the step sees must be exactly the frames the source gave,
+    and the caching host allocator hands dropped blocks out again: fewer
+    blocks are made than batches run."""
     rng = np.random.default_rng(0)
     frames = rng.integers(0, 255, (96, 256, 1024), dtype=np.uint8)
     frames[:, 0, :8] = np.arange(96)[:, None]                  # every frame differs
@@ -326,19 +332,28 @@ def test_cuda_pinned_ring_is_never_refilled_under_a_copy(cuda):
             x = torch.tanh(x @ weight) * 255.0
         return d.clone(), x.sum()
 
+    allocs = torch.cuda.host_memory_stats()["num_host_alloc"]
     got, stats = run_streaming(iter(list(frames)), step, batch=4, n_batches=24, device=cuda)
+    made = torch.cuda.host_memory_stats()["num_host_alloc"] - allocs
     assert stats.batches_done == 24 and stats.dropped == 0
     for i, (d, _) in enumerate(got):
         np.testing.assert_array_equal(d.cpu().numpy(), frames[4 * i:4 * i + 4])
-    assert len(got) > PINNED_SLOTS
+    assert len(got) > made
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bpp", [8, 12], ids=["u8", "u16"])
-def test_cuda_session_ingest_routes_are_bit_equal(cuda, bpp):
-    """process_group on numpy frames (pinned staging), a pinned host tensor,
-    a pageable host tensor and a CUDA tensor gives the same bytes, for 8-
-    and 16-bit frames."""
+def test_cuda_session_ingest_routes_are_bit_equal(cuda, bpp, monkeypatch):
+    """process_group on numpy frames (a pinned block of the caching host
+    allocator), a pinned host tensor, a pageable host tensor and a CUDA
+    tensor gives the same bytes, for 8- and 16-bit frames."""
+    blocks = []
+
+    def pinned_empty(shape, dtype, make=utils._pinned_empty):
+        blocks.append(shape)
+        return make(shape, dtype)
+
+    monkeypatch.setattr(utils, "_pinned_empty", pinned_empty)
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = PipelineConfig(**{**SMALL, "width": 256, "height": 32, "numfftpoints": 512,
                             "numdisplaypoints": 128, "donotnormalize": True})
@@ -351,8 +366,9 @@ def test_cuda_session_ingest_routes_are_bit_equal(cuda, bpp):
         s = Session(cfg, device=cuda)
         s.data_yb = torch.as_tensor(np.maximum(src.background(), 1), dtype=torch.float32,
                                     device=cuda)
+        blocks.clear()
         out[name] = [s.process_group(batch), s.process_group(batch)]
-        assert (name == "numpy") == bool(s._staging)
+        assert (name == "numpy") == bool(blocks)
     for name, runs in out.items():
         for res, want in zip(runs, out["numpy"]):
             for r, w in zip(res, want):
@@ -363,8 +379,8 @@ def test_cuda_session_ingest_routes_are_bit_equal(cuda, bpp):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bpp", [8, 12], ids=["u8", "u16"])
 def test_cuda_streamed_session_equals_direct(cuda, bpp):
-    """A CUDA session behind run_streaming (one group per batch; the pinned
-    ring's slots of the frames' type) gives the same displays as a direct
+    """A CUDA session behind run_streaming (one group per batch; pinned
+    blocks of the frames' type) gives the same displays as a direct
     process_group on the same frames, 8- and 16-bit."""
     cfg = PipelineConfig(**{**SMALL, "width": 256, "height": 32, "numfftpoints": 512,
                             "numdisplaypoints": 128, "donotnormalize": True})
@@ -409,7 +425,7 @@ def test_bench_ingest_checks_on_the_cpu(capsys):
 
 
 def test_bench_ingest_fails_on_a_wrong_display(monkeypatch):
-    """A streamed display that is not its batch's (as a pinned slot refilled
+    """A streamed display that is not its batch's (as a pinned block refilled
     under its copy would give) fails the run."""
     from fdoct_tpu_torch import bench_ingest
 
