@@ -186,11 +186,11 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    one launch per frame: 64) and live --frames 64 --batch 8 (one launch per
    group: 8 of kernel 1, or of kernel 3 under int8_direct) at 'default',
    'highest' and 'int8_direct'; live --checkpoint then --resume (kernel 1);
-   cscan --frames 512 --dispersion-sweep at 'default' and 'int8_direct' and
-   sweep --joint (no launch: the volume is torch.matmul / _int_mm products,
-   as the JAX volume is XLA products). Then the C-scan's numbers at F = 512
-   (CSCAN_FRAMES): the cscan command's wall seconds (frames from the
-   synthetic source in host memory to cscan.npz) beside the host seconds
+   cscan --frames 512 --dispersion-sweep at 'default' (one launch of
+   cscan_volume_mags, the volume's kernel) and 'int8_direct' (no launch:
+   _int_mm products) and sweep --joint (no launch). Then the C-scan's numbers
+   at F = 512 (CSCAN_FRAMES): the cscan command's wall seconds (frames from
+   the synthetic source in host memory to cscan.npz) beside the host seconds
    of that source's 512 frames alone; the volume reconstruction's device ms
    (CUDA events, frames on the card), frames/s and peak device memory
    (max_memory_allocated) beside its bound (2 x F x 512 x 2048 x 512
@@ -237,12 +237,16 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    package) against the single-device int8 session (kernel 3): uint8 within
    1, dB rtol 1e-5, atol 1e-4.  The F = 512 volume, 'default' and
    'int8_direct', on the mesh (gather_full) and with mesh=None, turns P C C
-   P, device ms (CUDA events) and peak device memory above the frames, equal
-   within 1e-6 of the peak, and the host time that enqueues each volume's
-   launches.  The mesh session's CUDA graphs (mesh_graph_phase): for
-   'base' 'default' and 'highest', 'sim', 'dark', 'int8_direct' and
-   saveframes, three batches of 2 groups, the first capturing the batch's
-   graph with its NCCL collectives, the next two replaying it, each
+   P, device ms (CUDA events) and peak device memory above the frames, the
+   mesh's equal within 1e-6 of the peak to the single card's chain of the
+   same products (at 'default' the chain of torch.matmul products that
+   mesh=None ran before its kernel, beside which the single card's kernel
+   is held at TOL["bf16"]; at 'int8_direct' the single card's volume), and
+   the host time that enqueues each volume's launches.  The mesh session's CUDA
+   graphs (mesh_graph_phase): for 'base' 'default' and 'highest', 'sim',
+   'dark', 'int8_direct' and saveframes, three batches of 2 groups, the first
+   capturing the batch's graph with its NCCL collectives, the next two
+   replaying it, each
    bit-equal to the eager step (session_mesh_pipeline[_int8]) with its
    launches and collective bytes, each graph's pool printed; a threshold
    key (no new capture) and a 'b' capture (a new one); a 'base' 'default'
@@ -301,6 +305,20 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    beside the plain version's, the bound and cuBLAS's f32 product of the
    stack with [op_re | op_im].
 
+21. cscan   — the C-scan volume's kernels (cscan_kernel_phase) at the
+   C-scan cells' volume shapes, 512 seeded frames each: at the flagship
+   ('default', 512 x 512 x 2048 u8, 512 depths) sharded_cscan_volume
+   launches ops.kernels.cscan_volume_mags once and no other kernel, its
+   schedule (wgmma), against its plain version at TOL["bf16"], the float64
+   product of its rounded operands on every 32nd frame at BF16_F64_TOL,
+   kernel 1 at B = 1 and its mma.sync form bit for bit, ptxas's lines of
+   its kernel; its times beside the bound (1.112 ms), cuBLAS's f32 pair on
+   the bf16-rounded ratio and the old chain (turns old, route, route, old),
+   and the peak device memory of the route and of the old chain; at FLIR
+   ('highest', u16) the route's one split_spectrum_mags launch, bit for bit
+   split_spectrum_mags of the ratio, within TOL["f32"] of the old chain,
+   both timed.
+
 On CUDA every session path of phases 4-18 that takes process_group's fast
 path replays its captured graph, the mesh's too (the per-frame path runs
 eagerly),
@@ -310,9 +328,11 @@ graphs'.
 The line before the last is {"kernels": [...]}, one entry per instance
 (kernels 1-2 each with a bf16 and an f32 operator, kernel 1's two u16
 instances ("input": "u16", launches from phase 17's sessions), kernel 3,
-the resident kernel, and phase 20's split-spectrum product, which replaces
-no TPU kernel: "replaces" null, "launches" from its phase's volume): every time in it was measured in this run; "ms"/"plain_ms" are
-single calls and "ms_b2b"/"plain_ms_b2b" back-to-back calls (phase 5);
+the resident kernel, and phase 20's split-spectrum product and phase 21's
+C-scan volume kernel, which replace no TPU kernel: "replaces" null,
+"launches" from their phases' volumes): every time in it was measured in this
+run; "ms"/"plain_ms" are single calls and "ms_b2b"/"plain_ms_b2b" back-to-back
+calls (phase 5);
 "launches" is the count from the instance's session paths, phases 4, 13,
 14, 15 and 16 (for the resident kernel, which no session runs, the count from
 phase 10's bench_resident run, with the counts set to 0 just before it;
@@ -1295,6 +1315,7 @@ def main() -> int:
         launches[key] += n
     u16_entries = u16_phases(cfg, calib, products, card_line, dev)
     angio_entry = angio_product_phase(card_line, dev)
+    cscan_entry = cscan_kernel_phase(card_line, dev)
     bench_phase(card_line, dev)
     for key, n in graphs_phase(cfg, calib, card_line, dev).items():
         if key == ("int8_bscan_display_fused", "s8"):
@@ -1336,7 +1357,7 @@ def main() -> int:
     phase("total", f"{time.perf_counter() - t_start:.1f} s wall clock, the build included")
     resident_entry.update(white_noise_keys(white["fused_recon_resident"]))
     print(json.dumps({"kernels": entries + u16_entries + [int8_entry, resident_entry,
-                                                          angio_entry]}),
+                                                          angio_entry, cscan_entry]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2159,7 +2180,8 @@ def cli_phase(cfg, calib, card_line: str, dev: torch.device) -> dict:
             torch.cuda.reset_peak_memory_stats()
             text, walls[precision] = run_cli(
                 ["cscan", *base, "--outdir", str(out), "--frames", str(CSCAN_FRAMES),
-                 "--dispersion-sweep", "--precision", precision], {},
+                 "--dispersion-sweep", "--precision", precision],
+                {"cscan_volume_mags": 1} if precision == "default" else {},
                 f"cscan --frames {CSCAN_FRAMES} --dispersion-sweep --precision {precision}")
             peak_cli = torch.cuda.max_memory_allocated()
             (run,) = out.iterdir()
@@ -2215,8 +2237,8 @@ def cli_phase(cfg, calib, card_line: str, dev: torch.device) -> dict:
         bound = {o: 2 * macs / peak_ops * 1e3
                  for o, peak_ops in (("bf16", PEAK["bf16"]), ("s8", PEAK["s8"]),
                                      ("f32", F32_SIMT_PEAK))}
-        phase("cli", f"volume {precision} F={CSCAN_FRAMES} ({'torch.matmul f32 on bf16-rounded '
-              'operands' if op == 'bf16' else 'two _int_mm s8 products'}): device median "
+        phase("cli", f"volume {precision} F={CSCAN_FRAMES} ({'cscan_volume_mags, bf16 wgmma'
+              if op == 'bf16' else 'two _int_mm s8 products'}): device median "
               f"{med:.3f} ms (min {lo:.3f}, max {hi:.3f}; 5 calls, CUDA events, frames on the "
               f"card), {CSCAN_FRAMES / med * 1e3:.1f} frames/s, peak device memory "
               f"{peak / 2**30:.3f} GiB above the frames; bound {macs / 1e12:.3f} T multiply-adds: "
@@ -2292,7 +2314,7 @@ def mesh_phase(cfg, calib, src, frames, card_line: str, dev: torch.device) -> di
     from fdoct_tpu_torch.parallel.distributed import backend_for
     from fdoct_tpu_torch.parallel.dryrun import dryrun_multichip
     from fdoct_tpu_torch.parallel.mesh import COLLECTIVE_BYTES, reset_collective_bytes
-    from fdoct_tpu_torch.pipeline import preprocess
+    from fdoct_tpu_torch.pipeline import apodize_ratio, ascan_mags, preprocess
     from fdoct_tpu_torch.session import Session
     from fdoct_tpu_torch.sources.synthetic import SyntheticSource
 
@@ -2395,6 +2417,14 @@ def mesh_phase(cfg, calib, src, frames, card_line: str, dev: torch.device) -> di
         pi = torch.zeros_like(bg)
         c8 = cfg.replace(matmul_precision="int8_direct")
         plan = Int8DirectPlan.create(calib, c8, bg, pi, device=dev)
+
+        def chain() -> torch.Tensor:
+            """The single card's 'default' volume as the mesh computes it:
+            torch.matmul products on the bf16-rounded operands."""
+            yr = apodize_ratio(preprocess(fr, cfg), bg, pi, cfg)
+            return (ascan_mags(yr, calib, "fused", cfg.matmul_precision)
+                    .transpose(-1, -2).contiguous())
+
         routes = {"default": (lambda: sharded_cscan_volume(fr, bg, pi, calib, cfg),
                               lambda: sharded_cscan_volume(block, bg, pi, calib, cfg, mesh,
                                                            gather_full=True)),
@@ -2410,15 +2440,23 @@ def mesh_phase(cfg, calib, src, frames, card_line: str, dev: torch.device) -> di
                 vols[who] = fn()
                 torch.cuda.synchronize()
                 peaks[who] = (torch.cuda.max_memory_allocated() - before) / 2**30
-            err = float((vols["mesh"] - vols["single"]).abs().max()
-                        / vols["single"].abs().max())
-            del vols
+            ref = chain() if precision == "default" else vols["single"]
+            err = float((vols["mesh"] - ref).abs().max() / ref.abs().max())
+            kernel = None
+            if precision == "default":
+                kernel = compare(vols["single"], ref, TOL["bf16"],
+                                 TOL["bf16"] * float(ref.abs().max()))
+            del vols, ref
             kernels.reset_launches()
             t = {"single": [], "mesh": []}
             for who in ("single", "mesh", "mesh", "single"):
                 t[who].append(cuda_ms(one if who == "single" else meshed_vol, runs=5,
                                       warmup=1)[0])
-            check(not any(LAUNCHES.values()), f"volume {precision}: launches {dict(LAUNCHES)}")
+            # the single card's 'default' volume is the kernel's, one launch a
+            # call (2 turns of 6); the mesh's products stay torch.matmul
+            want = {"cscan_volume_mags": 12} if precision == "default" else {}
+            moved = {k: v for k, v in LAUNCHES.items() if v}
+            check(moved == want, f"volume {precision}: launches {moved}, not {want}")
             enqueue = {"single": host_enqueue_ms(one), "mesh": host_enqueue_ms(meshed_vol)}
             phase("mesh", f"volume {precision}: host ms to enqueue one volume's launches (the "
                   f"device idle before, median of 5) single {enqueue['single']:.3f}, mesh "
@@ -2431,9 +2469,15 @@ def mesh_phase(cfg, calib, src, frames, card_line: str, dev: torch.device) -> di
                   f"{' / '.join(f'{x:.3f}' for x in t['single'])} ms, mesh "
                   f"{' / '.join(f'{x:.3f}' for x in t['mesh'])} ms (5 calls a turn, CUDA events); "
                   f"peak device memory above the frames single {peaks['single']:.3f} GiB, mesh "
-                  f"{peaks['mesh']:.3f} GiB; max |mesh - single| {err:.3e} of the peak (limit "
-                  f"1e-6) | {card_line}")
+                  f"{peaks['mesh']:.3f} GiB; max |mesh - single-card chain| {err:.3e} of the "
+                  f"peak (limit 1e-6)"
+                  + ("" if kernel is None else
+                     f"; the single card's kernel vs that chain worst "
+                     f"{kernel['worst_share_of_tol']:.3e} of tol (rtol=atol/max={TOL['bf16']})")
+                  + f" | {card_line}")
             check(err <= 1e-6, f"the {precision} mesh volume differs from the single-device one")
+            check(kernel is None or (kernel["finite"] and kernel["worst_share_of_tol"] <= 1.0),
+                  "the single card's 'default' volume differs from the chain")
 
     # the command line, each opening its own world of one, then the dry run
     with tempfile.TemporaryDirectory() as tmp:
@@ -2955,6 +2999,201 @@ def angio_product_phase(card_line: str, dev: torch.device) -> dict:
             "cublas_f32_share_of_f64_tol": f64["cuBLAS f32"],
             "tf32_control_share_of_f64_tol": f64["TF32 control"], **time_keys(timed), **bound,
             "library_ms": None, "product_ms": product[0]}
+
+
+#: the C-scan cells' configurations, whose volume shapes phase 21 runs
+FLAGSHIP_CONFIG = "oct_bench/configs/flagship-2048-u8.json"
+FLIR_CONFIG = "oct_bench/configs/flir-spinjnt-720-u16.json"
+CSCAN_SOURCE = "fdoct_tpu_torch/csrc/cscan_volume.cu"
+MMA_CSCAN = ("wgmma.mma_async.m64n128k16.f32.bf16.bf16 (the volume's frames and rows as rows, "
+             "no sum over frames; persistent warp-specialised blocks over tiles of 16 frames x 8 "
+             "rows x 64 depths: a TMA producer warpgroup, a warpgroup forming the bf16 ratio "
+             "from the raw frames into shared memory, two consumer warpgroups; sums rounded "
+             "every 128 samples; the magnitudes stored depth-major from the epilogue)")
+
+
+def cell_config(path: str):
+    from fdoct_tpu_torch.config import PipelineConfig
+    return PipelineConfig(**json.loads((Path(__file__).resolve().parent / path).read_text())
+                          ["pipeline"])
+
+
+def peak_gib(fn) -> tuple[torch.Tensor, float]:
+    """fn()'s result and the peak of device memory it allocated above what
+    was allocated before, GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - before) / 2**30
+
+
+def cscan_kernel_phase(card_line: str, dev: torch.device) -> dict:
+    """Phase 21: the C-scan volume's kernels at the C-scan cells' volume
+    shapes (CSCAN_FRAMES seeded frames of each cell's configuration, its
+    S(k) floored at 1, a seeded π).  Flagship ('default'):
+    ops.kernels.cscan_volume_mags on 512 x 512 x 2048 u8 frames, 512 depths
+    — the route of sharded_cscan_volume (one launch, no other kernel, counts
+    set to 0 just before; its volume torch.equal the wrapper's), the
+    schedule (wgmma), against its plain version at TOL["bf16"], the float64
+    product of its rounded operands on every 32nd frame at BF16_F64_TOL,
+    kernel 1 at B = 1 on two frames and its mma.sync form on 16 frames
+    through a misaligned view (torch.equal); ptxas's registers and spills
+    of its kernel; the kernel's times beside its bound, the old chain's
+    (the parent's volume: the f32 ratio, its bf16 round trip, cuBLAS's f32
+    pair, the magnitudes and the transposing copy) and cuBLAS's pair alone;
+    the peak device memory of the route and of the old chain.  FLIR
+    ('highest'): the route's split_spectrum_mags, one launch, its volume
+    torch.equal split_spectrum_mags of the ratio and within TOL["f32"] of
+    the old chain, both timed.  Returns the flagship kernel's entry of the
+    {"kernels": [...]} line."""
+    from fdoct_tpu_torch.calibration import Calibration
+    from fdoct_tpu_torch.ops import _build, kernels
+    from fdoct_tpu_torch.ops.kernels import (
+        LAUNCHES, bf16_schedule, cscan_volume_mags, cscan_volume_mags_reference,
+        fused_recon_raw_accumulate, split_spectrum_mags,
+    )
+    from fdoct_tpu_torch.parallel.sharded import cscan_kernel_route, sharded_cscan_volume
+    from fdoct_tpu_torch.pipeline import apodize_ratio, ascan_mags, preprocess
+    from oct_bench import frames as bench_frames
+    log = _build.library_path().with_suffix(".log").read_text().splitlines()
+    for i, ln in enumerate(log):
+        if "Compiling entry function" in ln and "cscan_volume_mags_kernel" in ln:
+            for more in log[i + 1:i + 4]:
+                phase("cscan", f"cscan_volume_mags_kernel: {more.strip()}")
+
+    def inputs(cfg, seed):
+        g = bench_frames.generator(seed, dev)
+        raw = bench_frames.sample_frames(cfg, CSCAN_FRAMES, g, dev)
+        bg = torch.clamp_min(preprocess(bench_frames.background_frames(cfg, 1, g, dev)[0], cfg),
+                             1.0)
+        return raw, bg, torch.rand(bg.shape, generator=g, device=dev) * 4.0
+
+    def old_chain(raw, bg, pi, calib, cfg):
+        yr = apodize_ratio(preprocess(raw, cfg), bg, pi, cfg)
+        return ascan_mags(yr, calib, "fused", cfg.matmul_precision).transpose(-1, -2).contiguous()
+
+    # the flagship volume at 'default'
+    cfg = cell_config(FLAGSHIP_CONFIG)
+    calib = Calibration.create(cfg, dev)
+    raw, bg, pi = inputs(cfg, SEED + 28)
+    inv = (1.0 / bg).contiguous()
+    F, rows, n_in = raw.shape
+    ndisp = calib.op_re.shape[1]
+    ops = (calib.op_re_bf16, calib.op_im_bf16)
+    check(cscan_kernel_route(raw, calib, cfg) == "bf16", "the flagship volume's route is not bf16")
+
+    def run(x: torch.Tensor = raw) -> torch.Tensor:
+        return cscan_volume_mags(x, pi, inv, *ops)
+
+    kernels.reset_launches()
+    vol, route_gib = peak_gib(lambda: sharded_cscan_volume(raw, bg, pi, calib, cfg))
+    moved = {k: v for k, v in LAUNCHES.items() if v}
+    old, old_gib = peak_gib(lambda: old_chain(raw, bg, pi, calib, cfg))
+    got = run()
+    sched = bf16_schedule(raw.dtype, n_in, ndisp, [t.data_ptr() for t in (raw, pi, inv, *ops)])
+    route_equal = bool(torch.equal(vol, got))
+    del vol
+    vs_old = compare(got, old, TOL["bf16"], TOL["bf16"] * float(old.abs().max()))
+    rel_old = float((got - old).abs().max() / old.abs().max())
+    del old
+    plain = cscan_volume_mags_reference(raw, pi, inv, *ops)
+    res = compare(got, plain, TOL["bf16"], TOL["bf16"] * float(plain.abs().max()))
+    del plain
+    sub = slice(0, F, 32)
+    yr = ((raw[sub].float() - pi) * inv).to(torch.bfloat16).double()
+    want64 = torch.hypot(yr @ ops[0].double(), yr @ ops[1].double()).transpose(-1, -2)
+    del yr
+    f64 = compare(got[sub], want64, BF16_F64_TOL, BF16_F64_TOL * float(want64.abs().max()))
+    del want64
+    k1_equal = all(bool(torch.equal(got[f], fused_recon_raw_accumulate(
+        raw[f:f + 1], pi, inv, *ops).T)) for f in (0, F - 1))
+    mma_equal = bool(torch.equal(got[:16], run(misaligned(raw[:16]))))
+    phase("cscan", f"sharded_cscan_volume {tuple(raw.shape)} u8 at 'default': launches {moved}, "
+          f"its volume torch.equal cscan_volume_mags {route_equal}; peak device memory above "
+          f"the frames {route_gib:.3f} GiB (the old chain {old_gib:.3f} GiB); vs the old chain "
+          f"max |diff| {rel_old:.3e} of the peak, worst {vs_old['worst_share_of_tol']:.3e} of "
+          f"tol (rtol=atol/max={TOL['bf16']}) | {card_line}")
+    phase("cscan", f"cscan_volume_mags schedule {sched}: vs plain max_abs_err "
+          f"{res['max_abs_err']:.3e}, worst {res['worst_share_of_tol']:.3e} of tol "
+          f"(rtol=atol/max={TOL['bf16']}); vs the float64 product of its rounded operands "
+          f"(every 32nd frame) worst {f64['worst_share_of_tol']:.3e} of tol "
+          f"(rtol=atol/max={BF16_F64_TOL}); torch.equal kernel 1 at B = 1 (frames 0, {F - 1}) "
+          f"{k1_equal}, the mma.sync form (16 frames, a misaligned view) {mma_equal}")
+    check(moved == {"cscan_volume_mags": 1} and route_equal and sched == "wgmma"
+          and res["finite"] and res["worst_share_of_tol"] <= 1.0
+          and f64["worst_share_of_tol"] <= 1.0 and vs_old["worst_share_of_tol"] <= 1.0
+          and k1_equal and mma_equal,
+          "cscan_volume_mags disagrees with its route, its plain version, float64, kernel 1 "
+          "or its mma.sync form")
+    del got
+    yr32 = ((raw.float() - pi) * inv).to(torch.bfloat16).float()
+    op32 = (ops[0].float(), ops[1].float())
+    pair = cuda_ms(lambda: (torch.matmul(yr32, op32[0]), torch.matmul(yr32, op32[1])), runs=5)
+    del yr32
+    timed = {"kernel": cuda_ms(run, runs=10),
+             "plain": cuda_ms(lambda: cscan_volume_mags_reference(raw, pi, inv, *ops), runs=5),
+             "kernel_b2b": cuda_ms(run, runs=3, per=3),
+             "plain_b2b": cuda_ms(lambda: cscan_volume_mags_reference(raw, pi, inv, *ops),
+                                  runs=3, per=3)}
+    chain_ms = [cuda_ms(lambda: old_chain(raw, bg, pi, calib, cfg), runs=5)[0],
+                cuda_ms(lambda: sharded_cscan_volume(raw, bg, pi, calib, cfg), runs=5)[0]]
+    chain_ms.append(cuda_ms(lambda: sharded_cscan_volume(raw, bg, pi, calib, cfg), runs=5)[0])
+    chain_ms.append(cuda_ms(lambda: old_chain(raw, bg, pi, calib, cfg), runs=5)[0])
+    mags = torch.empty((F, ndisp, rows), device=dev)
+    bound = bound_keys("bf16", 2 * F * rows * n_in * ndisp, [raw], mags)
+    del mags
+    times = "; ".join(f"{what} median {m:.4f} ms (min {lo:.4f}, max {hi:.4f})"
+                      for what, (m, lo, hi) in timed.items())
+    phase("cscan", f"cscan_volume_mags at the flagship volume: {times}; CUDA events, kernel 10 "
+          f"samples, plain 5, *_b2b 3 samples of 3 back-to-back calls | bound "
+          f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}) | cuBLAS's f32 pair on the "
+          f"bf16-rounded ratio median {pair[0]:.3f} ms | the volume, turns old chain, route, "
+          f"route, old chain (5 calls a turn, medians): "
+          f"{' / '.join(f'{x:.3f}' for x in chain_ms)} ms | {card_line}")
+    del raw, bg, pi, inv
+
+    # the FLIR volume at 'highest'
+    cfg_f = cell_config(FLIR_CONFIG)
+    calib_f = Calibration.create(cfg_f, dev)
+    raw, bg, pi = inputs(cfg_f, SEED + 29)
+    check(cscan_kernel_route(raw, calib_f, cfg_f) == "f32", "the FLIR volume's route is not f32")
+    kernels.reset_launches()
+    vol, flir_gib = peak_gib(lambda: sharded_cscan_volume(raw, bg, pi, calib_f, cfg_f))
+    flir_moved = {k: v for k, v in LAUNCHES.items() if v}
+    yr = apodize_ratio(preprocess(raw, cfg_f), bg, pi, cfg_f).contiguous()
+    ssm_equal = bool(torch.equal(vol, split_spectrum_mags(yr, calib_f.op_re, calib_f.op_im,
+                                                          calib_f.op_tf32)
+                                 .transpose(-1, -2).contiguous()))
+    del yr
+    old, flir_old_gib = peak_gib(lambda: old_chain(raw, bg, pi, calib_f, cfg_f))
+    vs_f = compare(vol, old, TOL["f32"], TOL["f32"] * float(old.abs().max()))
+    del vol, old
+    flir_ms = [cuda_ms(lambda: old_chain(raw, bg, pi, calib_f, cfg_f), runs=5)[0],
+               cuda_ms(lambda: sharded_cscan_volume(raw, bg, pi, calib_f, cfg_f), runs=5)[0]]
+    flir_ms.append(cuda_ms(lambda: sharded_cscan_volume(raw, bg, pi, calib_f, cfg_f),
+                           runs=5)[0])
+    flir_ms.append(cuda_ms(lambda: old_chain(raw, bg, pi, calib_f, cfg_f), runs=5)[0])
+    phase("cscan", f"FLIR volume {tuple(raw.shape)} u16 at 'highest': launches {flir_moved}, "
+          f"torch.equal split_spectrum_mags of the ratio {ssm_equal}; vs the old chain worst "
+          f"{vs_f['worst_share_of_tol']:.3e} of tol (rtol=atol/max={TOL['f32']}); peak device "
+          f"memory above the frames {flir_gib:.3f} GiB (the old chain {flir_old_gib:.3f} GiB); "
+          f"the volume, turns old chain, route, route, old chain (5 calls a turn, medians): "
+          f"{' / '.join(f'{x:.3f}' for x in flir_ms)} ms | {card_line}")
+    check(flir_moved == {"split_spectrum_mags": 1} and ssm_equal
+          and vs_f["worst_share_of_tol"] <= 1.0,
+          "the FLIR volume's route disagrees with split_spectrum_mags or the old chain")
+    del raw, bg, pi
+    return {"name": "cscan_volume_mags", "route": "cuda", "source": CSCAN_SOURCE,
+            "replaces": None, "launches": moved.get("cscan_volume_mags", 0), "operator": "bf16",
+            "input": "u8", "mma": MMA_CSCAN, "schedule": sched,
+            "bit_equal_to_mma_sync": mma_equal, "bit_equal_to_kernel_1_at_b1": k1_equal,
+            "max_abs_err": res["max_abs_err"], "worst_share_of_tol": res["worst_share_of_tol"],
+            "bf16_f64_tol": BF16_F64_TOL, "worst_share_of_bf16_f64_tol": f64["worst_share_of_tol"],
+            **time_keys(timed), **bound, "library_ms": None, "product_ms": pair[0],
+            "old_chain_ms": statistics.median(chain_ms[::3]),
+            "peak_gib": route_gib, "old_chain_peak_gib": old_gib}
 
 
 def bench_phase(card_line: str, dev: torch.device) -> None:

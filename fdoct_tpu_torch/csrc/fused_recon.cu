@@ -588,7 +588,7 @@ int launch_tc(const void* x, const void* pi, const void* inv_bg, const void* op_
 //     Forming A in registers while a wgmma that reads other A registers is
 //     in flight made ptxas serialise the wgmmas (C7513); shared memory has
 //     no such hazard.  The counts become f32 by a byte permute and an add
-//     (ws_count), not by a conversion instruction;
+//     (raw_count of hopper_mma.cuh), not by a conversion instruction;
 //   * the end of a round: its fragment is added to the running sums at the
 //     next round's first stage, once that stage's A tile is ready and just
 //     before its wgmmas start the fragment anew (the round's wgmmas have run
@@ -657,14 +657,6 @@ int launch_tc(const void* x, const void* pi, const void* inv_bg, const void* op_
 // the mma.sync template launch_tc<In, __nv_bfloat16> from the same C entry,
 // chosen before the launch (ops.kernels.bf16_schedule mirrors the rule).
 
-// An integer count c < 2^23 as f32, exactly: the bits 0x4B000000 | c are the
-// float 2^23 + c, and subtracting 2^23 is exact.  A byte permute and an add
-// in the FP32 pipes, where a conversion instruction (I2F) runs at a quarter
-// of their rate or less; the forming of the A tile is bound by that rate.
-__device__ __forceinline__ float ws_count(uint32_t word, uint32_t selector) {
-  return __fsub_rn(__uint_as_float(__byte_perm(word, 0x4B000000u, selector)), 8388608.f);
-}
-
 // Eight samples 8c..8c+7 of pair m of a landed stage, as f32: the ratio
 // formed from raw counts, pi and inv_background ((raw - pi) * inv, each
 // rounded to f32 as torch rounds it), or the f32 ratio itself.  p and v
@@ -672,32 +664,15 @@ __device__ __forceinline__ float ws_count(uint32_t word, uint32_t selector) {
 template <typename In>
 __device__ __forceinline__ void ws_samples(float (&y)[8], const uint8_t* in, int m, int c,
                                            const float (&p)[8], const float (&v)[8]) {
-  float x[8];
-  if constexpr (sizeof(In) == 1) {
-    // byte j of a word -> 0x4B0000bb: selector nibbles j, 4, 5, 7
-    const uint2 w = *reinterpret_cast<const uint2*>(in + m * ws::KT + 8 * c);
+  if constexpr (ws::raw<In>()) {
+    float x[8];
+    raw_counts<In>(x, in + (m * ws::KT + 8 * c) * sizeof(In));
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x[j] = ws_count(w.x, 0x7540u + j);
-      x[4 + j] = ws_count(w.y, 0x7540u + j);
-    }
-  } else if constexpr (sizeof(In) == 2) {
-    // the low and the high half of a word -> 0x4B00hhhh
-    const uint4 w = *reinterpret_cast<const uint4*>(in + m * ws::KT * 2 + 16 * c);
-    const uint32_t h[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x[2 * j] = ws_count(h[j], 0x7410u);
-      x[2 * j + 1] = ws_count(h[j], 0x7432u);
-    }
+    for (int j = 0; j < 8; ++j) y[j] = __fmul_rn(__fsub_rn(x[j], p[j]), v[j]);
   } else {
     const float4 a = *reinterpret_cast<const float4*>(in + m * ws::KT * 4 + 32 * c);
     const float4 b = *reinterpret_cast<const float4*>(in + m * ws::KT * 4 + 32 * c + 16);
     y[0] = a.x, y[1] = a.y, y[2] = a.z, y[3] = a.w, y[4] = b.x, y[5] = b.y, y[6] = b.z, y[7] = b.w;
-  }
-  if constexpr (ws::raw<In>()) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) y[j] = __fmul_rn(__fsub_rn(x[j], p[j]), v[j]);
   }
 }
 
@@ -1042,7 +1017,7 @@ template <typename In> __host__ __device__ constexpr int stage_bytes(int R) {
 }  // namespace ws32
 
 // Samples t + 4q (q = 0..7) of pair m of a landed ws32 stage, as f32:
-// ws_samples' arithmetic (a count made exact by ws_count, then (raw - pi) *
+// ws_samples' arithmetic (a count made exact by raw_count, then (raw - pi) *
 // inv; or the f32 ratio).  Count rows are read whole (a u8 row is two
 // 16-byte loads, a u16 row four) and the samples picked by byte permutes;
 // an f32 ratio's 32-sample rows are staged with the 128-byte swizzle, so
@@ -1056,14 +1031,14 @@ __device__ __forceinline__ void ws32_samples(float (&x)[8], const uint8_t* in, c
     const uint4 b = *reinterpret_cast<const uint4*>(in + m * KT + 16);
     const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};   // samples 4q..4q+3
 #pragma unroll
-    for (int q = 0; q < 8; ++q) x[q] = ws_count(w[q], 0x7540u + t);
+    for (int q = 0; q < 8; ++q) x[q] = raw_count(w[q], 0x7540u + t);
   } else if constexpr (sizeof(In) == 2) {
     const uint32_t half = t & 1 ? 0x7432u : 0x7410u;
 #pragma unroll
     for (int v = 0; v < 4; ++v) {   // samples 8v..8v+7
       const uint4 a = *reinterpret_cast<const uint4*>(in + m * KT * 2 + 16 * v);
-      x[2 * v] = ws_count(t & 2 ? a.y : a.x, half);
-      x[2 * v + 1] = ws_count(t & 2 ? a.w : a.z, half);
+      x[2 * v] = raw_count(t & 2 ? a.y : a.x, half);
+      x[2 * v + 1] = raw_count(t & 2 ? a.w : a.z, half);
     }
   } else {
 #pragma unroll
@@ -1218,23 +1193,14 @@ fused_recon_ws32_kernel(const __grid_constant__ CUtensorMap in_map,
   }
 }
 
-template <typename In> constexpr CUtensorMapDataType tma_type() {
-  return sizeof(In) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-                         : sizeof(In) == 2 ? CU_TENSOR_MAP_DATA_TYPE_UINT16
-                                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-}
-
 // Whether TMA can address the inputs of the bf16 instance on In (else the
-// mma.sync schedule runs): 16-byte row strides of the input rows (n_in % 16
-// for u8, % 8 for u16, % 4 for f32) and of the bf16 operator (ndisp % 8),
-// and 16-byte aligned bases.
+// mma.sync schedule runs): tma_applies of the input rows and the operator,
+// and of pi and inv_background where the rows are raw counts.
 template <typename In>
 bool ws_applies(const void* x, const void* pi, const void* inv_bg, const void* op_re,
                 const void* op_im, int n_in, int ndisp) {
-  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  return n_in % (16 / static_cast<int>(sizeof(In))) == 0 && ndisp % 8 == 0 && aligned(x) &&
-         aligned(op_re) && aligned(op_im) &&
-         (!ws::raw<In>() || (aligned(pi) && aligned(inv_bg)));
+  return tma_applies<In>(n_in, ndisp, {x, op_re, op_im}) &&
+         (!ws::raw<In>() || tma_applies<In>(n_in, ndisp, {pi, inv_bg}));
 }
 
 // The tensor maps of the input rows (maps[0]: pair-major, dims (sample,

@@ -1,15 +1,17 @@
-// What the tensor-core kernels of fused_recon.cu, int8_bscan.cu and
-// angio_product.cu share (sm_90a): PTX wrappers for 16-byte cp.async
-// staging, ldmatrix fragment loads and the three mma.sync shapes (s8, bf16,
-// tf32), the 3xTF32 split of an f32 operand, the block schedule
-// of namespace tc, Hopper's asynchronous pieces (mbarrier, TMA tensor
-// loads, wgmma with A and B from shared memory, named barriers, the
-// async-proxy fence, setmaxnreg) that the warp-specialised schedules of the
-// bf16, the f32-operator and the int8 instances are built from, and the
-// host's encoding of their TMA tensor maps.
+// What the tensor-core kernels of fused_recon.cu, int8_bscan.cu,
+// angio_product.cu and cscan_volume.cu share (sm_90a): PTX wrappers for
+// 16-byte cp.async staging, ldmatrix fragment loads and the three mma.sync
+// shapes (s8, bf16, tf32), the 3xTF32 split of an f32 operand, the f32
+// values of raw u8/u16 counts, the block schedule of namespace tc, Hopper's
+// asynchronous pieces (mbarrier, TMA tensor loads, wgmma with A and B from
+// shared memory, named barriers, the async-proxy fence, setmaxnreg) that
+// the warp-specialised schedules of the bf16, the f32-operator and the int8
+// instances are built from, and the host's encoding of their TMA tensor
+// maps with the rule of when TMA can address a kernel's rows.
 #pragma once
 
 #include <cstdint>
+#include <initializer_list>
 
 #include <cuda.h>            // CUtensorMap (the type only; libcuda is not linked)
 #include <cuda_runtime.h>
@@ -87,6 +89,41 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
   hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi))) & 0xffffe000u;
+}
+
+// An integer count c < 2^23 as f32, exactly: the bits 0x4B000000 | c are the
+// float 2^23 + c, and subtracting 2^23 is exact.  A byte permute and an add
+// in the FP32 pipes, where a conversion instruction (I2F) runs at a quarter
+// of their rate or less; the forming of a raw-input A tile (kernel 1's bf16
+// and f32 instances, the C-scan volume's kernel) is bound by that rate.
+// ``selector`` picks the count's bytes of ``word`` (__byte_perm).
+__device__ __forceinline__ float raw_count(uint32_t word, uint32_t selector) {
+  return __fsub_rn(__uint_as_float(__byte_perm(word, 0x4B000000u, selector)), 8388608.f);
+}
+
+// Eight consecutive u8 or u16 counts from ``p`` (8- or 16-byte aligned in
+// shared memory) as f32, exactly.
+template <typename In>
+__device__ __forceinline__ void raw_counts(float (&x)[8], const uint8_t* p) {
+  static_assert(sizeof(In) == 1 || sizeof(In) == 2, "u8 or u16 counts");
+  if constexpr (sizeof(In) == 1) {
+    // byte j of a word -> 0x4B0000bb: selector nibbles j, 4, 5, 7
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x[j] = raw_count(w.x, 0x7540u + j);
+      x[4 + j] = raw_count(w.y, 0x7540u + j);
+    }
+  } else {
+    // the low and the high half of a word -> 0x4B00hhhh
+    const uint4 w = *reinterpret_cast<const uint4*>(p);
+    const uint32_t h[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x[2 * j] = raw_count(h[j], 0x7410u);
+      x[2 * j + 1] = raw_count(h[j], 0x7432u);
+    }
+  }
 }
 
 // The block schedule of every tensor-core kernel.  A block of four warps
@@ -467,6 +504,24 @@ inline EncodeTiledFn encode_tiled() {
                ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
   }();
   return fn;
+}
+
+template <typename In> constexpr CUtensorMapDataType tma_type() {
+  return sizeof(In) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                         : sizeof(In) == 2 ? CU_TENSOR_MAP_DATA_TYPE_UINT16
+                                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+}
+
+// Whether TMA can address rows of n_in samples of In beside a bf16 operator
+// of ndisp columns: 16-byte row strides (n_in % 16 for u8, % 8 for u16, % 4
+// for f32; ndisp % 8) and 16-byte aligned ``bases``.  The rule of the bf16
+// instances of fused_recon.cu (ws_applies) and of cscan_volume.cu, mirrored
+// by ops.kernels.bf16_schedule.
+template <typename In>
+bool tma_applies(int n_in, int ndisp, std::initializer_list<const void*> bases) {
+  for (const void* p : bases)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return n_in % (16 / static_cast<int>(sizeof(In))) == 0 && ndisp % 8 == 0;
 }
 
 // A row-major tensor map: dims and box innermost first, strides (bytes) of

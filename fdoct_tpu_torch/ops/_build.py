@@ -1,7 +1,7 @@
 """Build the hand-written CUDA kernels with nvcc and load them with ctypes.
 
 Every source under ``csrc/`` (``fused_recon.cu``, ``int8_bscan.cu``,
-``angio_product.cu``) has a plain C interface, so each compiles in seconds
+``angio_product.cu``, ``cscan_volume.cu``) has a plain C interface, so each compiles in seconds
 without PyTorch's headers; each includes ``hopper_mma.cuh``, the
 inline-PTX wrappers (``cp.async``, ``ldmatrix``, ``mma.sync``, ``wgmma``,
 ``mbarrier``, TMA tensor loads) and the block schedule their tensor-core
@@ -50,6 +50,8 @@ SIGNATURES = {
     "fdoct_recon_resident_u8_bf16": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     "fdoct_int8_bscan": [_PTR] * 7 + [_FLOAT] * 4 + [_PTR] * 4 + [_INT] * 5 + [_PTR],
     "fdoct_split_spectrum_mags_f32": [_PTR] * 5 + [_INT] * 3 + [_PTR],
+    "fdoct_cscan_mags_u8_bf16": [_PTR] * 7 + [_INT] * 4 + [_PTR],
+    "fdoct_cscan_mags_u16_bf16": [_PTR] * 7 + [_INT] * 4 + [_PTR],
 }
 
 _lock = threading.Lock()

@@ -10,14 +10,21 @@ Hopper counterparts of the four Pallas kernels of ``fdoct_tpu/ops/pallas_kernels
 - :func:`int8_bscan_display_fused`: the int8-direct group step, s8 frames
   against a quantized operator with the display epilogue fused.
 
-and, with no TPU counterpart (the JAX package leaves it to XLA),
-:func:`split_spectrum_mags`: |yr @ (op_re + i·op_im)| of an angiography
-volume's ratio rows against the wide split-spectrum operator, the
-'highest' route of ``angio.ratio_ssada``.
+and two with no TPU counterpart (the JAX package leaves their products to
+XLA), each computing rows as rows, every magnitude stored once:
+
+- :func:`split_spectrum_mags`: |yr @ (op_re + i·op_im)| of ratio rows in
+  float32 grade, the 'highest' route of ``angio.ratio_ssada`` (an
+  angiography volume against the wide split-spectrum operator) and of
+  ``parallel.sharded_cscan_volume`` on one card (a C-scan volume against M);
+- :func:`cscan_volume_mags`: |((raw[f] − y_p)·(1/y_b)) @ M| of every frame of
+  a C-scan volume from its raw uint8 or uint16 frames, with no sum over
+  frames and the ratio formed on the tile, depth-major: the 'default'
+  (bfloat16) route of ``sharded_cscan_volume`` on one card.
 
 The first three are ``csrc/fused_recon.cu``, the fourth is
-``csrc/int8_bscan.cu``, the fifth ``csrc/angio_product.cu``;
-:mod:`fdoct_tpu_torch.ops._build` builds them.  All
+``csrc/int8_bscan.cu``, the fifth ``csrc/angio_product.cu``, the sixth
+``csrc/cscan_volume.cu``; :mod:`fdoct_tpu_torch.ops._build` builds them.  All
 run on the tensor cores.  With a bfloat16 operator (the 'default'
 precision on CUDA, and the resident kernel) the first three run one
 warp-specialised schedule: a producer warpgroup brings every tile by TMA
@@ -60,7 +67,7 @@ from fdoct_tpu_torch.ops import _build
 #: kernel launches per wrapper since the last reset (CPU calls do not count)
 LAUNCHES = {"fused_recon_raw_accumulate": 0, "fused_recon_accumulate": 0,
             "fused_recon_resident": 0, "int8_bscan_display_fused": 0,
-            "split_spectrum_mags": 0}
+            "split_spectrum_mags": 0, "cscan_volume_mags": 0}
 
 #: tile (rows, depths) of the int8 kernel's min/max partials: one pair per
 #: tile of db
@@ -352,7 +359,9 @@ def split_spectrum_mags(yr: torch.Tensor, op_re: torch.Tensor, op_im: torch.Tens
     split-spectrum product (:mod:`fdoct_tpu_torch.angio`, every frame's rows
     against [M | M₁ … M_B], 3,200 columns at the OCTA-500 shape) and the
     magnitudes the volume keeps of it, which cuBLAS's two f32 products and
-    their magnitude passes computed in 8.2 GB of intermediates.
+    their magnitude passes computed in 8.2 GB of intermediates; and the
+    'highest' product of a C-scan volume on one card against M alone
+    (``parallel.sharded_cscan_volume``, 360 columns at the FLIR shape).
 
     On CUDA the products run as three TF32 products on the tensor cores
     (float32 sums, each stage's added in round-to-nearest; see
@@ -390,6 +399,67 @@ def split_spectrum_mags(yr: torch.Tensor, op_re: torch.Tensor, op_im: torch.Tens
     if rc != 0:
         raise RuntimeError(f"fdoct_split_spectrum_mags_f32 launch failed: cudaError {rc}")
     LAUNCHES["split_spectrum_mags"] += 1
+    return mags
+
+
+#: the C entry stem of the C-scan volume kernel for each frame type it takes
+CSCAN_ENTRY = {torch.uint8: "fdoct_cscan_mags_u8", torch.uint16: "fdoct_cscan_mags_u16"}
+
+
+def cscan_volume_mags_reference(raw, pi_frame, inv_background, op_re, op_im):
+    """Plain version of :func:`cscan_volume_mags`."""
+    yr = (raw.to(pi_frame.dtype) - pi_frame) * inv_background
+    return _magnitudes(yr, op_re, op_im).transpose(-1, -2).contiguous()
+
+
+def cscan_volume_mags(raw: torch.Tensor, pi_frame: torch.Tensor, inv_background: torch.Tensor,
+                      op_re: torch.Tensor, op_im: torch.Tensor) -> torch.Tensor:
+    """|bf16((raw[f] − pi_frame)·inv_background) @ (op_re + i·op_im)| of
+    every frame, float32 sums, depth-major.
+
+    raw: (F, rows, n_in) uint8 or uint16 camera frames; pi_frame,
+    inv_background: (rows, n_in) float32; op_re, op_im: (n_in, ndisp)
+    bfloat16.  Returns (F, ndisp, rows) float32, each frame's magnitudes
+    transposed, as a C-scan volume holds them.  Replaces no TPU kernel: the
+    'default' product of a C-scan volume on one card
+    (``parallel.sharded_cscan_volume``), which cuBLAS's two f32 products on
+    the bf16-rounded operands and their passes computed.
+
+    On CUDA (``csrc/cscan_volume.cu``) the volume's frames and rows are the
+    product's rows, with no sum over frames: persistent blocks, one an SM,
+    over tiles of 16 frames x 8 rows x 64 depths; a producer warpgroup
+    brings the frames, the tile's rows of pi_frame and inv_background and
+    the operator by TMA, another forms the bf16 ratio into shared memory and
+    two consumer warpgroups run ``wgmma`` m64n128k16 on it (float32 sums,
+    rounded to nearest every 128 samples, as kernel 1's bf16 instances round
+    them), the magnitudes stored once from the epilogue.  Where
+    :func:`bf16_schedule` says ``"mma.sync"`` (TMA cannot address the
+    inputs) the C entry runs kernel 1's bf16 entry on each frame at B = 1
+    and transposes it into place.  Either way each frame's magnitudes are
+    :func:`fused_recon_raw_accumulate`'s of that frame alone, bit for bit.
+    One launch a volume counts under ``LAUNCHES["cscan_volume_mags"]``.
+    """
+    F, rows, n_in = _check_stack(raw, "raw")
+    if raw.dtype not in CSCAN_ENTRY:
+        raise TypeError(f"raw must be uint8 or uint16, got {raw.dtype}")
+    if op_re.dtype != torch.bfloat16:
+        raise TypeError(f"the operator must be bfloat16, got {op_re.dtype}")
+    ndisp = _check_operator(op_re, op_im, n_in, raw.device)
+    _check_ratio_terms(pi_frame, inv_background, rows, n_in, raw.device, torch.float32)
+    if raw.device.type == "cpu":
+        return cscan_volume_mags_reference(raw, pi_frame, inv_background, op_re, op_im)
+    args = [raw, pi_frame, inv_background, op_re, op_im]
+    mags = torch.empty((F, ndisp, rows), dtype=torch.float32, device=raw.device)
+    # one frame's (rows, ndisp) magnitudes, which the mma.sync form writes
+    scratch = torch.empty((rows, ndisp), dtype=torch.float32, device=raw.device)
+    name = f"{CSCAN_ENTRY[raw.dtype]}_bf16"
+    with torch.cuda.device(raw.device):
+        stream = torch.cuda.current_stream(raw.device).cuda_stream
+        rc = getattr(_build.load(), name)(*(t.data_ptr() for t in args), mags.data_ptr(),
+                                          scratch.data_ptr(), F, rows, n_in, ndisp, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    LAUNCHES["cscan_volume_mags"] += 1
     return mags
 
 

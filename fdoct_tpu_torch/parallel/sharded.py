@@ -59,9 +59,10 @@ from fdoct_tpu_torch.parallel.mesh import (
     COLLECTIVE_BYTES, all_gather, all_reduce, all_reduce_minmax, axis_index, axis_size,
     mesh_device, nbytes,
 )
+from fdoct_tpu_torch.ops.kernels import cscan_volume_mags, split_spectrum_mags
 from fdoct_tpu_torch.pipeline import (
-    BscanOutputs, apodize_ratio, ascan_mags, preprocess, ratio_group_sum, raw_kernel_applies,
-    reconstruct_group,
+    BscanOutputs, apodize_ratio, ascan_mags, kernel_operator, preprocess, ratio_group_sum,
+    raw_kernel_applies, reconstruct_group,
 )
 from fdoct_tpu_torch.utils.profiling import count, span
 
@@ -444,6 +445,35 @@ def build_cscan_volume(mesh: DeviceMesh, calib: Calibration, cfg, method: str = 
     return vol
 
 
+def cscan_kernel_route(frames: torch.Tensor, calib: Calibration, cfg,
+                       method: str = "fused") -> str | None:
+    """Which hand-written kernel takes the product and the magnitudes of a
+    volume on one card (:func:`sharded_cscan_volume` with ``mesh=None``),
+    from what the call can observe:
+
+    - ``"bf16"``: ``ops.kernels.cscan_volume_mags`` on the raw frames, where
+      the products run on bfloat16 operands (the 'default' precision on
+      CUDA, or 'bf16') and ``pipeline.raw_kernel_applies`` holds (8- or
+      16-bit frames, an identity preprocess and normalization): the ratio
+      formed on the tile, as kernel 1 forms it;
+    - ``"f32"``: ``ops.kernels.split_spectrum_mags`` on the float32 ratio
+      that ``apodize_ratio`` forms, where the products run on the float32
+      operator ('highest', or the 'fused_exact' method) on CUDA, whatever
+      the preprocess;
+    - None elsewhere, where the chain of ``pipeline.ascan_mags`` runs: the
+      CPU, bfloat16 products on frames the raw kernel does not take, and
+      wherever ``pipeline.kernel_operator`` names no operator (a float64
+      configuration, the 'gather' and 'hilbert' methods, the int8 tables).
+
+    ``frames`` is read for its device, type and rank only."""
+    if frames.device.type != "cuda":
+        return None
+    operator = kernel_operator(method, cfg, calib, frames.device)
+    if operator == "bf16" and not raw_kernel_applies(frames, cfg):
+        return None
+    return operator
+
+
 def sharded_cscan_volume(frames: torch.Tensor, background: torch.Tensor,
                          pi_frame: torch.Tensor, calib: Calibration, cfg, mesh=None,
                          method: str = "fused", gather_full: bool = False) -> torch.Tensor:
@@ -452,24 +482,44 @@ def sharded_cscan_volume(frames: torch.Tensor, background: torch.Tensor,
     With a mesh, ``frames`` is the rank's block (:func:`shard_frames`):
     each rank reconstructs it, an all-gather over 'ascan' assembles whole
     B-scans, and the rank returns its (f_loc, ndisp, oph) frames, or all F
-    with ``gather_full``.  With ``mesh=None`` the whole volume on the
+    with ``gather_full``; its products are ``torch.matmul`` (in the JAX
+    package, XLA products).  With ``mesh=None`` the whole volume on the
     frames' device (what the JAX function computes on a 1 × 1 mesh), every
-    frame in one batched product.  Each frame is normalized by its own
-    range, as in the session.  The products are ``torch.matmul`` (in the
-    JAX package, XLA products): no kernel of the port's lies on this path.
+    frame in one product: where :func:`cscan_kernel_route` names one, a
+    hand-written kernel computes the product and the magnitudes, one launch
+    a volume (``ops.kernels.cscan_volume_mags`` on the raw frames at
+    'default' on CUDA, ``ops.kernels.split_spectrum_mags`` on the float32
+    ratio at 'highest'), else ``pipeline.ascan_mags``.  Each frame is
+    normalized by its own range, as in the session.
 
     The frames are not split into chunks: at the flagship (512 × 2048 u8
-    frames, 512 depths, float32) F = 512 holds a 2 GiB float32 ratio stack
-    and 1 GiB of products at once, well inside one H100 (``chip_smoke.py``
-    phases 14 and 16 print the peak of device memory).
+    frames, 512 depths, float32) F = 512 holds 0.5 GiB of u8 frames and 0.5
+    GiB of magnitudes on the 'default' kernel's route, and on the chain's a
+    2 GiB float32 ratio stack and 1 GiB of products at once, well inside one
+    H100 (``chip_smoke.py`` phases 14, 16 and 21 print the peak of device
+    memory).
 
-    The span ``cscan.volume`` covers the host's enqueue of the volume."""
+    The span ``cscan.volume`` covers the host's enqueue of the volume; the
+    counters ``cscan.frames`` and ``cscan.kernel_frames`` (the frames a
+    kernel took, 0 on the chain and on the mesh) what the routes took."""
     with span("cscan.volume"):
+        route = None if mesh is not None else cscan_kernel_route(frames, calib, cfg, method)
+        count("cscan.frames", frames.shape[0])
+        count("cscan.kernel_frames", frames.shape[0] if route else 0)
         if mesh is not None:
             return build_cscan_volume(mesh, calib, cfg, method, gather_full)(frames, background,
                                                                              pi_frame)
+        if route is not None:
+            background, pi_frame = background.float(), pi_frame.float()
+        if route == "bf16":
+            return cscan_volume_mags(frames.contiguous(), pi_frame.contiguous(),
+                                     (1.0 / background).contiguous(), calib.op_re_bf16,
+                                     calib.op_im_bf16)
         yr = apodize_ratio(preprocess(frames, cfg), background, pi_frame, cfg)
-        mags = ascan_mags(yr, calib, method, cfg.matmul_precision)       # (F, oph, ndisp)
+        if route == "f32":
+            mags = split_spectrum_mags(yr.contiguous(), calib.op_re, calib.op_im, calib.op_tf32)
+        else:
+            mags = ascan_mags(yr, calib, method, cfg.matmul_precision)    # (F, oph, ndisp)
         return mags.transpose(-1, -2).contiguous()
 
 

@@ -291,6 +291,29 @@ def group_kernel_applies(op_dtype: torch.dtype) -> bool:
     return op_dtype in (torch.float32, torch.bfloat16)
 
 
+def kernel_operator(method: str, cfg, calib: Calibration, device: torch.device,
+                    dtype: torch.dtype | None = None) -> str | None:
+    """The operator a product kernel of the port's multiplies by, one rule
+    for every route that picks a kernel (:func:`reconstruct_group`,
+    :func:`ratio_group_sum`, ``parallel.sharded.cscan_kernel_route``):
+    ``"bf16"``, the bfloat16 pair, where the products run on bfloat16
+    operands (:func:`use_bf16`); ``"f32"``, M with its TF32 table
+    ('highest', or the 'fused_exact' method); None where the plain chain
+    runs: a stepwise method ('gather', 'hilbert'), the int8 tables, or an
+    operator the kernels do not take (:func:`group_kernel_applies`: a
+    float64 config).  ``dtype`` is the ratio's (default ``cfg.dtype``);
+    ``calib`` is the calibration or another operator with its tables."""
+    _check_method(method)
+    precision = "highest" if method == "fused_exact" else cfg.matmul_precision
+    _check_precision(precision)
+    if method in STEPWISE_METHODS or _int8_tables_apply(precision, calib):
+        return None
+    bf16 = use_bf16(precision, dtype or getattr(torch, cfg.dtype), device)
+    if not group_kernel_applies(_operator(calib, bf16)[0].dtype):
+        return None
+    return "bf16" if bf16 else "f32"
+
+
 def reconstruct_group(raw: torch.Tensor, background: torch.Tensor,
                       pi_frame: torch.Tensor, calib: Calibration, cfg,
                       method: str = "fused", dark: torch.Tensor | None = None) -> torch.Tensor:
@@ -311,18 +334,14 @@ def reconstruct_group(raw: torch.Tensor, background: torch.Tensor,
     float64 session through ``ascan_mags``.  So do the stepwise methods
     ('gather', 'hilbert'), which have no kernel: no launch.
     """
-    _check_method(method)
-    precision = "highest" if method == "fused_exact" else cfg.matmul_precision
-    _check_precision(precision)
+    operator = kernel_operator(method, cfg, calib, raw.device)
     dtype = getattr(torch, cfg.dtype)
     background, pi_frame = background.to(dtype), pi_frame.to(dtype)
-    if method not in STEPWISE_METHODS and raw_kernel_applies(raw, cfg):
-        op_re, op_im, op_tf32 = _operator(calib, use_bf16(precision, dtype, raw.device))
-        if not _int8_tables_apply(precision, calib) and group_kernel_applies(op_re.dtype):
-            pi = pi_frame if dark is None else pi_frame + dark.to(dtype)
-            return fused_recon_raw_accumulate(raw.contiguous(), pi.contiguous(),
-                                              (1.0 / background).contiguous(), op_re, op_im,
-                                              op_tf32)
+    if operator is not None and raw_kernel_applies(raw, cfg):
+        pi = pi_frame if dark is None else pi_frame + dark.to(dtype)
+        return fused_recon_raw_accumulate(raw.contiguous(), pi.contiguous(),
+                                          (1.0 / background).contiguous(),
+                                          *_operator(calib, operator == "bf16"))
     y = preprocess(raw, cfg, dtype)
     if dark is not None:
         y = y - dark.to(dtype)
@@ -335,14 +354,10 @@ def ratio_group_sum(yr: torch.Tensor, calib: Calibration, cfg,
     the ratio-input kernel ``fused_recon_accumulate``, or the plain chain
     where :func:`reconstruct_group` takes it (a stepwise method, the int8
     tables, an operator the kernels do not take)."""
-    _check_method(method)
-    precision = "highest" if method == "fused_exact" else cfg.matmul_precision
-    if method in STEPWISE_METHODS:
-        return ascan_mags(yr, calib, method).sum(dim=0)
-    op_re, op_im, op_tf32 = _operator(calib, use_bf16(precision, yr.dtype, yr.device))
-    if _int8_tables_apply(precision, calib) or not group_kernel_applies(op_re.dtype):
-        return ascan_mags_fused(yr, calib, precision).sum(dim=0)
-    return fused_recon_accumulate(yr.contiguous(), op_re, op_im, op_tf32)
+    operator = kernel_operator(method, cfg, calib, yr.device, yr.dtype)
+    if operator is None:
+        return ascan_mags(yr, calib, method, cfg.matmul_precision).sum(dim=0)
+    return fused_recon_accumulate(yr.contiguous(), *_operator(calib, operator == "bf16"))
 
 
 def reconstruct_group_frames(raw: torch.Tensor, background: torch.Tensor,

@@ -341,8 +341,8 @@ def test_u16_entries_are_kernel_1s_template():
     f32 instances' dispatch (the warp-specialised 3xTF32 schedule, or the
     mma.sync template), the bf16 one the bf16 instances' dispatch (the
     warp-specialised schedule, or the mma.sync template); LAUNCHES keeps
-    one key per TPU kernel, and one for the angiography product, which
-    replaces none."""
+    one key per TPU kernel, and one each for the angiography product and
+    the C-scan volume's, which replace none."""
     text = (_build.PACKAGE_ROOT / "csrc" / "fused_recon.cu").read_text()
     assert kernels.RAW_ENTRY == {torch.uint8: "fdoct_recon_raw_u8",
                                  torch.uint16: "fdoct_recon_raw_u16"}
@@ -355,7 +355,7 @@ def test_u16_entries_are_kernel_1s_template():
         assert body[:body.index("}")].count(f"{call}(") == 1, name
     assert set(LAUNCHES) == {"fused_recon_raw_accumulate", "fused_recon_accumulate",
                              "fused_recon_resident", "int8_bscan_display_fused",
-                             "split_spectrum_mags"}
+                             "split_spectrum_mags", "cscan_volume_mags"}
 
 
 def test_yr_wrapper_rejects_mismatched_dtype():
@@ -471,10 +471,13 @@ def test_resident_schedule_mirrors_the_c_rule():
     text = (_build.PACKAGE_ROOT / "csrc" / "fused_recon.cu").read_text()
     body = text[text.index("bool ws_applies("):]
     body = body[:body.index("\n}\n")]
-    assert "n_in % (16 / static_cast<int>(sizeof(In))) == 0 && ndisp % 8 == 0" in body
-    for name in ("x", "op_re", "op_im"):
-        assert f"aligned({name})" in body
-    assert "(!ws::raw<In>() || (aligned(pi) && aligned(inv_bg)))" in body
+    assert "tma_applies<In>(n_in, ndisp, {x, op_re, op_im})" in body
+    assert "(!ws::raw<In>() || tma_applies<In>(n_in, ndisp, {pi, inv_bg}))" in body
+    header = (_build.PACKAGE_ROOT / "csrc" / "hopper_mma.cuh").read_text()
+    rule = header[header.index("bool tma_applies("):]
+    rule = rule[:rule.index("\n}\n")]
+    assert "reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;" in rule
+    assert "n_in % (16 / static_cast<int>(sizeof(In))) == 0 && ndisp % 8 == 0" in rule
     for dtype, per_16 in {torch.uint8: 16, torch.uint16: 8, torch.float32: 4}.items():
         assert kernels.bf16_schedule(dtype, 2048, 512, [0] * 5) == "wgmma"
         assert kernels.bf16_schedule(dtype, per_16, 8, [0] * 3) == "wgmma"

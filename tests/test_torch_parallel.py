@@ -511,15 +511,26 @@ def test_cuda_mesh_volume_matches_one_device(cuda_world):
     from fdoct_tpu_torch.calibration import Calibration
     from fdoct_tpu_torch.config import PipelineConfig
     from fdoct_tpu_torch.parallel import shard_frames, sharded_cscan_volume
+    from fdoct_tpu_torch.pipeline import apodize_ratio, ascan_mags, preprocess
 
     cfg = PipelineConfig(**dict(CFG64, dtype="float32"))
     cal = Calibration.create(cfg, "cuda")
     frames = np.random.default_rng(1).integers(0, 255, (8, 16, 128)).astype(np.uint8)
     bg = torch.full((16, 128), 100.0, device="cuda")
-    one = sharded_cscan_volume(torch.as_tensor(frames).cuda(), bg, torch.zeros_like(bg), cal, cfg)
-    mesh = sharded_cscan_volume(shard_frames(frames, cuda_world), bg, torch.zeros_like(bg), cal,
-                                cfg, cuda_world, gather_full=True)
-    torch.testing.assert_close(mesh, one, rtol=0, atol=0)
+    pi = torch.zeros_like(bg)
+    fr = torch.as_tensor(frames).cuda()
+    one = sharded_cscan_volume(fr, bg, pi, cal, cfg)
+    mesh = sharded_cscan_volume(shard_frames(frames, cuda_world), bg, pi, cal, cfg, cuda_world,
+                                gather_full=True)
+    # the mesh runs the chain of torch.matmul products, bit for bit the
+    # single card's chain; one card takes the volume's kernel, held to that
+    # chain at the kernel's tolerance (the same bf16 operands, the ratio
+    # formed by 1/S(k), its f32 sums rounded in another order)
+    chain = ascan_mags(apodize_ratio(preprocess(fr, cfg), bg, pi, cfg), cal, "fused",
+                       cfg.matmul_precision).transpose(-1, -2)
+    torch.testing.assert_close(mesh, chain, rtol=0, atol=0)
+    tol = 2e-2                       # chip_smoke.py's TOL["bf16"], the kernel's own
+    torch.testing.assert_close(one, chain, rtol=tol, atol=tol * float(chain.abs().max()))
 
 
 @pytest.mark.cuda

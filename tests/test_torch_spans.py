@@ -145,9 +145,11 @@ def test_spans_are_host_operations_not_user_annotations(spans):
     ours = [e for e in prof.events() if e.name.startswith(profiling.EVENT_PREFIX)]
     assert [e.name for e in ours] == ["fdoct.cscan.volume"]
     assert all(e.device_type == DeviceType.CPU and not e.is_user_annotation for e in ours)
-    # a CPU tensor's copy records nothing
+    # a CPU tensor's copy records nothing; the volume counts its frames,
+    # none of them a kernel's on the CPU
     snap = spans.snapshot()
-    assert set(snap["spans"]) == {"cscan.volume"} and snap["counters"] == {}
+    assert set(snap["spans"]) == {"cscan.volume"}
+    assert snap["counters"] == {"cscan.frames": 3, "cscan.kernel_frames": 0}
 
 
 def test_traced_copy_records_wait_copy_and_bytes(spans, copy_as_on_card):
@@ -263,7 +265,9 @@ def test_tiny_traced_run_prints_the_contract_line(tmp_path):
     # one program span for each of the harness's traced volumes
     assert snap["units"][0] >= 1
     assert snap["spans"]["cscan.volume"]["count"] == snap["units"][0]
-    assert "to_host" not in snap["spans"] and snap["counters"] == {}
+    assert "to_host" not in snap["spans"]
+    assert set(snap["counters"]) == {"cscan.frames", "cscan.kernel_frames"}
+    assert snap["counters"]["cscan.kernel_frames"] == 0
 
 
 # --------------------------------------------------------------------------
@@ -321,7 +325,9 @@ def test_spans_add_no_device_event_on_the_card(cuda, spans):
                                       "fdoct.to_host.wait", "fdoct.to_host.copy"}
     assert all(e.device_type == DeviceType.CPU for e in host)
     snap = spans.snapshot()
-    assert set(snap["counters"]) == {"to_host.bytes", "to_host.reused_bytes"}
+    assert set(snap["counters"]) == {"to_host.bytes", "to_host.reused_bytes", "cscan.frames",
+                                     "cscan.kernel_frames"}
+    assert snap["counters"]["cscan.kernel_frames"] == snap["counters"]["cscan.frames"] == 8
     assert snap["counters"]["to_host.bytes"] == got.nbytes + row.nbytes
     assert 0 <= snap["counters"]["to_host.reused_bytes"] <= got.nbytes + row.nbytes
     assert snap["spans"]["to_host.wait"]["parent"] == "to_host"

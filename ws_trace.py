@@ -104,7 +104,7 @@ def _after(anchor: str, text: str) -> tuple[str, str]:
 
 #: edits of fused_recon.cu: (text found exactly once, text put in its place)
 TRACE_EDITS = [
-    ("// An integer count c < 2^23", _COUNTERS + "// An integer count c < 2^23"),
+    ("// Eight samples 8c..8c+7 of pair m", _COUNTERS + "// Eight samples 8c..8c+7 of pair m"),
     *(("        if (it >= nst) mbar_wait(&empty[s], ph ^ 1);\n"
        f"        mbar_expect_tx(&full[s], sbytes);\n        const int k0 = kt * {ns}::KT;\n",
        "        if (it >= nst) {\n          const long long t0 = clock64();\n"
